@@ -7,9 +7,12 @@ built on first use (``kernels/``).  The port imports ``torch`` and numpy and
 never JAX or any ``cmacionize_tpu`` module.
 
 Package layout (module and function names follow the JAX package):
-    utils/     parameter files (a YAML-subset reader), units, logging
-    ops/       photon traversal (K1 dispatch + plain version), H balance
-    models/    grid geometry, point sources, the H-only driver
+    utils/     parameter files (a YAML-subset reader), units, logging, TimeLine
+    ops/       photon traversal (K1 dispatch + plain version), H balance,
+               Riemann solvers and the MUSCL-Hancock step (K3 dispatch +
+               plain version)
+    models/    grid geometry, point sources, density functions, the H-only
+               and the RHD drivers
     kernels/   nvcc build + ctypes loader, kernel wrappers, launch counts
     csrc/      CUDA C++ sources of the kernels
     device.py  the CUDA device the port runs on

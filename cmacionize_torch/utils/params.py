@@ -211,6 +211,9 @@ class ParameterFile:
             node = node[part]
         return node
 
+    def has_value(self, path: str) -> bool:
+        return self._lookup(path) is not _MISSING
+
     # ---------------------------------------------------------------- typed
     def get_value(self, path: str, default: Any = _MISSING) -> Any:
         """Raw value (string/number/bool/list), or ``default``."""
@@ -221,11 +224,17 @@ class ParameterFile:
             value = default
         return value
 
+    def get_string(self, path: str, default: Any = _MISSING) -> str:
+        return str(self.get_value(path, default))
+
     def get_number(self, path: str, default: Any = _MISSING) -> float:
         return _coerce_number(self.get_value(path, default))
 
     def get_int(self, path: str, default: Any = _MISSING) -> int:
         return int(self.get_number(path, default))
+
+    def get_bool(self, path: str, default: Any = _MISSING) -> bool:
+        return _coerce_bool(self.get_value(path, default))
 
     def get_physical_value(
         self,

@@ -1,25 +1,32 @@
-"""K1 and the port's driver on the card (marked ``cuda``).
+"""K1, K3 and the port's drivers on the card (marked ``cuda``).
 
-K1 is CUDA C++ with no CPU mode, so these tests skip where CUDA is missing;
-the plain version they compare against is tested against the JAX package in
-test_torch_traversal.py.  The file imports no JAX, so that it runs where JAX
+K1 and K3 are CUDA C++ with no CPU mode, so these tests skip where CUDA is
+missing; the plain versions they compare against are tested against the JAX
+package in test_torch_traversal.py and test_torch_hydro.py.  The file imports no JAX, so that it runs where JAX
 is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from cmacionize_torch import kernels
+from cmacionize_torch.kernels.hydro_step import hydro_step_cuda
 from cmacionize_torch.kernels.trace_packets import trace_packets_cuda
 from cmacionize_torch.models.grid import GridGeometry
 from cmacionize_torch.models.ionization_simulation import (
     HOnlyConfig,
     HOnlyIonizationSimulation,
 )
-from cmacionize_torch.ops import traversal
+from cmacionize_torch.models.rhd_simulation import RHDSimulation
+from cmacionize_torch.ops import hydro, riemann, traversal
+from cmacionize_torch.utils.params import ParameterFile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -27,7 +34,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 is CUDA C++ with no CPU mode")
+        pytest.skip("needs a CUDA device: K1 and K3 are CUDA C++ with no CPU mode")
     return torch.device("cuda")
 
 
@@ -144,3 +151,168 @@ def test_mini_stromgren_on_card(cuda):
     r = (3 * v_ion / (4 * np.pi)) ** (1 / 3)
     assert r == pytest.approx(sim.stromgren_radius_analytic(), rel=0.1)
     assert xH[12, 12, 12] < 1e-4 and xH[0, 0, 0] > 0.99
+
+
+# ------------------------------------------------------------- K3 (hydro)
+
+
+def _hydro_inputs(seed, shape, device, si=False):
+    """A starbench-like state made with numpy: a hot bubble with an outward
+    shell in cold gas, plus a Sod-like jump along x; in SI units (ρ ~ 5e-18
+    kg m^-3) when ``si``, else of order one."""
+    rng = np.random.default_rng(seed)
+    centre = np.asarray(shape, float) / 2.0
+    offset = np.indices(shape) + 0.5 - centre[:, None, None, None]
+    r = np.sqrt((offset**2).sum(0)) / shape[0]
+    inside, shell = r < 0.25, (r >= 0.25) & (r < 0.35)
+    rho = rng.uniform(0.9, 1.1, shape) * np.where(offset[0] < 0, 1.0, 0.3)
+    rho = rho * np.where(inside, 0.05, np.where(shell, 3.0, 1.0))
+    p = rng.uniform(0.9, 1.1, shape) * np.where(offset[0] < 0, 1.0, 0.2)
+    p = p * np.where(inside, 50.0, 1.0)
+    radial = offset / np.maximum(np.sqrt((offset**2).sum(0)), 1e-9)
+    vel = rng.uniform(-0.05, 0.05, (3,) + shape) + np.where(shell, 0.8, 0.0) * radial
+    if si:
+        rho, vel, p = rho * 5.2e-18, vel * 1.2e4, p * 4.3e-12
+    w = hydro.Primitives(*(
+        torch.tensor(np.asarray(a, np.float32), device=device) for a in (rho, *vel, p)
+    ))
+    return w
+
+
+BOUNDARIES = {
+    "reflective": ((hydro.BC_REFLECTIVE,) * 2,) * 3,
+    "periodic": ((hydro.BC_PERIODIC,) * 2,) * 3,
+    "outflow_mixed": (
+        (hydro.BC_OUTFLOW, hydro.BC_REFLECTIVE),
+        (hydro.BC_PERIODIC, hydro.BC_PERIODIC),
+        (hydro.BC_REFLECTIVE, hydro.BC_OUTFLOW),
+    ),
+}
+
+
+@pytest.mark.parametrize(
+    "shape, bc, solver, gamma, si",
+    [
+        ((16, 16, 16), "reflective", "HLLC", 5.0 / 3.0, False),
+        ((32, 32, 32), "reflective", "HLLC", 1.0001, True),
+        ((24, 16, 20), "periodic", "HLLC", 5.0 / 3.0, False),
+        ((16, 24, 32), "outflow_mixed", "HLLC", 1.4, False),
+        ((16, 16, 16), "reflective", "Exact", 5.0 / 3.0, False),
+        ((24, 16, 20), "periodic", "Exact", 1.4, False),
+        ((16, 24, 32), "outflow_mixed", "Exact", 5.0 / 3.0, False),
+    ],
+)
+def test_hydro_kernel_matches_plain_version(cuda, shape, bc, solver, gamma, si):
+    w = _hydro_inputs(3, shape, cuda, si=si)
+    u = hydro.conserved_from_primitives(w, gamma)
+    wp = hydro.pad_primitives(w, BOUNDARIES[bc])
+    cell = (5e15,) * 3 if si else (0.1, 0.1, 0.1)
+    dt = 2e10 if si else 2e-3
+    kwargs = dict(cell_size=cell, gamma=gamma, riemann_solver=solver)
+    before = kernels.LAUNCHES["hydro_step"]
+    out_k = hydro.hydro_step_padded(u, wp, dt, **kwargs)
+    assert kernels.LAUNCHES["hydro_step"] == before + 1
+    out_r = hydro.hydro_step_padded_reference(u, wp, dt, **kwargs)
+    torch.cuda.synchronize()
+    # the same f32 operations in the same order (--fmad=false): HLLC to
+    # round-off, the exact solver up to torch's pow shortcuts
+    rel = 1e-6 if solver == "HLLC" else 1e-5
+    for name, a, b in zip(out_r._fields, out_r, out_k):
+        assert torch.isfinite(b).all(), name
+        err = float((a - b).abs().max() / a.abs().max())
+        assert err <= rel, (name, err)
+    assert float((out_k.energy - u.energy).abs().max()) > 0.0
+
+
+def test_hydro_step_through_kernel_gravity_kick(cuda):
+    shape = (16, 16, 16)
+    w = _hydro_inputs(4, shape, cuda)
+    u = hydro.conserved_from_primitives(w, 5.0 / 3.0)
+    wp = hydro.pad_primitives(w, BOUNDARIES["periodic"])
+    gravity = tuple(torch.full(shape, g, device=cuda) for g in (0.3, -0.2, 0.1))
+    kwargs = dict(cell_size=(0.1,) * 3, gamma=5.0 / 3.0, gravity=gravity)
+    out_k = hydro.hydro_step_padded(u, wp, 1e-3, **kwargs)
+    out_r = hydro.hydro_step_padded_reference(u, wp, 1e-3, **kwargs)
+    for a, b in zip(out_r, out_k):
+        assert float((a - b).abs().max() / a.abs().max()) <= 1e-6
+
+
+def test_sod_tube_through_kernel(cuda):
+    n, gamma, t_end = 128, 5.0 / 3.0, 0.2
+    shape = (n, 4, 4)
+    dx = 1.0 / n
+    x = (np.arange(n) + 0.5) * dx
+    rho = np.broadcast_to(np.where(x < 0.5, 1.0, 0.125)[:, None, None], shape)
+    p = np.broadcast_to(np.where(x < 0.5, 1.0, 0.1)[:, None, None], shape)
+    zeros = torch.zeros(shape, device=cuda)
+    w = hydro.Primitives(
+        torch.tensor(np.asarray(rho, np.float32), device=cuda), zeros, zeros, zeros,
+        torch.tensor(np.asarray(p, np.float32), device=cuda),
+    )
+    u = hydro.conserved_from_primitives(w, gamma)
+    boundaries = (
+        (hydro.BC_OUTFLOW, hydro.BC_OUTFLOW),
+        (hydro.BC_PERIODIC, hydro.BC_PERIODIC),
+        (hydro.BC_PERIODIC, hydro.BC_PERIODIC),
+    )
+    kernels.LAUNCHES.clear()
+    t, steps = 0.0, 0
+    while t < t_end:
+        dt = min(float(hydro.cfl_timestep(u, (dx,) * 3, cfl=0.4, gamma=gamma)), t_end - t)
+        u = hydro.hydro_step(u, dt, boundaries=boundaries, cell_size=(dx,) * 3, gamma=gamma)
+        t += dt
+        steps += 1
+    assert kernels.LAUNCHES["hydro_step"] == steps
+    w = hydro.primitives_from_conserved(u, gamma)
+    one = [torch.tensor(v) for v in (1.0, 0.0, 1.0, 0.125, 0.0, 0.1)]
+    rho_ex = riemann.exact_sample(*one, torch.tensor(np.float32((x - 0.5) / 0.2)), gamma=gamma)[0]
+    l1 = float((w.rho[:, 2, 2].cpu() - rho_ex).abs().mean())
+    assert l1 < 0.012, l1
+    assert float(u.rho.double().sum()) * dx / 16 == pytest.approx((1.0 + 0.125) / 2, rel=1e-4)
+
+
+def test_hydro_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    shape = (8, 8, 8)
+    w = _hydro_inputs(5, shape, cuda)
+    u = tuple(hydro.conserved_from_primitives(w, 5.0 / 3.0))
+    wp = tuple(hydro.pad_primitives(w, BOUNDARIES["periodic"]))
+    kwargs = dict(cell_size=(0.1,) * 3, gamma=5.0 / 3.0)
+    with pytest.raises(ValueError, match="float32"):
+        hydro_step_cuda((u[0].double(),) + u[1:], wp, 1e-3, **kwargs)
+    with pytest.raises(ValueError, match="CUDA"):
+        hydro_step_cuda(tuple(f.cpu() for f in u), wp, 1e-3, **kwargs)
+    with pytest.raises(ValueError, match="float32"):
+        hydro_step_cuda(u, wp[:4] + (wp[4].cpu(),), 1e-3, **kwargs)
+    with pytest.raises(ValueError, match="shape"):
+        hydro_step_cuda(u, tuple(f[1:-1, 1:-1, 1:-1] for f in wp), 1e-3, **kwargs)
+    with pytest.raises(ValueError, match="contiguous"):
+        bad = torch.empty(8, 8, 16, device=cuda)[:, :, ::2]
+        hydro_step_cuda((bad,) + u[1:], wp, 1e-3, **kwargs)
+    with pytest.raises(ValueError, match="Riemann"):
+        hydro_step_cuda(u, wp, 1e-3, riemann_solver="HLL", **kwargs)
+
+
+def test_short_starbench_on_card(cuda):
+    params = ParameterFile(os.path.join(ROOT, "benchmarks", "starbench.param"))
+    params._tree["DensityGrid"]["number of cells"] = [32, 32, 32]
+    params._tree["RadiationHydrodynamicsSimulation"]["number of photons"] = 100000
+    prev = os.getcwd()
+    os.chdir(os.path.join(ROOT, "benchmarks"))
+    try:
+        sim = RHDSimulation.from_params(params, device=cuda, seed=42)
+    finally:
+        os.chdir(prev)
+    kernels.LAUNCHES.clear()
+    state, xH = sim.advance(12)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["trace_packets"] == 12 * sim.config.nloop
+    assert kernels.LAUNCHES["hydro_step"] == 12
+    for f in state:
+        assert f.device.type == "cuda" and torch.isfinite(f).all()
+    w = hydro.primitives_from_conserved(state, sim.config.gamma)
+    assert float(w.p.min()) > 0.0
+    xH = xH.cpu().numpy()
+    assert xH[16, 16, 16] < 1e-3 and xH[0, 0, 0] > 0.99
+    mass = float(state.rho.double().sum())
+    expected = 3113e6 * 1.672621898e-27 * 32**3
+    assert abs(mass / expected - 1.0) < 1e-4

@@ -112,6 +112,27 @@ def test_typed_getters_coerce_like_jax():
         port.get_value("S:n:deeper")
 
 
+def test_new_getters_match_jax():
+    text = "S:\n  s: HLLC\n  n: 1.0001\n  b: true\n  y: yes\n  f: [a, b]\n"
+    port, ref = ParameterFile(parse_yaml_subset(text)), JaxParameterFile(yaml.safe_load(text))
+    for path in ("S:s", "S:n", "S:b", "S:y", "S:f", "S:missing", "S", "S:s:deeper"):
+        assert port.has_value(path) == ref.has_value(path), path
+    for getter, args in [
+        ("get_string", ("S:s",)),
+        ("get_string", ("S:n",)),
+        ("get_string", ("S:missing", "reflective")),
+        ("get_bool", ("S:b",)),
+        ("get_bool", ("S:y",)),
+        ("get_bool", ("S:missing", False)),
+        ("get_bool", ("S:missing", "on")),
+    ]:
+        assert getattr(port, getter)(*args) == getattr(ref, getter)(*args), (getter, args)
+    with pytest.raises(ValueError):
+        port.get_bool("S:s")
+    with pytest.raises(KeyError):
+        port.get_string("S:missing")
+
+
 def test_import_leaves_jax_out():
     # the port never imports JAX or the JAX package, even where
     # JAX_PLATFORMS is set (cmacionize_tpu/__init__.py imports jax then)
@@ -122,6 +143,8 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.device
         import cmacionize_torch.kernels.build
         import cmacionize_torch.models.ionization_simulation
+        import cmacionize_torch.models.rhd_simulation
+        import cmacionize_torch.kernels.hydro_step
         import cmacionize_torch.utils.params
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "cmacionize_tpu"))
