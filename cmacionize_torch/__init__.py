@@ -8,13 +8,16 @@ never JAX or any ``cmacionize_tpu`` module.
 
 Package layout (module and function names follow the JAX package):
     utils/     parameter files (a YAML-subset reader), units, logging, TimeLine
-    ops/       photon traversal (K1 dispatch + plain version), H balance,
+    ops/       photon traversal (K1 and K2 dispatch + plain versions), the
+               H, H-He and metal balances, atomic rates and line cooling,
+               the temperature balance (K4 dispatch + plain version),
                Riemann solvers and the MUSCL-Hancock step (K3 dispatch +
                plain version)
-    models/    grid geometry, point sources, density functions, the H-only
-               and the RHD drivers
+    models/    grid geometry, point sources and spectra, density functions,
+               re-emission, the H-only, multi-frequency and RHD drivers
     kernels/   nvcc build + ctypes loader, kernel wrappers, launch counts
     csrc/      CUDA C++ sources of the kernels
+    data.py    the atomic tables, read by path from cmacionize_tpu/data/
     device.py  the CUDA device the port runs on
 """
 

@@ -1,0 +1,171 @@
+// K2: the spectral photon-packet march, one thread per packet.
+//
+// Replaces cmacionize_tpu/ops/traversal.py:trace_packets_spectral (the
+// lockstep lax.while_loop march of the multi-frequency path) and its TPU
+// layouts trace_packets_spectral_blocked and trace_packets_spectral_auto
+// (blocked rows and the batch split, bookkeeping for the TPU's memory system
+// that is not carried over).  The plain PyTorch version is
+// cmacionize_torch/ops/traversal.py:trace_packets_spectral_reference.
+//
+// It is K1 (csrc/trace_packets.cu) with two changes, step for step as in
+// the JAX march:
+//   * the opacity is per packet, chi = max(chi_H[cell] sigma_H +
+//     chi_He[cell] sigma_He, 1e-30);
+//   * the deposit l * w goes to tally[fbin * ncell + cell], a frequency-binned
+//     tally of n_bins * ncell floats.
+// Everything else is K1's: wall distances with the degenerate-direction
+// guard, absorption inside the cell, the crossed axis snapped onto its wall,
+// periodic wrap, escape at the walls, at most max_steps steps, and the final
+// state (position, cell, tau_left, absorbed) written back for re-emission.
+// A packet handed in inactive returns at once: a re-emission generation
+// passes the whole batch with its re-emission mask as the active flags.
+//
+// Precision: built with --fmad=false and without fast math.  Where XLA on
+// the CPU fuses the JAX march, K2 rounds once with an explicit FMA, and only
+// there: the position advance p + d*l, and chi_H*sigma_H + (chi_He*sigma_He)
+// (the He product rounded, then one fused multiply-add; a bit-parity test
+// of the plain version against the JAX march at 16^3 chose this form over
+// plain and He-fused sums).  Only the order in which atomics add into the
+// tally differs from the plain version.
+//
+// What bounds it on an H100: per step, two random 4-byte gathers (chi_H,
+// chi_He; 1 MB each at 64^3, L2-resident) and one 4-byte atomicAdd into a
+// tally of 134 MB at 64^3 x 128 bins, which does not fit the 50 MB L2, so
+// the atomics go to HBM unless packets of one bin crowd the same cells.
+// Atomics contend at the source cells, and warps diverge as packets
+// terminate.  Sorting packets by bin or privatising the tally per block are
+// later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kEpsDir = 1e-12f;  // _EPS_DIR of the JAX march
+constexpr float kChiFloor = 1e-30f;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float wall_distance(float pos, int cell, float dirn) {
+  if (!(fabsf(dirn) > kEpsDir)) return __int_as_float(0x7f800000);  // +inf
+  const float wall = static_cast<float>(cell + (dirn > 0.0f ? 1 : 0));
+  return fmaxf((wall - pos) / dirn, 0.0f);
+}
+
+// Periodic wrap of one axis: a step leaves the range by at most one cell.
+__device__ __forceinline__ void wrap(float& p, int& c, int n) {
+  if (c < 0) {
+    p = p + static_cast<float>(n);
+    c += n;
+  } else if (c >= n) {
+    p = p - static_cast<float>(n);
+    c -= n;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) trace_packets_spectral_kernel(
+    const float* __restrict__ chi_h, const float* __restrict__ chi_he,
+    float* __restrict__ tally, float* __restrict__ px_io,
+    float* __restrict__ py_io, float* __restrict__ pz_io,
+    int* __restrict__ cx_io, int* __restrict__ cy_io, int* __restrict__ cz_io,
+    const float* __restrict__ dx_in, const float* __restrict__ dy_in,
+    const float* __restrict__ dz_in, float* __restrict__ tau_io,
+    const float* __restrict__ weight_in, const float* __restrict__ sig_h_in,
+    const float* __restrict__ sig_he_in, const int* __restrict__ fbin_in,
+    uint8_t* __restrict__ active_io, uint8_t* __restrict__ absorbed_io, int n,
+    int nx, int ny, int nz, int periodic_mask, int max_steps) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bool active = active_io[i] != 0;
+  if (!active) return;  // frozen: state stays as handed in
+
+  float px = px_io[i], py = py_io[i], pz = pz_io[i];
+  int cx = cx_io[i], cy = cy_io[i], cz = cz_io[i];
+  const float dx = dx_in[i], dy = dy_in[i], dz = dz_in[i];
+  float tau_left = tau_io[i];
+  const float w = weight_in[i];
+  const float sig_h = sig_h_in[i], sig_he = sig_he_in[i];
+  const int64_t ncell = static_cast<int64_t>(nx) * ny * nz;
+  float* const bin_tally = tally + static_cast<int64_t>(fbin_in[i]) * ncell;
+  bool absorbed = absorbed_io[i] != 0;
+  const bool per_x = periodic_mask & 1, per_y = periodic_mask & 2,
+             per_z = periodic_mask & 4;
+  const int step_x = dx > 0.0f ? 1 : -1;
+  const int step_y = dy > 0.0f ? 1 : -1;
+  const int step_z = dz > 0.0f ? 1 : -1;
+
+  active = cx >= 0 && cx < nx && cy >= 0 && cy < ny && cz >= 0 && cz < nz;
+  for (int step = 0; active && step < max_steps; ++step) {
+    const float tx = wall_distance(px, cx, dx);
+    const float ty = wall_distance(py, cy, dy);
+    const float tz = wall_distance(pz, cz, dz);
+    const float l_exit = fminf(tx, fminf(ty, tz));
+
+    const int flat = (cx * ny + cy) * nz + cz;
+    const float he = __ldg(chi_he + flat) * sig_he;
+    const float chi = fmaxf(__fmaf_rn(__ldg(chi_h + flat), sig_h, he), kChiFloor);
+    const float tau_cell = chi * l_exit;
+    const bool absorbed_now = tau_cell >= tau_left;
+    const float l_travel = absorbed_now ? tau_left / chi : l_exit;
+    atomicAdd(bin_tally + flat, l_travel * w);
+
+    px = __fmaf_rn(dx, l_travel, px);
+    py = __fmaf_rn(dy, l_travel, py);
+    pz = __fmaf_rn(dz, l_travel, pz);
+    if (absorbed_now) {
+      tau_left = 0.0f;
+      absorbed = true;
+      active = false;
+      break;
+    }
+    // snap the crossed coordinate onto the wall (x, then y, then z on ties)
+    if (l_exit == tx) {
+      px = static_cast<float>(dx > 0.0f ? cx + 1 : cx);
+      cx += step_x;
+    } else if (l_exit == ty) {
+      py = static_cast<float>(dy > 0.0f ? cy + 1 : cy);
+      cy += step_y;
+    } else {
+      pz = static_cast<float>(dz > 0.0f ? cz + 1 : cz);
+      cz += step_z;
+    }
+    if (per_x) wrap(px, cx, nx);
+    if (per_y) wrap(py, cy, ny);
+    if (per_z) wrap(pz, cz, nz);
+    tau_left = tau_left - tau_cell;
+    active = cx >= 0 && cx < nx && cy >= 0 && cy < ny && cz >= 0 && cz < nz;
+  }
+
+  px_io[i] = px;
+  py_io[i] = py;
+  pz_io[i] = pz;
+  cx_io[i] = cx;
+  cy_io[i] = cy;
+  cz_io[i] = cz;
+  tau_io[i] = tau_left;
+  active_io[i] = active ? 1 : 0;
+  absorbed_io[i] = absorbed ? 1 : 0;
+}
+
+}  // namespace
+
+// Launches K2 on `stream`; returns cudaGetLastError() (0 on success).
+// Packet arrays are device pointers of length n; chi_h and chi_he hold
+// nx*ny*nz floats, tally n_bins*nx*ny*nz.  Packet state is updated in place;
+// flags are bytes holding 0 or 1; fbin must lie in [0, n_bins).
+extern "C" int cmi_trace_packets_spectral(
+    const float* chi_h, const float* chi_he, float* tally, float* px, float* py,
+    float* pz, int* cx, int* cy, int* cz, const float* dx, const float* dy,
+    const float* dz, float* tau_left, const float* weight, const float* sig_h,
+    const float* sig_he, const int* fbin, uint8_t* active, uint8_t* absorbed,
+    int n, int nx, int ny, int nz, int n_bins, int periodic_mask, int max_steps,
+    void* stream) {
+  if (n > 0 && n_bins > 0) {
+    const int blocks = (n + kThreads - 1) / kThreads;
+    trace_packets_spectral_kernel<<<blocks, kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+        chi_h, chi_he, tally, px, py, pz, cx, cy, cz, dx, dy, dz, tau_left,
+        weight, sig_h, sig_he, fbin, active, absorbed, n, nx, ny, nz,
+        periodic_mask, max_steps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,8 +1,10 @@
-"""Photon sources: isotropic point-source emission.
+"""Photon sources: isotropic point-source emission and spectra over bins.
 
-Port of the monochromatic point-source part of
-``cmacionize_tpu/models/sources.py`` (``isotropic_directions``,
-``sample_tau_targets``, ``emit_point_source``).  Random numbers come from an
+Port of the point-source part of ``cmacionize_tpu/models/sources.py``
+(``isotropic_directions``, ``sample_tau_targets``, ``emit_point_source``) and
+of the multi-frequency driver's spectrum sampling over frequency bins
+(``MultiFreqIonizationSimulation.__init__`` and ``_emit_bins`` in
+``cmacionize_tpu/models/multifreq_simulation.py``).  Random numbers come from an
 explicit ``torch.Generator`` on the packets' device.  Its stream cannot
 reproduce ``jax.random``, so the port agrees with the JAX package in
 distribution only; tests that need identical packets build them with numpy.
@@ -12,7 +14,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from cmacionize_torch import constants
 
 
 def _uniform(generator: torch.Generator, n: int, dtype) -> torch.Tensor:
@@ -55,3 +60,31 @@ def emit_point_source(
     pz = gz + nudge * dz
     weight = torch.ones(n, dtype=dtype, device=generator.device)
     return px, py, pz, dx, dy, dz, tau, weight
+
+
+def planck_bin_pdf(bin_centers, temperature: float) -> np.ndarray:
+    """Blackbody photon-number weights ν²/(e^{hν/kT} - 1) at the bin centres."""
+    x = constants.PLANCK * bin_centers / (constants.BOLTZMANN * temperature)
+    return bin_centers**2 / np.expm1(x)
+
+
+def monochromatic_bin_pdf(bin_edges, frequency: float) -> np.ndarray:
+    """All weight in the bin holding ``frequency`` (clamped to the range)."""
+    n_bins = len(bin_edges) - 1
+    pdf = np.zeros(n_bins)
+    pdf[np.clip(np.searchsorted(bin_edges, frequency) - 1, 0, n_bins - 1)] = 1.0
+    return pdf
+
+
+def bin_cdf(pdf) -> np.ndarray:
+    """[n_bins + 1] cumulative distribution over the bins, from 0 to 1."""
+    cdf = np.cumsum(pdf)
+    return np.concatenate([[0.0], cdf / cdf[-1]])
+
+
+def sample_bins(generator: torch.Generator, n: int, cdf: torch.Tensor) -> torch.Tensor:
+    """n frequency bins (int32) drawn from the f32 bin CDF by inverse
+    transform (``jnp.searchsorted``'s side="left" is ``right=False``)."""
+    xi = _uniform(generator, n, torch.float32)
+    n_bins = cdf.numel() - 1
+    return torch.clamp(torch.searchsorted(cdf, xi) - 1, 0, n_bins - 1).to(torch.int32)

@@ -1,7 +1,8 @@
 """Batched photon-packet traversal through a Cartesian grid.
 
 Port of ``cmacionize_tpu/ops/traversal.py:trace_packets`` (the single-channel
-march of the Strömgren path).  Packets are structure-of-arrays ``[P]``
+march of the Strömgren path) and of ``trace_packets_spectral`` (the
+frequency-binned march of the multi-frequency path).  Packets are structure-of-arrays ``[P]``
 tensors with positions in cell units; each one marches cell by cell until it
 reaches its target optical depth τ (absorption) or leaves the box (escape),
 adding path length × weight into a flat per-cell tally whose index is
@@ -10,7 +11,9 @@ adding path length × weight into a flat per-cell tally whose index is
 :func:`trace_packets` dispatches on the device: CPU tensors go through the
 plain PyTorch version :func:`trace_packets_reference` (a lockstep loop, like
 the JAX march), CUDA tensors through K1, the hand-written kernel in
-``csrc/trace_packets.cu``.  There is no fallback between the two.
+``csrc/trace_packets.cu``; :func:`trace_packets_spectral` likewise goes to
+:func:`trace_packets_spectral_reference` or to K2
+(``csrc/trace_packets_spectral.cu``).  There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from cmacionize_torch.kernels.trace_packets import trace_packets_cuda
+from cmacionize_torch.kernels.trace_packets_spectral import trace_packets_spectral_cuda
 
 _EPS_DIR = 1e-12
 _CHI_FLOOR = 1e-30
@@ -90,29 +94,14 @@ def _default_max_steps(shape, max_steps):
     return max_steps if max_steps else 4 * (shape[0] + shape[1] + shape[2])
 
 
-def trace_packets_reference(
-    opacity: torch.Tensor,
-    packets: PacketBatch,
-    tally: torch.Tensor,
-    *,
-    shape: Tuple[int, int, int],
-    periodic: Tuple[bool, bool, bool] = (False, False, False),
-    max_steps: int = 0,
-):
-    """Plain PyTorch march: the JAX lockstep loop, step for step.
+def _march_reference(pk, tally, chi_of, tally_index, *, shape, periodic, max_steps):
+    """The JAX lockstep loop, step for step, for either batch type.
 
-    Every still-active packet advances one cell crossing per iteration; the
-    loop stops when none is active or after ``max_steps`` iterations.
-    Deposits go into ``tally`` with ``index_add_`` (in place).  A packet
-    handed in active with a cell outside the grid counts as escaped.
-
-    Returns (tally, packets) like :func:`trace_packets`.
-    """
+    ``chi_of(pk, flat)`` gives each packet's opacity in its cell and
+    ``tally_index(pk, flat)`` the tally slot of its deposit."""
     nx, ny, nz = shape
     max_steps = _default_max_steps(shape, max_steps)
-    pk = packets._replace(
-        active=packets.active & _inside(packets.cx, packets.cy, packets.cz, shape)
-    )
+    pk = pk._replace(active=pk.active & _inside(pk.cx, pk.cy, pk.cz, shape))
     step_x, step_y, step_z = (
         torch.where(d > 0, 1, -1).to(torch.int32) for d in (pk.dx, pk.dy, pk.dz)
     )
@@ -126,12 +115,12 @@ def trace_packets_reference(
         # terminated packets may sit outside the grid: gather/scatter them
         # at cell 0 with a zero deposit
         flat = torch.where(pk.active, (pk.cx * ny + pk.cy) * nz + pk.cz, 0)
-        chi = torch.clamp_min(opacity[flat], _CHI_FLOOR)
+        chi = torch.clamp_min(chi_of(pk, flat), _CHI_FLOOR)
         tau_cell = chi * l_exit
         absorbed_now = pk.active & (tau_cell >= pk.tau_left)
         l_travel = torch.where(absorbed_now, pk.tau_left / chi, l_exit)
         deposit = torch.where(pk.active, l_travel * pk.weight, 0.0)
-        tally.index_add_(0, flat.to(torch.int64), deposit.to(tally.dtype))
+        tally.index_add_(0, tally_index(pk, flat).to(torch.int64), deposit.to(tally.dtype))
 
         # advance: land exactly on the crossed wall (axis of minimal t) or at
         # the absorption point inside the cell
@@ -169,19 +158,45 @@ def trace_packets_reference(
         # freeze terminated packets: their final state (position, remaining
         # tau) is what re-emission and the domain exchange read
         upd = pk.active
-        pk = PacketBatch(
-            torch.where(upd, px, pk.px),
-            torch.where(upd, py, pk.py),
-            torch.where(upd, pz, pk.pz),
-            torch.where(upd, cx, pk.cx),
-            torch.where(upd, cy, pk.cy),
-            torch.where(upd, cz, pk.cz),
-            pk.dx, pk.dy, pk.dz,
-            torch.where(upd, tau_left, pk.tau_left),
-            pk.weight, active, absorbed,
+        pk = pk._replace(
+            px=torch.where(upd, px, pk.px),
+            py=torch.where(upd, py, pk.py),
+            pz=torch.where(upd, pz, pk.pz),
+            cx=torch.where(upd, cx, pk.cx),
+            cy=torch.where(upd, cy, pk.cy),
+            cz=torch.where(upd, cz, pk.cz),
+            tau_left=torch.where(upd, tau_left, pk.tau_left),
+            active=active,
+            absorbed=absorbed,
         )
         step += 1
     return tally, pk
+
+
+def trace_packets_reference(
+    opacity: torch.Tensor,
+    packets: PacketBatch,
+    tally: torch.Tensor,
+    *,
+    shape: Tuple[int, int, int],
+    periodic: Tuple[bool, bool, bool] = (False, False, False),
+    max_steps: int = 0,
+):
+    """Plain PyTorch march: the JAX lockstep loop, step for step.
+
+    Every still-active packet advances one cell crossing per iteration; the
+    loop stops when none is active or after ``max_steps`` iterations.
+    Deposits go into ``tally`` with ``index_add_`` (in place).  A packet
+    handed in active with a cell outside the grid counts as escaped.
+
+    Returns (tally, packets) like :func:`trace_packets`.
+    """
+    return _march_reference(
+        packets, tally,
+        lambda pk, flat: opacity[flat],
+        lambda pk, flat: flat,
+        shape=shape, periodic=periodic, max_steps=max_steps,
+    )
 
 
 _STATE_FIELDS = ("px", "py", "pz", "cx", "cy", "cz", "tau_left", "active", "absorbed")
@@ -228,3 +243,143 @@ def trace_packets(
         max_steps=_default_max_steps(shape, max_steps),
     )
     return tally, out
+
+
+# ---------------------------------------------------------------------------
+# Spectral (multi-frequency) traversal
+# ---------------------------------------------------------------------------
+
+
+class SpectralPacketBatch(NamedTuple):
+    """Packet batch with per-packet H/He cross sections and a frequency bin.
+
+    Each crossing deposits ℓ·w once into the (bin, cell) slot of a
+    frequency-binned tally; the per-ion mean-intensity and heating integrals
+    follow from one matrix product (:func:`spectral_tallies_to_ion_integrals`).
+    Opacity involves only H and He, carried per packet as σ_H(ν), σ_He(ν).
+    """
+
+    px: torch.Tensor
+    py: torch.Tensor
+    pz: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+    cz: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    tau_left: torch.Tensor
+    weight: torch.Tensor
+    sig_h: torch.Tensor  # [P] sigma_H(nu) (m^2)
+    sig_he: torch.Tensor  # [P] sigma_He(nu) (m^2)
+    fbin: torch.Tensor  # [P] int32 frequency bin
+    active: torch.Tensor
+    absorbed: torch.Tensor
+
+    @property
+    def size(self):
+        return self.px.shape[0]
+
+
+def make_spectral_packets(
+    position, direction, tau_target, weight, sig_h, sig_he, fbin, shape
+) -> SpectralPacketBatch:
+    """Build a spectral batch from [P,3] position (cell units) / direction."""
+    pk = make_packets(position, direction, tau_target, weight, shape)
+    return SpectralPacketBatch(
+        *pk[:11], sig_h.contiguous(), sig_he.contiguous(), fbin.contiguous(),
+        pk.active, pk.absorbed,
+    )
+
+
+def _spectral_opacity(chi_h, chi_he):
+    """χ = χ_H·σ_H + χ_He·σ_He per packet, as XLA on the CPU evaluates the
+    JAX march's expression: the He product is rounded, then added to the
+    exact H product with one rounding (a fused multiply-add).  K2 uses
+    ``__fmaf_rn`` the same way."""
+
+    def chi_of(pk, flat):
+        he = chi_he[flat] * pk.sig_he
+        return _fma(chi_h[flat], pk.sig_h, he)
+
+    return chi_of
+
+
+def trace_packets_spectral_reference(
+    chi_h: torch.Tensor,
+    chi_he: torch.Tensor,
+    packets: SpectralPacketBatch,
+    tally2d: torch.Tensor,
+    *,
+    shape: Tuple[int, int, int],
+    n_bins: int,
+    periodic: Tuple[bool, bool, bool] = (False, False, False),
+    max_steps: int = 0,
+):
+    """Plain PyTorch spectral march: the JAX lockstep loop of
+    ``trace_packets_spectral``, step for step.  Returns (tally2d, packets)
+    like :func:`trace_packets_spectral`."""
+    ncell = shape[0] * shape[1] * shape[2]
+    if tally2d.numel() != n_bins * ncell:
+        raise ValueError(f"tally2d must hold n_bins * ncell = {n_bins * ncell} values")
+    return _march_reference(
+        packets, tally2d,
+        _spectral_opacity(chi_h, chi_he),
+        lambda pk, flat: pk.fbin * ncell + flat,
+        shape=shape, periodic=periodic, max_steps=max_steps,
+    )
+
+
+def trace_packets_spectral(
+    chi_h: torch.Tensor,
+    chi_he: torch.Tensor,
+    packets: SpectralPacketBatch,
+    tally2d: torch.Tensor,
+    *,
+    shape: Tuple[int, int, int],
+    n_bins: int,
+    periodic: Tuple[bool, bool, bool] = (False, False, False),
+    max_steps: int = 0,
+):
+    """March a spectral batch to termination; ℓ·w goes into ``tally2d``
+    (flat [n_bins·ncell], slot ``fbin·ncell + cell``) in place.
+
+    chi_h / chi_he: flat [ncell] fields n_H·x_H·Δx and n_H·A_He·x_He·Δx
+    (optical depth per σ per cell-unit length).  Inactive packets are left
+    as they are, so a re-emission generation passes its mask as ``active``.
+
+    CPU tensors run :func:`trace_packets_spectral_reference`; CUDA tensors
+    launch K2 (``kernels.trace_packets_spectral``), which counts its launches
+    in ``kernels.LAUNCHES["trace_packets_spectral"]``.
+    """
+    if chi_h.device.type == "cpu":
+        return trace_packets_spectral_reference(
+            chi_h, chi_he, packets, tally2d, shape=shape, n_bins=n_bins,
+            periodic=periodic, max_steps=max_steps,
+        )
+    out = packets._replace(**{f: getattr(packets, f).clone() for f in _STATE_FIELDS})
+    trace_packets_spectral_cuda(
+        chi_h, chi_he, tally2d, out._asdict(),
+        shape=shape, n_bins=n_bins, periodic=periodic,
+        max_steps=_default_max_steps(shape, max_steps),
+    )
+    return tally2d, out
+
+
+def spectral_tallies_to_ion_integrals(tally2d, sigma_table, heating_weights, n_cell: int):
+    """[n_bins·n_cell] binned tallies → [n_ion + 2, n_cell] per-ion and
+    heating integrals, as one f32 matrix product.
+
+    sigma_table: [n_ion, n_bins] σ_i at the bin frequencies (m²);
+    heating_weights: [2, n_bins] σ_{H,He}(ν)·(ν - ν_ion).  The product runs in
+    full f32, never TF32: a TF32 product would drop 10 mantissa bits from
+    every heating integral.
+    """
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "spectral_tallies_to_ion_integrals: torch.backends.cuda.matmul."
+            "allow_tf32 is on; the ion integrals need full f32 products"
+        )
+    t2 = tally2d.reshape(-1, n_cell)  # [n_bins, n_cell]
+    weights = torch.cat([sigma_table, heating_weights], dim=0).to(t2.dtype)
+    return torch.matmul(weights, t2)

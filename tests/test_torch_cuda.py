@@ -1,13 +1,15 @@
-"""K1, K3 and the port's drivers on the card (marked ``cuda``).
+"""K1-K4 and the port's drivers on the card (marked ``cuda``).
 
-K1 and K3 are CUDA C++ with no CPU mode, so these tests skip where CUDA is
+The kernels are CUDA C++ with no CPU mode, so these tests skip where CUDA is
 missing; the plain versions they compare against are tested against the JAX
-package in test_torch_traversal.py and test_torch_hydro.py.  The file imports no JAX, so that it runs where JAX
-is not installed:
+package in test_torch_traversal.py, test_torch_hydro.py,
+test_torch_spectral.py and test_torch_temperature.py.  The file imports no
+JAX, so that it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -16,14 +18,22 @@ import torch
 
 from cmacionize_torch import kernels
 from cmacionize_torch.kernels.hydro_step import hydro_step_cuda
+from cmacionize_torch.kernels.temperature import solve_temperature_cuda
 from cmacionize_torch.kernels.trace_packets import trace_packets_cuda
+from cmacionize_torch.kernels.trace_packets_spectral import trace_packets_spectral_cuda
+from cmacionize_torch.models.density_functions import density_function_from_params
 from cmacionize_torch.models.grid import GridGeometry
 from cmacionize_torch.models.ionization_simulation import (
     HOnlyConfig,
     HOnlyIonizationSimulation,
 )
+from cmacionize_torch.models.ions import ION_NAMES
+from cmacionize_torch.models.multifreq_simulation import (
+    MultiFreqConfig,
+    MultiFreqIonizationSimulation,
+)
 from cmacionize_torch.models.rhd_simulation import RHDSimulation
-from cmacionize_torch.ops import hydro, riemann, traversal
+from cmacionize_torch.ops import hydro, riemann, temperature, traversal
 from cmacionize_torch.utils.params import ParameterFile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,7 +44,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 and K3 are CUDA C++ with no CPU mode")
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ with no CPU mode")
     return torch.device("cuda")
 
 
@@ -316,3 +326,184 @@ def test_short_starbench_on_card(cuda):
     mass = float(state.rho.double().sum())
     expected = 3113e6 * 1.672621898e-27 * 32**3
     assert abs(mass / expected - 1.0) < 1e-4
+
+
+# ------------------------------------------------- K2 (spectral march)
+
+
+def _spectral_inputs(seed, shape, n, n_bins, device):
+    """A lexington-like state made with numpy: gas with a central cavity,
+    ionized H inside 0.4 of the box and He inside 0.25, neutral beyond;
+    packets from the centre in random bins with random cross sections."""
+    rng = np.random.default_rng(seed)
+    centre = np.asarray(shape, np.float64) / 2.0
+    offset = np.indices(shape) + 0.5 - centre[:, None, None, None]
+    r = np.sqrt((offset**2).sum(0)).reshape(-1) / min(shape)
+    nd_dx = np.where(r < 0.1, 0.0, 3e23)
+    xH = np.where(r < 0.4, rng.uniform(1e-4, 1e-3, r.shape), 1.0)
+    xHe = np.where(r < 0.25, rng.uniform(1e-3, 1e-2, r.shape), 1.0)
+    cos_t = rng.uniform(-1.0, 1.0, n)
+    phi = rng.uniform(0.0, 2.0 * np.pi, n)
+    sin_t = np.sqrt(1.0 - cos_t**2)
+    direction = np.stack([sin_t * np.cos(phi), sin_t * np.sin(phi), cos_t], 1)
+    position = centre[None, :] + 1e-4 * direction
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    packets = traversal.make_spectral_packets(
+        t(position), t(direction), t(-np.log1p(-rng.uniform(0.0, 1.0, n))),
+        t(rng.uniform(0.5, 1.5, n)), t(rng.uniform(0.5e-22, 6.3e-22, n)),
+        t(rng.uniform(0.0, 7e-22, n)),
+        torch.tensor(rng.integers(0, n_bins, n), dtype=torch.int32, device=device), shape,
+    )
+    return t(nd_dx * xH), t(0.1 * nd_dx * xHe), packets
+
+
+@pytest.mark.parametrize(
+    "shape, periodic, max_steps",
+    [
+        ((32, 32, 32), (False, False, False), 0),
+        ((32, 32, 32), (True, True, True), 0),
+        ((24, 16, 20), (True, False, True), 0),
+        ((32, 32, 32), (False, False, False), 7),
+    ],
+)
+def test_spectral_kernel_matches_plain_version(cuda, shape, periodic, max_steps):
+    n_bins = 16
+    chi_h, chi_he, packets = _spectral_inputs(0, shape, 50_000, n_bins, cuda)
+    ncell = chi_h.numel()
+    # re-emission hands the whole batch with a mask: a fifth is inactive
+    packets = packets._replace(active=torch.arange(packets.size, device=cuda) % 5 != 0)
+    kwargs = dict(shape=shape, n_bins=n_bins, periodic=periodic, max_steps=max_steps)
+    before = kernels.LAUNCHES["trace_packets_spectral"]
+    tally_k, out_k = traversal.trace_packets_spectral(
+        chi_h, chi_he, packets, torch.zeros(n_bins * ncell, device=cuda), **kwargs)
+    assert kernels.LAUNCHES["trace_packets_spectral"] == before + 1
+    tally_r, out_r = traversal.trace_packets_spectral_reference(
+        chi_h, chi_he, packets, torch.zeros(n_bins * ncell, device=cuda), **kwargs)
+    torch.cuda.synchronize()
+    for f in ("absorbed", "active", "cx", "cy", "cz"):
+        assert torch.equal(getattr(out_k, f), getattr(out_r, f)), f
+    for f in ("px", "py", "pz", "tau_left"):
+        diff = float((getattr(out_k, f) - getattr(out_r, f)).abs().max())
+        assert diff <= 5e-4, (f, diff)
+    assert 0 < int(out_k.absorbed.sum()) < packets.size
+    rel_l1 = float((tally_k - tally_r).abs().sum() / tally_r.abs().sum())
+    assert rel_l1 <= 1e-4
+    frozen = ~packets.active
+    assert torch.equal(out_k.px[frozen], packets.px[frozen])
+    assert not bool(out_k.absorbed[frozen].any())
+
+
+def test_spectral_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    shape = (8, 8, 8)
+    chi_h, chi_he, packets = _spectral_inputs(1, shape, 64, 4, cuda)
+    fields = packets._asdict()
+    kwargs = dict(shape=shape, n_bins=4, periodic=(False,) * 3, max_steps=96)
+    with pytest.raises(ValueError, match="tally"):
+        trace_packets_spectral_cuda(chi_h, chi_he, torch.zeros(512, device=cuda), fields, **kwargs)
+    with pytest.raises(ValueError, match="fbin"):
+        bad = dict(fields, fbin=fields["fbin"].long())
+        trace_packets_spectral_cuda(chi_h, chi_he, torch.zeros(2048, device=cuda), bad, **kwargs)
+    with pytest.raises(ValueError, match="CUDA"):
+        trace_packets_spectral_cuda(chi_h.cpu(), chi_he, torch.zeros(2048), fields, **kwargs)
+
+
+# ------------------------------------------ K4 (temperature balance)
+
+ABUND = {"He": 0.1, "C": 2.2e-4, "N": 4.0e-5, "O": 3.3e-4, "Ne": 5.0e-5, "S": 9.0e-6}
+
+
+def _thermal_cells(seed, n, device):
+    """Lexington-like random cells (the recipe of test_temperature.py), the
+    first 64 without gas."""
+    rng = np.random.default_rng(seed)
+    jH = 10.0 ** rng.uniform(-14, -6, n)
+    scale = {"H_n": 1.0, "He_n": 0.7}
+    j = {name: jH * scale.get(name, 10.0 ** rng.uniform(-3, 0)) for name in ION_NAMES}
+    hH = jH * 10.0 ** rng.uniform(-19.0, -18.0, n)
+    nd = 10.0 ** rng.uniform(6, 10, n)
+    nd[:64] = 0.0
+    T = 10.0 ** rng.uniform(2.0, 4.3, n)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float64), device=device)
+
+    return t(T), {k: t(v) for k, v in j.items()}, (t(hH), t(0.5 * hH)), t(nd)
+
+
+@pytest.mark.parametrize("pahfac, crfac", [(1.0, 0.0), (0.0, 0.5)])
+def test_temperature_kernel_matches_plain_version(cuda, pahfac, crfac):
+    T, j, h, nd = _thermal_cells(11, 4096, cuda)
+    before = kernels.LAUNCHES["temperature"]
+    got = temperature.solve_temperature(T, j, h, nd, ABUND, pahfac=pahfac, crfac=crfac)
+    assert kernels.LAUNCHES["temperature"] == before + 1
+    ref = temperature.solve_temperature_reference(T, j, h, nd, ABUND, pahfac=pahfac, crfac=crfac)
+    both_nan = torch.isnan(got.T) & torch.isnan(ref.T)
+    rel = torch.where(both_nan, 0.0, (got.T - ref.T).abs() / ref.T.abs())
+    rel = torch.nan_to_num(rel, nan=float("inf"))
+    assert float((rel <= 1e-9).double().mean()) >= 0.99
+    assert float(rel.max()) <= 5e-3
+    assert bool(torch.isfinite(got.T).all())
+    assert bool((got.sweeps[:64] == 100).all())
+    assert float((got.sweeps == ref.sweeps).double().mean()) >= 0.99
+    for name in ("h0", "he0"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=1e-5,
+                                   atol=1e-9, equal_nan=True)
+    for name, value in ref.metals.items():
+        torch.testing.assert_close(got.metals[name], value, rtol=1e-5, atol=1e-9,
+                                   equal_nan=True)
+
+
+def test_temperature_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    T, j, h, nd = _thermal_cells(2, 128, cuda)
+    kwargs = dict(pahfac=0.0, crfac=0.0, epsilon=1e-3, max_iterations=100,
+                  minimum_ionized_temperature=4000.0)
+    with pytest.raises(ValueError, match="float64"):
+        solve_temperature_cuda(T.float(), j, h, nd, ABUND, **kwargs)
+    with pytest.raises(ValueError, match="j\\[O_n\\]"):
+        solve_temperature_cuda(T, dict(j, O_n=j["O_n"][:64]), h, nd, ABUND, **kwargs)
+    with pytest.raises(ValueError, match="CUDA"):
+        solve_temperature_cuda(T.cpu(), j, h, nd, ABUND, **kwargs)
+
+
+# --------------------------------------------- the multi-frequency driver
+
+
+def test_mini_lexington_on_card(cuda):
+    """tests/test_lexington.py's run (16³, 5e4 packets, 8 iterations, 64
+    bins, 4 generations) on the card, within the same bands."""
+    prev = os.getcwd()
+    os.chdir(os.path.join(ROOT, "benchmarks"))
+    try:
+        params = ParameterFile("lexingtonHII20.param")
+        config = MultiFreqConfig.from_params(params)
+        config = dataclasses.replace(
+            config, geometry=dataclasses.replace(config.geometry, shape=(16, 16, 16)),
+            n_photons=50000, n_iterations=8, n_bins=64, n_reemission_rounds=4)
+        df = density_function_from_params(params, config.geometry)
+    finally:
+        os.chdir(prev)
+    sim = MultiFreqIonizationSimulation(
+        config, density=df.number_density, initial_temperature=df.temperature,
+        seed=11, device=cuda)
+    kernels.LAUNCHES.clear()
+    xion, T = sim.run()
+    assert kernels.LAUNCHES["trace_packets_spectral"] == 8 * 5
+    assert kernels.LAUNCHES["temperature"] == 8 - config.minimum_iteration_number
+    assert T.device.type == "cuda" and T.dtype == torch.float64
+    r = np.sqrt((config.geometry.cell_centers() ** 2).sum(-1))
+    nd = df.number_density
+    T = T.cpu().numpy()
+    x = {name: value.cpu().numpy() for name, value in xion.items()}
+
+    def shell(lo, hi):
+        return (r > lo * 3.086e16) & (r < hi * 3.086e16) & (nd > 0)
+
+    assert 6000.0 < float(T[shell(1.0, 2.0)].mean()) < 8300.0
+    assert float(np.median(x["H_n"][shell(1.0, 2.5)])) < 3e-3
+    assert (x["He_n"] < 0.5).sum() <= 1.05 * (x["H_n"] < 0.5).sum()
+    assert float(np.median(x["O_n"][shell(1.0, 2.0)])) > 0.9
+    assert float(np.median(x["O_p1"][shell(1.0, 2.0)])) < 0.1
+    assert (T[nd == 0] == 500.0).all()

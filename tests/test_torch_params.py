@@ -146,6 +146,18 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.models.rhd_simulation
         import cmacionize_torch.kernels.hydro_step
         import cmacionize_torch.utils.params
+        import cmacionize_torch.data
+        import cmacionize_torch.models.multifreq_simulation
+        import cmacionize_torch.models.reemission
+        import cmacionize_torch.ops.temperature
+        import cmacionize_torch.ops.line_cooling
+        import cmacionize_torch.kernels.temperature
+        import cmacionize_torch.kernels.trace_packets_spectral
+        # the atomic tables are read by path, not through cmacionize_tpu.data
+        import torch
+        cmacionize_torch.data.load("verner_photo.npz")
+        one = torch.ones(1, dtype=torch.float64)
+        cmacionize_torch.ops.line_cooling.five_level_populations(8000.0 * one, 1e8 * one)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "cmacionize_tpu"))
         assert not bad, bad
