@@ -8,8 +8,9 @@ Phases (any failed check raises, so the script exits non-zero):
 
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles K1 (``cmacionize_torch/csrc/trace_packets.cu``) with nvcc,
-   while K3's build (phase 5) runs beside it: one nvcc per source, started
-   together;
+   while the builds of K2-K7 run beside it (one nvcc per source, all started
+   together), and two spawned worker processes build the Voronoi grids of
+   phases 14 and 19 on the host;
 3. kernel parity: K1 against its plain PyTorch version on the card, on the
    same inputs made with numpy from a fixed seed (a 64³ Strömgren-like
    opacity with an ionized cone; 2^17 packets from the centre, then the
@@ -32,9 +33,9 @@ Phases (any failed check raises, so the script exits non-zero):
    state and the front radius R(t) at the ten outputs against the Spitzer /
    Hosokawa-Inutsuka band and the JAX package's trajectory; then K1 alone in
    this (opaque) regime;
-8. build: K2 (``cmacionize_torch/csrc/trace_packets_spectral.cu``) and K4
-   (``cmacionize_torch/csrc/temperature.cu``), started with K1 and K3, their
-   seconds and ``ptxas -v`` reports;
+8. build: K2, K4, K6, K6s and K7 (``cmacionize_torch/csrc/
+   {trace_packets_spectral,temperature,trace_voronoi,trace_voronoi_spectral,
+   voronoi_flux}.cu``), their seconds and ``ptxas -v`` reports;
 9. K2 parity: the spectral march against its plain PyTorch version on the
    card, on a 64³ lexington-like state made with numpy from a fixed seed
    (χ_H, χ_He, 1e6 packets from the centre in Planck-sampled bins): flags,
@@ -55,7 +56,43 @@ Phases (any failed check raises, so the script exits non-zero):
     temperature solve (all cells), both timed;
 13. main path: ``benchmarks/stromgren_diffuse.param`` at full size (64³, 1e6
     packets × 20 iterations, FixedValue σ/α, re-emission, K2 only), with the
-    H front radius against the archived 1.617e17 m.
+    H front radius against the archived 1.617e17 m;
+14. grid: the starbench_voronoi tessellation exactly as
+    ``benchmarks/run_starbench_voronoi.py:32-45`` builds it (40000
+    UniformRandom generators from seed 42, 2 Lloyd iterations), its cells,
+    faces per row and host seconds;
+15. K6 parity on that grid: the face-plane march against its plain version
+    on the card (an ionized sphere of 0.5 pc in the 3.113e9 m⁻³ gas with an
+    escape cone, 5e5 packets from the source, made with numpy from the
+    seed): flag mismatches, positions, tally; both timed;
+16. main path: HOnlyVoronoiSimulation on the same grid (starbench_voronoi's
+    gas, source and microphysics, 5e5 packets × 20 iterations), the ionized
+    volume against the Strömgren volume;
+17. K7 parity on the same grid: the moving-face Godunov update against its
+    plain version (a hot rarefied interior, a dense shell, random
+    velocities), second and first order: trial flags, each field, the share
+    of cells with non-zero density and pressure gradients; both timed;
+18. main path: starbench_voronoi at full size (5e5 × 10 packets per step,
+    1024 steps, static mesh, second order) through VoronoiRHDSimulation.run,
+    timed, with the K6 and K7 launch counts, the front radius at ten outputs
+    against Spitzer / Hosokawa-Inutsuka, the band of
+    run_starbench_voronoi.py:83-85 and the mass drift; then 16 more steps
+    under torch.profiler (device time by kernel, idle share), and K6 against
+    its plain version on the last march of one more step (the final χ, long
+    marches): flags, positions, tally; both timed;
+19. main path: MultiFreqVoronoiSimulation (tests/test_multifreq_grids.py's
+    configuration at 12000 generators, 1 Lloyd iteration, cut from a
+    64³-equivalent grid; 1e6 packets × 10 iterations, 64 bins, 4 re-emission
+    generations, the temperature balance), its structure checks and the K6s
+    and K4 launch counts;
+20. K6s parity: the spectral face-plane march against its plain version on
+    the inputs of that run's first and last source marches: flags,
+    positions, tally, ion integrals; both timed; then K4 against its plain
+    version on the inputs of that run's last temperature solve, both timed.
+
+Each kernel's record carries ``bound_ms``, the least time an H100 could take
+for the same work (bytes over the HBM rate or operations over the peak
+rate, whichever is larger), computed from this run's inputs.
 
 The line before the last is a JSON object with the kernels' results; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -64,8 +101,10 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -78,8 +117,16 @@ from cmacionize_torch import kernels
 from cmacionize_torch.device import describe, require_cuda
 from cmacionize_torch.kernels import build
 from cmacionize_torch import constants
-from cmacionize_torch.models import ions, multifreq_simulation, reemission, sources
+from cmacionize_torch.models import (
+    ions,
+    multifreq_simulation,
+    reemission,
+    sources,
+    voronoi,
+    voronoi_hydro,
+)
 from cmacionize_torch.models.density_functions import density_function_from_params
+from cmacionize_torch.models.grid import GridGeometry
 from cmacionize_torch.models.ionization_simulation import (
     HOnlyConfig,
     HOnlyIonizationSimulation,
@@ -106,9 +153,73 @@ DIFFUSE_PARAM = os.path.join(BENCHMARKS, "stromgren_diffuse.param")
 KERNEL_SOURCES = {
     "K1": "trace_packets", "K3": "hydro_step",
     "K2": "trace_packets_spectral", "K4": "temperature",
+    "K6": "trace_voronoi", "K6s": "trace_voronoi_spectral", "K7": "voronoi_flux",
 }
 PC = 3.086e16
 MYR = 3.15576e13
+
+# The least time one H100 SXM could take for a kernel's work, the larger of
+# bytes / HBM rate and operations / peak rate (NVIDIA's data sheet, dense, no
+# sparsity: 3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores, 34 TFLOP/s
+# f64), counting each input read once and each output written once.  The
+# operations of one unit of work are counted from each kernel's source
+# (additions, multiplications, divisions, square roots, comparisons and
+# min/max count 1, an FMA 2; a transcendental as the ~20 operations of its
+# libdevice routine); where the work depends on the data, the units are what
+# this run's inputs need (packet steps, secant sweeps).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
+OPS_PER_K1_STEP = 35  # 3 wall distances, the exit, absorption, deposit, advance, snap, checks
+OPS_PER_K2_STEP = 38  # K1's step with chi_H sigma_H + chi_He sigma_He
+OPS_PER_K3_PREDICT_CELL = 200  # 15 limited slopes, the half-step prediction
+OPS_PER_K3_CELL = 700  # 6 faces: states, HLLC, accumulation
+# K4, f64, counted from temperature.cu's body with every data-dependent
+# branch at its cheapest, so that the count is a lower one (pow as log + exp,
+# 40).  One balance evaluation:
+#   14 recombination rates, the power-law fit without a dielectronic term  14 x 44
+#   the H-He fixed point: set-up 85, one iteration 79 (it runs 1-20), exit 3  167
+#   electron densities 34, heating 62                                           96
+#   the metal chains, each charge-transfer rate at its no-rate branch          145
+#   the coolant abundances                                                      25
+#   ten five-level coolants: 10 transitions x (Omega(T) 91 + Boltzmann factor
+#     23), the matrix 52, Gauss-Jordan 315, the sum 30, x abundance 2     10 x 1539
+#   three two-level coolants                                               3 x 124
+#   free-free and recombination cooling                                        126
+# and one secant sweep is three evaluations and the update (~120).
+OPS_PER_K4_BALANCE = 14 * 44 + 167 + 96 + 145 + 25 + 10 * 1539 + 3 * 124 + 126
+OPS_PER_K4_SWEEP = 3 * OPS_PER_K4_BALANCE + 120
+# K6/K6s per real face of the cell (the padding of a row needs no test): two
+# 3-term dots, the plane distance, the minimum
+OPS_PER_VORONOI_FACE = 16
+OPS_PER_K6_STEP = 20  # absorption, deposit, advance with the shift
+OPS_PER_K6S_STEP = 23
+OPS_PER_K7_FACE = 680  # per real face: gradients, trial and update passes, 2 HLLC, sums
+OPS_PER_K7_CELL = 300  # the LSQ matrix, its LU and 5 solves, limiter, prediction
+
+# starbench_voronoi (benchmarks/run_starbench_voronoi.py:32-60, not "small"):
+# 40000 UniformRandom generators from seed 42 with 2 Lloyd iterations, 5e5
+# packets x 10 iterations per step, 1024 fixed steps to 0.141 Myr
+SBV_BOX = ((-1.256 * PC,) * 3, (2.512 * PC,) * 3, (32, 32, 32))
+SBV_GENERATORS, SBV_LLOYD, SBV_SEED = 40000, 2, 42
+SBV_PHOTONS, SBV_NLOOP, SBV_STEPS = 500000, 10, 1024
+SBV_DENSITY, SBV_LUMINOSITY, SBV_SIGMA, SBV_ALPHA = 3.113e9, 1e49, 6.3e-22, 2.7e-19
+HONLY_ITERATIONS = 20
+PROFILED_STEPS = 16  # after the timed run, under torch.profiler
+MAX_STROMGREN_VOLUME_ERROR = 0.3  # tests/test_voronoi.py:218-221
+# multi-frequency on the cell graph: tests/test_multifreq_grids.py:94-121's
+# geometry, density, abundances and source, scaled up
+MF_BOX = ((-5 * PC,) * 3, (10 * PC,) * 3, (16, 16, 16))
+MF_GENERATORS, MF_LLOYD, MF_SEED = 12000, 1, 10
+MF_PHOTONS, MF_BINS, MF_ROUNDS, MF_ITERATIONS = 1_000_000, 64, 4, 10
+MF_DENSITY, MF_LUMINOSITY = 1e8, 4.26e49
+ABUND = {"He": 0.1, "C": 2.2e-4, "N": 4e-5, "O": 3.3e-4, "Ne": 5e-5, "S": 9e-6}
+# K6/K6s against their plain versions: the same f32 operations per packet
+# (FMAs written out, --fmad=false), the tally in another atomic order
+MAX_VORONOI_POSITION_DIFF = 1e-5  # box units, where the flags agree
+# K7 against its plain version: identical trial flags, each field's max |Δ|
+# within this share of the field's max (sums in the same face order)
+MAX_VORONOI_HYDRO_REL_ERR = 1e-5
 
 PARITY_SEED = 1234
 # Tolerances of K1 against the plain version.  Both run the same IEEE f32
@@ -208,14 +319,56 @@ def time_cuda(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
+@contextlib.contextmanager
+def capturing(owner, name: str, keep: dict, copy):
+    """While active, ``owner.<name>`` is wrapped so that the inputs of the
+    calls numbered in ``keep`` (from 0) are copied by ``copy(*args,
+    **kwargs)`` into the yielded dict under ``keep``'s labels; every call
+    goes on to the wrapped function unchanged."""
+    original = getattr(owner, name)
+    captured, calls = {}, [0]
+
+    def wrapper(*args, **kwargs):
+        if calls[0] in keep:
+            captured[keep[calls[0]]] = copy(*args, **kwargs)
+        calls[0] += 1
+        return original(*args, **kwargs)
+
+    setattr(owner, name, wrapper)
+    try:
+        yield captured
+    finally:
+        setattr(owner, name, original)
+
+
+def copy_solve(T_prev, j, h, nd, abundances, **kwargs):
+    """The inputs of one temperature solve, copied."""
+    return (T_prev.clone(), {k: v.clone() for k, v in j.items()},
+            (h[0].clone(), h[1].clone()), nd.clone(), dict(abundances), kwargs)
+
+
+def roofline(label: str, n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
+    """The JSON fields bound_ms / bound_by / library_ms of a kernel's work:
+    the larger of bytes over the HBM rate and operations over the peak rate.
+    No single PyTorch call computes any of these kernels' functions, so
+    library_ms is null."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    log(f"bound of {label}: {n_bytes:.6g} B and {n_ops:.6g} operations -> {bound_ms:.6f} ms "
+        f"(by {bound_by})")
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def kernel_parity(config: HOnlyConfig, device, n_packets: int) -> dict:
     shape = config.geometry.shape
     chi, packets = parity_inputs(config, n_packets, device)
     zeros = torch.zeros_like(chi)
 
     tally_k, out_k = traversal.trace_packets(chi, packets, zeros.clone(), shape=shape)
+    stats = {}
     tally_r, out_r = traversal.trace_packets_reference(
-        chi, packets, zeros.clone(), shape=shape
+        chi, packets, zeros.clone(), shape=shape, stats=stats
     )
     torch.cuda.synchronize()
 
@@ -262,10 +415,17 @@ def kernel_parity(config: HOnlyConfig, device, n_packets: int) -> dict:
         f"timing at {shape[0]}^3 / {n} packets: K1 {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms per march (CUDA events, incl. the packet-state copy)"
     )
+    ncell = chi.numel()
+    steps = int(stats["packet_steps"])
+    # chi read, tally read and written; packets: 11 f32/i32 + 2 flags in,
+    # 7 + 2 out
+    bound = roofline(f"K1 ({steps} packet steps)", 12 * ncell + 76 * n,
+                     OPS_PER_K1_STEP * steps, F32_OPS_PER_S)
     return {
         "max_abs_err": float(tally_abs.max()),
         "ms": ms,
         "plain_ms": plain_ms,
+        **bound,
     }
 
 
@@ -419,7 +579,12 @@ def hydro_parity(device, geometry, gamma, dt) -> dict:
                 )
                 timings[solver] = (ms, plain_ms)
     ms, plain_ms = timings["HLLC"]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    nx, ny, nz = geometry.shape
+    n, n1 = nx * ny * nz, (nx + 2) * (ny + 2) * (nz + 2)
+    padded = (nx + 4) * (ny + 4) * (nz + 4)
+    bound = roofline("K3 (HLLC)", 4 * 5 * (padded + 2 * n),
+                     OPS_PER_K3_PREDICT_CELL * n1 + OPS_PER_K3_CELL * n, F32_OPS_PER_S)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 # ------------------------------------------------------------- starbench
@@ -616,8 +781,9 @@ def spectral_parity(device) -> dict:
     march = dict(shape=shape, n_bins=n_bins)
     tally_k, out_k = traversal.trace_packets_spectral(
         chi_h, chi_he, packets, zeros.clone(), **march)
+    stats = {}
     tally_r, out_r = traversal.trace_packets_spectral_reference(
-        chi_h, chi_he, packets, zeros.clone(), **march)
+        chi_h, chi_he, packets, zeros.clone(), stats=stats, **march)
     torch.cuda.synchronize()
 
     n = packets.size
@@ -666,7 +832,12 @@ def spectral_parity(device) -> dict:
         f"timing K2 at {shape} / {n_bins} bins / {n} packets: K2 {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms per march (CUDA events, incl. the packet-state copy)"
     )
-    return {"max_abs_err": float(tally_abs.max()), "ms": ms, "plain_ms": plain_ms}
+    steps = int(stats["packet_steps"])
+    # chi_H, chi_He read; the binned tally read and written; packets: 14
+    # f32/i32 + 2 flags in, 7 + 2 out
+    bound = roofline(f"K2 ({steps} packet steps)", 8 * ncell + 8 * n_bins * ncell + 88 * n,
+                     OPS_PER_K2_STEP * steps, F32_OPS_PER_S)
+    return {"max_abs_err": float(tally_abs.max()), "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def run_multifreq(sim: MultiFreqIonizationSimulation, label: str):
@@ -719,23 +890,10 @@ def lexington_archived(device) -> int:
 def lexington_full(device):
     """lexingtonHII20 at full size, with the inputs of its fourth temperature
     solve kept for K4's parity phase."""
-    captured = []
-    solve = multifreq_simulation.temperature.solve_temperature
-
-    def capturing_solve(T_prev, j, h, nd, abundances, **kwargs):
-        if len(captured) == 3:  # keep what the fourth solve is handed
-            captured.append((T_prev.clone(), {k: v.clone() for k, v in j.items()},
-                             (h[0].clone(), h[1].clone()), nd.clone(), dict(abundances), kwargs))
-        else:
-            captured.append(None)
-        return solve(T_prev, j, h, nd, abundances, **kwargs)
-
     sim = lexington_simulation(device)
-    multifreq_simulation.temperature.solve_temperature = capturing_solve
-    try:
+    with capturing(multifreq_simulation.temperature, "solve_temperature", {3: "fourth"},
+                   copy_solve) as captured:
         xion, T, wall, launches = run_multifreq(sim, "lexingtonHII20 at full size")
-    finally:
-        multifreq_simulation.temperature.solve_temperature = solve
     cfg = sim.config
     log("  per iteration: transport s, solve s, re-emitted packets per generation")
     for k, ((t_tr, t_sv), counts) in enumerate(zip(sim.phase_seconds, sim.reemitted)):
@@ -794,14 +952,14 @@ def lexington_full(device):
     check(xH_far > 0.9, f"exterior median xH {xH_far}")
     check(STROMGREN_RATIO_BAND[0] < r_ion / r_st < STROMGREN_RATIO_BAND[1],
           f"r_ion / r_Stromgren {r_ion / r_st}")
-    check(len(captured) == len(sim.sweeps) > 3 and captured[3] is not None,
-          f"the run made {len(captured)} temperature solves")
-    return launches, captured[3]
+    check(len(sim.sweeps) > 3 and "fourth" in captured,
+          f"the run made {len(sim.sweeps)} temperature solves")
+    return launches, captured["fourth"]
 
 
-def temperature_parity(solve_inputs) -> dict:
+def temperature_parity(solve_inputs, label: str) -> dict:
     """K4 against solve_temperature_reference on the card, on every cell of
-    the full-size run's fourth temperature solve; both timed."""
+    the temperature solve whose inputs are ``solve_inputs``; both timed."""
     T_prev, j, h, nd, abundances, kwargs = solve_inputs
     got = temperature.solve_temperature(T_prev, j, h, nd, abundances, **kwargs)
     ref = temperature.solve_temperature_reference(T_prev, j, h, nd, abundances, **kwargs)
@@ -819,23 +977,30 @@ def temperature_parity(solve_inputs) -> dict:
     state["metals"] = max(float(diff(got.metals[k], ref.metals[k]).max()) for k in ref.metals)
     same_sweeps = float((got.sweeps == ref.sweeps).double().mean())
     log(
-        f"K4 parity: {T_prev.numel()} cells of the fourth solve, "
+        f"K4 parity ({label}): {T_prev.numel()} cells, "
         f"{int((nd <= 0).sum())} without gas: {match:.6f} of cells within {T_MATCH_REL} "
         f"relative in T, max |dT|/T {max_rel:.3e}, max |d| h0 {state['h0']:.3e}, he0 "
         f"{state['he0']:.3e}, metals {state['metals']:.3e}; same sweep count in "
         f"{same_sweeps:.6f} of cells (max {int(ref.sweeps.max())}, mean "
         f"{float(ref.sweeps.double().mean()):.2f})"
     )
-    check(match >= MIN_T_MATCH_FRACTION, f"K4: {match} of cells match, < {MIN_T_MATCH_FRACTION}")
-    check(max_rel <= MAX_T_REL_ERR, f"K4: max |dT|/T {max_rel} > {MAX_T_REL_ERR}")
+    check(match >= MIN_T_MATCH_FRACTION,
+          f"K4 ({label}): {match} of cells match, < {MIN_T_MATCH_FRACTION}")
+    check(max_rel <= MAX_T_REL_ERR, f"K4 ({label}): max |dT|/T {max_rel} > {MAX_T_REL_ERR}")
 
     ms = time_cuda(lambda: temperature.solve_temperature(T_prev, j, h, nd, abundances,
                                                          **kwargs), 3)
     plain_ms = time_cuda(lambda: temperature.solve_temperature_reference(
         T_prev, j, h, nd, abundances, **kwargs), 1)
-    log(f"timing K4 on {T_prev.numel()} cells: K4 {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"per solve (CUDA events)")
-    return {"max_abs_err": float(diff(got.T, ref.T).max()), "ms": ms, "plain_ms": plain_ms}
+    log(f"timing K4 ({label}) on {T_prev.numel()} cells: K4 {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms per solve (CUDA events)")
+    sweeps = int(got.sweeps.sum())
+    # f64 in: T, 14 rates, 2 heating integrals, density; out: T, h0, he0, 12
+    # metal fractions, and the int32 sweep count
+    bound = roofline(f"K4 ({label}; {sweeps} secant sweeps)", T_prev.numel() * (18 * 8 + 15 * 8 + 4),
+                     OPS_PER_K4_SWEEP * sweeps, F64_OPS_PER_S)
+    return {"max_abs_err": float(diff(got.T, ref.T).max()), "ms": ms, "plain_ms": plain_ms,
+            **bound}
 
 
 def stromgren_diffuse(device) -> dict:
@@ -854,6 +1019,423 @@ def stromgren_diffuse(device) -> dict:
     return launches
 
 
+# ------------------------------------------------------ Voronoi: K6, K6s, K7
+
+
+def timed_voronoi_grid(box, n_generators: int, seed: int, num_lloyd: int):
+    """Build a Voronoi grid from ``n_generators`` uniform generators drawn
+    from ``seed`` (run in a worker process while the kernels build):
+    (grid, seconds)."""
+    t0 = time.perf_counter()
+    generators = np.random.default_rng(seed).random((n_generators, 3))
+    grid = voronoi.build_voronoi_grid(GridGeometry(*box), generators, num_lloyd=num_lloyd)
+    return grid, time.perf_counter() - t0
+
+
+def report_grid(label: str, future):
+    grid, seconds = future.result()
+    log(f"grid: {label}: {grid.n_cells} cells, K = {grid.max_faces} faces per row (mean "
+        f"{float((grid.neighbors != -2).sum(1).mean()):.2f} real), built on the host in "
+        f"{seconds:.2f} s (set-up)")
+    return grid
+
+
+def generators_si(grid) -> np.ndarray:
+    return grid.generators * grid.scale + np.asarray(grid.geometry.anchor)
+
+
+def compare_voronoi_marches(label, out_k, out_r, tally_k, tally_r):
+    """Flag mismatches, the largest position difference (box units) over
+    packets whose flags agree, and the tally's relative L1; checked."""
+    n = out_r.cell.numel()
+    agree = (out_k.absorbed == out_r.absorbed) & (out_k.active == out_r.active)
+    flag_mismatch = int((~agree).sum())
+    pos_diff = float((out_k.pos - out_r.pos)[agree].abs().max())
+    tally_abs = (tally_k - tally_r).abs()
+    tally_rel_l1 = float(tally_abs.sum() / tally_r.abs().sum())
+    n_absorbed = int(out_r.absorbed.sum())
+    log(f"{label}: {n} packets, {n_absorbed} absorbed / {int(out_r.active.sum())} still "
+        f"active (plain); flag mismatches {flag_mismatch}, cell mismatches "
+        f"{int((out_k.cell != out_r.cell).sum())}, max |position diff| {pos_diff:.3e} box "
+        f"units, tally rel L1 {tally_rel_l1:.3e}, max |tally diff| {float(tally_abs.max()):.3e}")
+    check(n_absorbed > 0, f"{label}: the input has absorbed packets")
+    check(flag_mismatch <= MAX_FLAG_MISMATCH_FRACTION * n,
+          f"{label}: flag mismatches {flag_mismatch} > {MAX_FLAG_MISMATCH_FRACTION} of {n}")
+    check(pos_diff <= MAX_VORONOI_POSITION_DIFF, f"{label}: position diff {pos_diff}")
+    check(tally_rel_l1 <= MAX_TALLY_REL_L1, f"{label}: tally rel L1 {tally_rel_l1}")
+    return float(tally_abs.max())
+
+
+def voronoi_march_parity(grid, device) -> dict:
+    """K6 against trace_packets_voronoi_reference on the card, on the
+    starbench_voronoi grid: an ionized sphere of 0.5 pc (x_H 1e-4..5e-4) in
+    the 3.113e9 m^-3 gas with a fully ionized cone along +z, and the main
+    path's 5e5 packets from the source, made with numpy; both timed."""
+    rng = np.random.default_rng(PARITY_SEED)
+    pos_si = generators_si(grid)
+    r = np.sqrt((pos_si**2).sum(1))
+    x = np.where(r < 0.5 * PC, rng.uniform(1e-4, 5e-4, r.shape), 1.0)
+    x = np.where(pos_si[:, 2] > r * np.cos(np.radians(20.0)), 1e-6, x)
+    chi_si = torch.tensor((SBV_DENSITY * x * SBV_SIGMA).astype(np.float32), device=device)
+    n = SBV_PHOTONS
+    cos_t = rng.uniform(-1.0, 1.0, n)
+    phi = rng.uniform(0.0, 2.0 * np.pi, n)
+    sin_t = np.sqrt(1.0 - cos_t**2)
+    direction = np.stack([sin_t * np.cos(phi), sin_t * np.sin(phi), cos_t], 1)
+    src_u = -np.asarray(grid.geometry.anchor) / grid.scale
+    packets = voronoi.make_voronoi_packets(
+        grid, np.tile(src_u, (n, 1)), direction, -np.log1p(-rng.uniform(0.0, 1.0, n)),
+        np.ones(n), device=device)
+    tables = voronoi.voronoi_tables(grid, device)
+    return march_parity(grid, tables, chi_si, packets, "the parity input")
+
+
+def march_parity(grid, tables, chi_si, packets, label: str) -> dict:
+    """K6 against trace_packets_voronoi_reference on the card, on ``chi_si``
+    and ``packets``: flags, positions, tally; both timed, with the bound of
+    the packet steps and real faces the plain march took."""
+    C = grid.n_cells
+    march = dict(eps=voronoi.march_eps(C), max_steps=voronoi.default_max_steps(C))
+    tally_k, out_k = voronoi.trace_packets_voronoi(grid, chi_si, packets, tables=tables)
+    stats = {}
+    tally_r, out_r = voronoi.trace_packets_voronoi_reference(
+        tables, chi_si * grid.scale, packets, torch.zeros(C, device=chi_si.device),
+        stats=stats, **march)
+    torch.cuda.synchronize()
+    max_err = compare_voronoi_marches(
+        f"K6 parity (starbench_voronoi grid, {label})", out_k, out_r, tally_k,
+        tally_r * grid.scale)
+
+    n = packets.cell.numel()
+    ms = time_cuda(lambda: voronoi.trace_packets_voronoi(grid, chi_si, packets, tables=tables), 20)
+    plain_ms = time_cuda(lambda: voronoi.trace_packets_voronoi_reference(
+        tables, chi_si * grid.scale, packets, torch.zeros(C, device=chi_si.device),
+        **march), 1)
+    log(f"timing K6 ({label}) on {C} cells / {n} packets: K6 {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms per march (CUDA events, incl. the packet-state copy and the "
+        f"tally's scaling)")
+    steps, faces = int(stats["packet_steps"]), int(stats["face_tests"])
+    K = grid.max_faces
+    # tables (nbr, normals, offsets, shifts) and chi read, the tally read and
+    # written; packets in: pos, dirn, cell, tau, weight, 2 flags; out: pos,
+    # cell, tau, 2 flags
+    bound = roofline(f"K6 ({label}; {steps} packet steps, {faces} real faces tested)",
+                     C * K * 32 + 12 * C + 60 * n,
+                     OPS_PER_VORONOI_FACE * faces + OPS_PER_K6_STEP * steps, F32_OPS_PER_S)
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def voronoi_honly(grid, device) -> int:
+    """HOnlyVoronoiSimulation on the starbench_voronoi grid with its gas,
+    source and microphysics: the ionized volume against the Strömgren
+    volume."""
+    sim = voronoi.HOnlyVoronoiSimulation(
+        grid, lambda p: np.full(len(p), SBV_DENSITY), device=device,
+        source_position=(0.0, 0.0, 0.0), luminosity=SBV_LUMINOSITY, cross_section=SBV_SIGMA,
+        recombination_rate=SBV_ALPHA, n_photons=SBV_PHOTONS, seed=42)
+    kernels.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(HONLY_ITERATIONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["trace_voronoi"]
+    r_s = (3.0 * SBV_LUMINOSITY / (4.0 * np.pi * SBV_ALPHA * SBV_DENSITY**2)) ** (1.0 / 3.0)
+    v_exact = 4.0 / 3.0 * np.pi * r_s**3
+    err = sim.ionized_volume() / v_exact - 1.0
+    log(f"H-only on the cell graph: {grid.n_cells} cells, {SBV_PHOTONS} packets x "
+        f"{HONLY_ITERATIONS} iterations in {wall:.4f} s wall; K6 launches {launches}; "
+        f"ionized volume / Stromgren volume - 1 = {err:+.4f} (r_S {r_s / PC:.4f} pc)")
+    check(launches == HONLY_ITERATIONS, f"H-only K6 launches {launches}")
+    check(bool(torch.isfinite(sim.neutral_fraction).all()), "H-only xH is finite")
+    check(abs(err) < MAX_STROMGREN_VOLUME_ERROR, f"H-only ionized volume error {err}")
+    return launches
+
+
+def voronoi_flux_parity(grid, device, dt) -> dict:
+    """K7 against voronoi_flux_update_reference on the card, on the
+    starbench_voronoi grid: a hot rarefied interior (1e4 K, 1% density) inside
+    a dense shell (4x, 300 K) in the 100 K cloud, random velocities of
+    ~1e4 m/s and an outward 12 km/s in the shell, made with numpy; second
+    and first order; both timed."""
+    rng = np.random.default_rng(PARITY_SEED)
+    pos_si = generators_si(grid)
+    r = np.sqrt((pos_si**2).sum(1))
+    inside, shell = r < 0.25 * PC, (r >= 0.25 * PC) & (r < 0.45 * PC)
+    nd = SBV_DENSITY * np.where(inside, 0.01, np.where(shell, 4.0, 1.0))
+    nd = nd * rng.uniform(0.98, 1.02, r.shape)
+    T = np.where(inside, 1e4, np.where(shell, 300.0, 100.0))
+    v = rng.normal(size=(len(r), 3)) * 1e4
+    v = v + np.where(shell, 1.2e4, 0.0)[:, None] * pos_si / np.maximum(r, 1.0)[:, None]
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    gamma = 1.0001
+    state = voronoi_hydro.conserved_from_primitives(
+        f32(nd * constants.PROTON_MASS), f32(v[:, 0]), f32(v[:, 1]), f32(v[:, 2]),
+        f32(nd * constants.BOLTZMANN * T), None, gamma)
+    gen_vel = torch.zeros((grid.n_cells, 3), dtype=torch.float32, device=device)
+    tables = voronoi_hydro.hydro_tables(grid, device)
+    worst = 0.0
+    for second_order in (True, False):
+        stats_k, stats_r = {}, {}
+        out_k = voronoi_hydro.voronoi_flux_update(
+            *tables, state, gen_vel, dt, gamma, second_order, stats=stats_k)
+        out_r = voronoi_hydro.voronoi_flux_update_reference(
+            *tables, state, gen_vel, dt, gamma, second_order, stats=stats_r)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(out_r._fields, out_r, out_k):
+            check(bool(torch.isfinite(b).all()), f"K7: {name} finite")
+            errs[name] = float((a - b).abs().max() / a.abs().max())
+        moved = float((out_r.energy - state.energy).abs().max() / state.energy.abs().max())
+        text = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        if second_order:
+            same = bool(torch.equal(stats_k["flag"], stats_r["flag"]))
+            grads = stats_k["gradients"].abs().sum(-1) > 0  # [5, C]
+            share = [float(g.double().mean()) for g in grads]
+            text += (f"; trial flags identical: {same} ({int(stats_r['flag'].sum())} flagged); "
+                     f"cells with non-zero gradients: rho {share[0]:.4f}, vx {share[1]:.4f}, "
+                     f"p {share[4]:.4f}")
+            check(same, "K7 trial flags differ from the plain version's")
+        log(f"K7 parity, {'second' if second_order else 'first'} order, {grid.n_cells} cells, "
+            f"dt {dt:.4e} s: max |diff| / max |field| {text} (the step moved the energy by "
+            f"{moved:.3e} of its max)")
+        check(moved > 0.0, "the K7 parity step changed the state")
+        for name, err in errs.items():
+            check(err <= MAX_VORONOI_HYDRO_REL_ERR, f"K7 {name}: {err}")
+        worst = max(worst, *errs.values())
+
+    def kernel():
+        return voronoi_hydro.voronoi_flux_update(*tables, state, gen_vel, dt, gamma, True)
+
+    ms = time_cuda(kernel, 50)
+    plain_ms = time_cuda(lambda: voronoi_hydro.voronoi_flux_update_reference(
+        *tables, state, gen_vel, dt, gamma, True), 3)
+    log(f"timing K7 (second order) on {grid.n_cells} cells: K7 {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms per update (CUDA events)")
+    C, K = grid.n_cells, grid.max_faces
+    faces = int((grid.neighbors != -2).sum())
+    # state in and out; rows: nbr, normals, A/V, two arms; the grid velocity
+    bound = roofline(f"K7 (second order; {faces} real faces)", 40 * C + C * K * 44 + 12 * C,
+                     OPS_PER_K7_FACE * faces + OPS_PER_K7_CELL * C, F32_OPS_PER_S)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def starbench_voronoi(grid, device):
+    """starbench_voronoi at full size through VoronoiRHDSimulation.run, in ten
+    blocks (the front radius at ten outputs), timed with the host clock; then
+    16 steps under the profiler, and K6 against its plain version on the last
+    march of one more step.  Returns (launches, that parity record)."""
+    total_time = 0.141 * MYR
+    dt = total_time / SBV_STEPS
+    sim = voronoi_hydro.VoronoiRHDSimulation(
+        grid, device=device, gamma=1.0001, timestep=dt, luminosity=SBV_LUMINOSITY,
+        source_position=(0.0, 0.0, 0.0), cross_section=SBV_SIGMA,
+        recombination_rate=SBV_ALPHA, n_photons=SBV_PHOTONS, nloop=SBV_NLOOP,
+        number_density=SBV_DENSITY, temperature=100.0, mesh_motion=False, seed=42)
+    mass0 = voronoi_hydro.total_mass(sim.state, grid.volumes)
+    ends = [round(SBV_STEPS * (i + 1) / 10) for i in range(10)]
+    outputs = []
+    kernels.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = 0
+    for end in ends:
+        sim.run(end - done)
+        done = end
+        outputs.append((sim.time, sim.ionization_front_radius()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: kernels.LAUNCHES[name] for name in ("trace_voronoi", "voronoi_flux")}
+    log(f"starbench_voronoi main path: {grid.n_cells} cells, {SBV_NLOOP} x {SBV_PHOTONS} "
+        f"packets per step, {SBV_STEPS} steps to {sim.time / MYR:.4f} Myr, static mesh, "
+        f"second order, in {wall:.4f} s wall ({wall / SBV_STEPS * 1e3:.4f} ms per step, "
+        f"{SBV_STEPS * SBV_NLOOP * SBV_PHOTONS / wall:.6g} packets/s, including ten host "
+        f"readbacks of the front radius); launches {launches}")
+    r_st = (3.0 * SBV_LUMINOSITY / (4.0 * np.pi * SBV_DENSITY**2 * SBV_ALPHA)) ** (1.0 / 3.0)
+    log("  t (Myr)   R (pc)  Spitzer   Hos-In  R/Rsp  R/R_HI")
+    for t, r in outputs:
+        r_sp, r_hi = spitzer_radius(t, r_st), hosokawa_inutsuka_radius(t, r_st)
+        log(f"  {t / MYR:7.4f}  {r / PC:7.4f}  {r_sp / PC:7.4f}  {r_hi / PC:7.4f}  "
+            f"{r / r_sp:5.3f}  {r / r_hi:5.3f}")
+    check(launches["trace_voronoi"] == SBV_NLOOP * SBV_STEPS, f"K6 launches {launches}")
+    check(launches["voronoi_flux"] == SBV_STEPS, f"K7 launches {launches}")
+    for name, f in zip(sim.state._fields, sim.state):
+        check(bool(torch.isfinite(f).all()), f"starbench_voronoi {name} is finite")
+    check(bool(torch.isfinite(sim.neutral_fraction).all()), "starbench_voronoi xH finite")
+    p = voronoi_hydro.primitives_from_conserved(sim.state, None, sim.gamma)[4]
+    check(float(p.min()) > 0.0, "starbench_voronoi pressure > 0")
+    drift = voronoi_hydro.total_mass(sim.state, sim.grid.volumes) / mass0 - 1.0
+    log(f"  mass drift over the run: {drift:.3e} (reflective box)")
+    check(abs(drift) <= MAX_MASS_DRIFT, f"starbench_voronoi mass drift {drift}")
+    t_end, r_end = outputs[-1]
+    r_sp, r_hi = spitzer_radius(t_end, r_st), hosokawa_inutsuka_radius(t_end, r_st)
+    check(r_end > r_st, f"front {r_end / PC} pc never expanded beyond r_St {r_st / PC} pc")
+    check(0.75 * r_sp < r_end < 1.35 * r_hi,
+          f"R = {r_end / PC:.4f} pc outside ({0.75 * r_sp / PC:.4f}, {1.35 * r_hi / PC:.4f}) pc")
+    profile_steps(sim, PROFILED_STEPS)
+    with capturing(voronoi, "trace_packets_voronoi", {SBV_NLOOP - 1: "last"},
+                   lambda grid_, chi_si, packets, **kw: (chi_si.clone(), clone_batch(packets))
+                   ) as captured:
+        sim.run(1)
+    chi_si, packets = captured["last"]
+    final = march_parity(grid, sim._march_tables, chi_si, packets,
+                         f"the main path's last march, t = {sim.time / MYR:.4f} Myr")
+    return launches, final
+
+
+def clone_batch(packets):
+    return type(packets)(*(f.clone() for f in packets))
+
+
+def profile_steps(sim, n_steps: int) -> None:
+    """Where the time of ``n_steps`` more steps goes: device time by kernel
+    (torch.profiler) against the host clock of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(n_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    device_us = {e.key: e.self_device_time_total for e in averages}
+    busy = sum(device_us.values()) * 1e-6
+    groups = {
+        "K6": ("trace_voronoi_kernel",),
+        "K7": ("gradients_kernel", "trial_kernel", "update_kernel"),
+    }
+    shares = {name: sum(us for k, us in device_us.items() if any(n in k for n in names)) * 1e-6
+              for name, names in groups.items()}
+    rest = busy - sum(shares.values())
+    n_kernels = sum(e.count for e in averages)
+    if busy <= 0.0:
+        log(f"profile of {n_steps} starbench_voronoi steps: the profiler saw no device time "
+            f"(host clock {wall:.4f} s)")
+        return
+    log(f"profile of {n_steps} starbench_voronoi steps at t = {sim.time / MYR:.4f} Myr "
+        f"(torch.profiler, the same process): host clock {wall:.4f} s, device busy "
+        f"{busy:.4f} s ({busy / wall:.4f} of the window; idle {1 - busy / wall:.4f}); K6 "
+        f"{shares['K6']:.4f} s ({shares['K6'] / busy:.4f} of busy), K7 {shares['K7']:.4f} s "
+        f"({shares['K7'] / busy:.4f}), the rest {rest:.4f} s ({rest / busy:.4f}) in "
+        f"{n_kernels} kernel launches in all")
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
+    log("  top device time: " + "; ".join(f"{k[:60]} {us * 1e-3:.3f} ms" for k, us in top))
+
+
+def check_structure(r, xH, xHe, label):
+    """tests/test_multifreq_grids.py:_check_structure, copied: ionized core,
+    neutral exterior, He front inside (or at) the H front."""
+    inner = r < 2.0 * PC
+    outer = r > 4.6 * PC
+    check(np.median(xH[inner]) < 0.05, f"{label}: core not ionized")
+    check(np.median(xH[outer]) > 0.5, f"{label}: exterior not neutral")
+    vol_h = (xH < 0.5).sum()
+    vol_he = (xHe < 0.5).sum()
+    check(0 < vol_he <= vol_h * 1.1, f"{label}: He front ({vol_he}) outside H front ({vol_h})")
+
+
+def multifreq_voronoi(grid, device):
+    """MultiFreqVoronoiSimulation with the diffuse field and the temperature
+    balance; the source marches of the first and the last iteration are kept
+    for K6s's parity phase."""
+    per_iteration = 1 + MF_ROUNDS
+    keep = {0: "first", per_iteration * (MF_ITERATIONS - 1): "last"}
+    sim = voronoi.MultiFreqVoronoiSimulation(
+        grid, lambda p: np.full(len(np.atleast_2d(p)), MF_DENSITY), device=device,
+        source_position=(0.0, 0.0, 0.0), luminosity=MF_LUMINOSITY, n_photons=MF_PHOTONS,
+        abundances=ABUND, do_temperature=True, diffuse_field=True, n_bins=MF_BINS,
+        n_reemission_rounds=MF_ROUNDS, seed=11)
+    with capturing(voronoi, "trace_packets_voronoi_spectral", keep,
+                   lambda grid_, chi_h, chi_he, packets, **kw: (
+                       chi_h.clone(), chi_he.clone(), clone_batch(packets))) as captured, \
+            capturing(multifreq_simulation.temperature, "solve_temperature",
+                      {MF_ITERATIONS - 4: "last solve"}, copy_solve) as solves:
+        kernels.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xion, T = sim.run(MF_ITERATIONS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: kernels.LAUNCHES[name] for name in ("trace_voronoi_spectral", "temperature")}
+    transport = sum(t for t, _ in sim.phase_seconds)
+    solve = sum(s for _, s in sim.phase_seconds)
+    log(f"multi-frequency on the cell graph: {grid.n_cells} cells (cut from the "
+        f"64^3-equivalent 262144 generators: their host tessellation would take minutes), "
+        f"{MF_PHOTONS} packets x {MF_ITERATIONS} iterations, {MF_BINS} bins, {MF_ROUNDS} "
+        f"re-emission generations, temperature balance from iteration 4, in {wall:.4f} s "
+        f"wall ({transport:.4f} s transport, {solve:.4f} s solve); launches {launches}")
+    log(f"  re-emitted per generation in the last iteration {sim.reemitted[-1].tolist()}; "
+        f"secant sweeps (max, mean) {[(int(s.max()), float(s.double().mean())) for s in sim.sweeps]}")
+    check(launches["trace_voronoi_spectral"] == MF_ITERATIONS * per_iteration,
+          f"K6s launches {launches}")
+    check(launches["temperature"] == MF_ITERATIONS - 3, f"K4 launches {launches}")
+    r = np.sqrt((generators_si(grid) ** 2).sum(-1))
+    x = {name: v.cpu().numpy() for name, v in xion.items()}
+    T = T.cpu().numpy()
+    for name, value in {"T": T, **x}.items():
+        check(value.shape == (grid.n_cells,) and bool(np.isfinite(value).all()),
+              f"multi-frequency {name} finite, shape {value.shape}")
+    xH, xHe = np.clip(x["H_n"], 0, 1), np.clip(x["He_n"], 0, 1)
+    check_structure(r, xH, xHe, "multi-frequency Voronoi")
+    T_core = float(np.median(T[r < 2.0 * PC]))
+    log(f"  median xH inside 2 pc {float(np.median(xH[r < 2.0 * PC])):.3e}, beyond 4.6 pc "
+        f"{float(np.median(xH[r > 4.6 * PC])):.4f}; cells xH<0.5 {int((xH < 0.5).sum())}, "
+        f"xHe<0.5 {int((xHe < 0.5).sum())}; median T inside 2 pc {T_core:.1f} K")
+    check(4000.0 < T_core < 25000.0, f"median T(r < 2 pc) {T_core}")
+    check("last solve" in solves, "the multi-frequency Voronoi run's last temperature solve")
+    return launches, sim, captured, solves["last solve"]
+
+
+def voronoi_spectral_parity(sim, captured, device) -> dict:
+    """K6s against trace_packets_voronoi_spectral_reference on the card, on
+    the inputs of the multi-frequency run's first and last source marches:
+    flags, positions, the binned tally and the ion integrals; both timed on
+    the last."""
+    grid = sim.grid
+    C, K, n_bins = grid.n_cells, grid.max_faces, sim.n_bins
+    tables = sim._tables
+    march = dict(eps=voronoi.march_eps(C), max_steps=voronoi.default_max_steps(C))
+    weights = (sim._sigma_table32, sim._heating32)
+    worst = 0.0
+    for label in ("first", "last"):
+        chi_h, chi_he, packets = captured[label]
+        tally_k, out_k = voronoi.trace_packets_voronoi_spectral(
+            grid, chi_h, chi_he, packets, n_bins=n_bins, tables=tables)
+        stats = {}
+        tally_r, out_r = voronoi.trace_packets_voronoi_spectral_reference(
+            tables, chi_h * grid.scale, chi_he * grid.scale, packets,
+            torch.zeros(n_bins * C, device=device), stats=stats, **march)
+        torch.cuda.synchronize()
+        tally_k, tally_r = tally_k.reshape(-1), tally_r * grid.scale
+        worst = max(worst, compare_voronoi_marches(
+            f"K6s parity ({label} iteration's source march)", out_k, out_r, tally_k, tally_r))
+        ions_k = traversal.spectral_tallies_to_ion_integrals(tally_k, *weights, C).double()
+        ions_r = traversal.spectral_tallies_to_ion_integrals(tally_r, *weights, C).double()
+        rel = float(((ions_k - ions_r).abs().sum(1) / ions_r.abs().sum(1).clamp_min(1e-300)).max())
+        log(f"  ion integrals rel L1 (worst row) K6s vs plain {rel:.3e}")
+        check(rel <= MAX_TALLY_REL_L1, f"K6s ion integrals vs plain {rel}")
+    steps, faces = int(stats["packet_steps"]), int(stats["face_tests"])
+    ms = time_cuda(lambda: voronoi.trace_packets_voronoi_spectral(
+        grid, chi_h, chi_he, packets, n_bins=n_bins, tables=tables), 20)
+    plain_ms = time_cuda(lambda: voronoi.trace_packets_voronoi_spectral_reference(
+        tables, chi_h * grid.scale, chi_he * grid.scale, packets,
+        torch.zeros(n_bins * C, device=device), **march), 1)
+    n = packets.cell.numel()
+    log(f"timing K6s on {C} cells / {n_bins} bins / {n} packets (the last source march): K6s "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms per march (CUDA events, incl. the packet-state "
+        f"copy and the tally's scaling)")
+    # tables, chi_H and chi_He read, the binned tally read and written;
+    # packets in: K6's plus sigma_H, sigma_He, bin; out: K6's
+    bound = roofline(f"K6s ({steps} packet steps, {faces} real faces tested)",
+                     C * K * 32 + 8 * C + 8 * n_bins * C + 72 * n,
+                     OPS_PER_VORONOI_FACE * faces + OPS_PER_K6S_STEP * steps, F32_OPS_PER_S)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
 def main() -> None:
     device = require_cuda()
     smi = subprocess.run(
@@ -863,69 +1445,93 @@ def main() -> None:
     log(f"card: {smi.stdout.strip()}")
     log(f"device: {describe(device)}, python {sys.version.split()[0]}")
 
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:
-        builds = {label: pool.submit(timed_build, name) for label, name in KERNEL_SOURCES.items()}
-        report_build("K1", builds["K1"])
+    # the two Voronoi grids are built on the host in worker processes while
+    # the kernels compile and the Cartesian phases run
+    grid_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        grids = {
+            "starbench_voronoi": grid_pool.submit(
+                timed_voronoi_grid, SBV_BOX, SBV_GENERATORS, SBV_SEED, SBV_LLOYD),
+            "multi-frequency": grid_pool.submit(
+                timed_voronoi_grid, MF_BOX, MF_GENERATORS, MF_SEED, MF_LLOYD),
+        }
+        with concurrent.futures.ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:
+            builds = {label: pool.submit(timed_build, name)
+                      for label, name in KERNEL_SOURCES.items()}
+            report_build("K1", builds["K1"])
 
-        config = HOnlyConfig.from_params(ParameterFile(STROMGREN_PARAM))
-        small = kernel_parity(config, device, 2**17)
-        # the shapes the main path gives K1: 64^3 cells, 1e6 packets
-        parity = kernel_parity(config, device, config.n_photons)
-        launches = main_path(config)
+            config = HOnlyConfig.from_params(ParameterFile(STROMGREN_PARAM))
+            small = kernel_parity(config, device, 2**17)
+            # the shapes the main path gives K1: 64^3 cells, 1e6 packets
+            parity = kernel_parity(config, device, config.n_photons)
+            launches = main_path(config)
 
-        report_build("K3", builds["K3"])
-        star = starbench_simulation(device)
-        hydro_record = hydro_parity(
-            device, star.geometry, star.config.gamma,
-            star.timeline().current_timestep,  # the main path's dt
-        )
-        del star
-        star_launches = starbench_main_path(device)
+            report_build("K3", builds["K3"])
+            star = starbench_simulation(device)
+            hydro_record = hydro_parity(
+                device, star.geometry, star.config.gamma,
+                star.timeline().current_timestep,  # the main path's dt
+            )
+            del star
+            star_launches = starbench_main_path(device)
 
-        report_build("K2", builds["K2"])
-        report_build("K4", builds["K4"])
-    spectral_record = spectral_parity(device)
-    multifreq_launches = [lexington_archived(device)]
-    full_launches, solve_inputs = lexington_full(device)
-    multifreq_launches.append(full_launches)
-    temperature_record = temperature_parity(solve_inputs)
-    del solve_inputs
-    multifreq_launches.append(stromgren_diffuse(device))
+            for label in ("K2", "K4", "K6", "K6s", "K7"):
+                report_build(label, builds[label])
+        spectral_record = spectral_parity(device)
+        multifreq_launches = [lexington_archived(device)]
+        full_launches, solve_inputs = lexington_full(device)
+        multifreq_launches.append(full_launches)
+        temperature_record = temperature_parity(
+            solve_inputs, "lexingtonHII20 64^3, the fourth solve")
+        del solve_inputs
+        multifreq_launches.append(stromgren_diffuse(device))
 
-    record = {
-        "name": "trace_packets",
-        "route": "cuda",
-        "source": "cmacionize_torch/csrc/trace_packets.cu",
-        "replaces": "cmacionize_tpu/ops/traversal.py:115",
-        "launches": launches + star_launches["trace_packets"],
-        **parity,
-        "max_abs_err": max(small["max_abs_err"], parity["max_abs_err"]),
-    }
-    hydro_kernel = {
-        "name": "hydro_step",
-        "route": "cuda",
-        "source": "cmacionize_torch/csrc/hydro_step.cu",
-        "replaces": "cmacionize_tpu/ops/hydro.py:353",
-        "launches": star_launches["hydro_step"],
-        **hydro_record,
-    }
-    spectral_kernel = {
-        "name": "trace_packets_spectral",
-        "route": "cuda",
-        "source": "cmacionize_torch/csrc/trace_packets_spectral.cu",
-        "replaces": "cmacionize_tpu/ops/traversal.py:503",
-        "launches": sum(run["trace_packets_spectral"] for run in multifreq_launches),
-        **spectral_record,
-    }
-    temperature_kernel = {
-        "name": "temperature",
-        "route": "cuda",
-        "source": "cmacionize_torch/csrc/temperature.cu",
-        "replaces": "cmacionize_tpu/ops/temperature.py:283",
-        "launches": sum(run["temperature"] for run in multifreq_launches),
-        **temperature_record,
-    }
-    kernel_records = [record, spectral_kernel, hydro_kernel, temperature_kernel]
+        sbv_grid = report_grid("starbench_voronoi (40000 generators, 2 Lloyd iterations)",
+                               grids["starbench_voronoi"])
+        march_record = voronoi_march_parity(sbv_grid, device)
+        honly_launches = voronoi_honly(sbv_grid, device)
+        flux_record = voronoi_flux_parity(sbv_grid, device, 0.141 * MYR / SBV_STEPS)
+        sbv_launches, final_march_record = starbench_voronoi(sbv_grid, device)
+        del sbv_grid
+        mf_grid = report_grid("multi-frequency (12000 generators, 1 Lloyd iteration)",
+                              grids["multi-frequency"])
+        mf_launches, mf_sim, captured, mf_solve_inputs = multifreq_voronoi(mf_grid, device)
+        multifreq_launches.append(mf_launches)
+        spectral_voronoi_record = voronoi_spectral_parity(mf_sim, captured, device)
+        mf_temperature_record = temperature_parity(
+            mf_solve_inputs, "multi-frequency Voronoi, the last solve")
+    finally:
+        grid_pool.shutdown(wait=True, cancel_futures=True)
+
+    def kernel(name, source, replaces, n_launches, record):
+        return {"name": name, "route": "cuda", "source": f"cmacionize_torch/csrc/{source}",
+                "replaces": replaces, "launches": n_launches, **record}
+
+    kernel_records = [
+        kernel("trace_packets", "trace_packets.cu", "cmacionize_tpu/ops/traversal.py:115",
+               launches + star_launches["trace_packets"],
+               {**parity, "max_abs_err": max(small["max_abs_err"], parity["max_abs_err"])}),
+        kernel("trace_packets_spectral", "trace_packets_spectral.cu",
+               "cmacionize_tpu/ops/traversal.py:503",
+               sum(run.get("trace_packets_spectral", 0) for run in multifreq_launches),
+               spectral_record),
+        kernel("hydro_step", "hydro_step.cu", "cmacionize_tpu/ops/hydro.py:353",
+               star_launches["hydro_step"], hydro_record),
+        kernel("temperature", "temperature.cu", "cmacionize_tpu/ops/temperature.py:283",
+               sum(run["temperature"] for run in multifreq_launches),
+               {**temperature_record, "max_abs_err": max(
+                   temperature_record["max_abs_err"], mf_temperature_record["max_abs_err"])}),
+        kernel("trace_voronoi", "trace_voronoi.cu", "cmacionize_tpu/models/voronoi.py:472",
+               honly_launches + sbv_launches["trace_voronoi"],
+               {**march_record, "max_abs_err": max(
+                   march_record["max_abs_err"], final_march_record["max_abs_err"])}),
+        kernel("trace_voronoi_spectral", "trace_voronoi_spectral.cu",
+               "cmacionize_tpu/models/voronoi.py:669", mf_launches["trace_voronoi_spectral"],
+               spectral_voronoi_record),
+        kernel("voronoi_flux", "voronoi_flux.cu", "cmacionize_tpu/models/voronoi_hydro.py:137",
+               sbv_launches["voronoi_flux"], flux_record),
+    ]
     print(json.dumps({"kernels": kernel_records}), flush=True)
     print(
         json.dumps(

@@ -48,7 +48,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hllc.cuh"
+
 namespace {
+
+using cmi::energy_density;
+using cmi::hllc_flux;
+using cmi::max_nan;
+using cmi::min_nan;
+using cmi::physical_flux;
 
 constexpr int kPredictThreads = 256;
 constexpr int kFluxThreads = 128;
@@ -82,14 +90,6 @@ struct Fields5 {
 struct OutFields5 {
   float* f[5];
 };
-
-// jnp.maximum / jnp.minimum: NaN in either operand gives NaN
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
 
 // _limited_slope: monotonized central, in units of one cell
 __device__ __forceinline__ float limited_slope(float wm, float w0, float wp) {
@@ -157,98 +157,8 @@ __global__ void __launch_bounds__(kPredictThreads) muscl_predict_kernel(
 
 // ------------------------------------------------------------ Riemann solvers
 // Outputs are in the face frame: mass, normal momentum, two tangential
-// momenta, energy.
-
-__device__ __forceinline__ float energy_density(float rho, float u, float v,
-                                                float w, float p,
-                                                const Consts& c) {
-  return p / c.gm1 + 0.5f * rho * (u * u + v * v + w * w);
-}
-
-__device__ __forceinline__ void physical_flux(float rho, float u, float v,
-                                              float w, float p,
-                                              const Consts& c, float f[5]) {
-  const float e = energy_density(rho, u, v, w, p, c);
-  f[0] = rho * u;
-  f[1] = rho * u * u + p;
-  f[2] = rho * u * v;
-  f[3] = rho * u * w;
-  f[4] = (e + p) * u;
-}
-
-__device__ __forceinline__ float q_factor(float p_star, float p,
-                                          const Consts& c) {
-  const float sp = p > 1e-30f ? p : 1.0f;
-  const float ratio = p_star / sp;
-  return ratio > 1.0f ? sqrtf(1.0f + c.cq * (ratio - 1.0f)) : 1.0f;
-}
-
-// star_flux of hllc_flux: F* = F + S (U* - U)
-__device__ __forceinline__ void star_flux(const float f[5], float rho, float u,
-                                          float v, float w, float p, float S,
-                                          float S_star, const Consts& c,
-                                          float out[5]) {
-  const float tiny = 1e-30f;
-  const float e = energy_density(rho, u, v, w, p, c);
-  const float s_diff = S - S_star;
-  const float coef = rho * (S - u) / (fabsf(s_diff) > tiny ? s_diff : tiny);
-  const float denom = rho * (S - u);
-  const float safe_denom_su = fabsf(denom) > tiny ? denom : tiny;
-  const float e_star = coef * (e / rho + (S_star - u) * (S_star + p / safe_denom_su));
-  out[0] = f[0] + S * (coef - rho);
-  out[1] = f[1] + S * (coef * S_star - rho * u);
-  out[2] = f[2] + S * (coef * v - rho * v);
-  out[3] = f[3] + S * (coef * w - rho * w);
-  out[4] = f[4] + S * (e_star - e);
-}
-
-__device__ void hllc_flux(float rhoL, float uL, float vL, float wL, float pL,
-                          float rhoR, float uR, float vR, float wR, float pR,
-                          const Consts& c, float out[5]) {
-  const float tiny = 1e-30f;
-  const bool okL = rhoL > tiny;
-  const bool okR = rhoR > tiny;
-  if (!(okL || okR)) {  // both sides vacuum: no flux
-    for (int i = 0; i < 5; ++i) out[i] = 0.0f;
-    return;
-  }
-  const float srhoL = okL ? rhoL : 1.0f;
-  const float srhoR = okR ? rhoR : 1.0f;
-  const float spL = max_nan(pL, 0.0f);
-  const float spR = max_nan(pR, 0.0f);
-  const float aL = sqrtf(c.gamma * spL / srhoL);
-  const float aR = sqrtf(c.gamma * spR / srhoR);
-
-  // PVRS pressure estimate
-  const float rho_bar = 0.5f * (srhoL + srhoR);
-  const float a_bar = 0.5f * (aL + aR);
-  const float p_pvrs = 0.5f * (spL + spR) - 0.5f * (uR - uL) * rho_bar * a_bar;
-  const float p_star = max_nan(0.0f, p_pvrs);
-
-  const float SL = uL - aL * q_factor(p_star, spL, c);
-  const float SR = uR + aR * q_factor(p_star, spR, c);
-  const float denom = srhoL * (SL - uL) - srhoR * (SR - uR);
-  const float safe_denom = fabsf(denom) > tiny ? denom : tiny;
-  const float S_star =
-      (spR - spL + srhoL * uL * (SL - uL) - srhoR * uR * (SR - uR)) /
-      safe_denom;
-
-  float f[5];
-  // hllc_flux's pick, whose later tests override the earlier ones
-  if (SR <= 0.0f) {
-    physical_flux(srhoR, uR, vR, wR, spR, c, out);
-  } else if (S_star < 0.0f && SR > 0.0f) {
-    physical_flux(srhoR, uR, vR, wR, spR, c, f);
-    star_flux(f, srhoR, uR, vR, wR, spR, SR, S_star, c, out);
-  } else if (SL < 0.0f && S_star >= 0.0f) {
-    physical_flux(srhoL, uL, vL, wL, spL, c, f);
-    star_flux(f, srhoL, uL, vL, wL, spL, SL, S_star, c, out);
-  } else if (SL >= 0.0f) {
-    physical_flux(srhoL, uL, vL, wL, spL, c, out);
-  } else {  // comparisons with NaN: pick leaves 0
-    for (int i = 0; i < 5; ++i) out[i] = 0.0f;
-  }
-}
+// momenta, energy.  hllc_flux, physical_flux and energy_density are in
+// hllc.cuh (shared with K7); the exact solver follows.
 
 // Toro's f_K(p) and its derivative
 __device__ __forceinline__ float fK(float p, float rhoK, float pK, float aK,

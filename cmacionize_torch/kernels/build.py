@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher.  On first use
 it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``kernels/_build/`` (listed in ``.gitignore``) and loaded with
-``ctypes``.  The library's file name carries a hash of the source and the
-flags, so a changed source is rebuilt; the compiler's output (with the
-``ptxas`` register and spill report) is kept beside it as ``.log``.
+``ctypes``.  The library's file name carries a hash of the source, of the
+``csrc/*.cuh`` headers it includes (directly or through another header) and
+of the flags, so a changed source or header is rebuilt; the compiler's output
+(with the ``ptxas`` register and spill report) is kept beside it as ``.log``.
 
 Nothing is built unless a kernel is launched, and nothing is built from
 outside the package's own sources.  A missing ``nvcc`` or a failed build
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,6 +32,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 # loaded libraries by kernel name; a CDLL cannot be unloaded, so this cache
 # lives as long as the process
@@ -50,9 +54,27 @@ def find_nvcc() -> str:
     )
 
 
+def local_includes(source: Path) -> list:
+    """The ``csrc/`` headers that ``source`` includes with ``#include "..."``,
+    directly or through another such header, in order of first inclusion."""
+    found, pending = [], [source]
+    while pending:
+        for name in _INCLUDE.findall(pending.pop(0).read_text()):
+            header = CSRC_DIR / name
+            if header not in found:
+                found.append(header)
+                pending.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is built, keyed by content."""
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    """Where the library of ``csrc/<name>.cu`` is built, keyed by the content
+    of the source, of its headers and of the flags."""
+    source = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in local_includes(source):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -66,7 +88,7 @@ def compile_library(name: str) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, str(source)],
             capture_output=True, text=True, check=False,
         )
         if proc.returncode != 0:

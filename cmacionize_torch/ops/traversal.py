@@ -94,12 +94,17 @@ def _default_max_steps(shape, max_steps):
     return max_steps if max_steps else 4 * (shape[0] + shape[1] + shape[2])
 
 
-def _march_reference(pk, tally, chi_of, tally_index, *, shape, periodic, max_steps):
+def _march_reference(pk, tally, chi_of, tally_index, *, shape, periodic, max_steps,
+                     stats=None):
     """The JAX lockstep loop, step for step, for either batch type.
 
     ``chi_of(pk, flat)`` gives each packet's opacity in its cell and
-    ``tally_index(pk, flat)`` the tally slot of its deposit."""
+    ``tally_index(pk, flat)`` the tally slot of its deposit.  With ``stats``,
+    ``stats["packet_steps"]`` receives the number of packet steps taken (a
+    device tensor); without it nothing is counted."""
     nx, ny, nz = shape
+    if stats is not None:
+        stats["packet_steps"] = torch.zeros((), dtype=torch.int64, device=tally.device)
     max_steps = _default_max_steps(shape, max_steps)
     pk = pk._replace(active=pk.active & _inside(pk.cx, pk.cy, pk.cz, shape))
     step_x, step_y, step_z = (
@@ -158,6 +163,8 @@ def _march_reference(pk, tally, chi_of, tally_index, *, shape, periodic, max_ste
         # freeze terminated packets: their final state (position, remaining
         # tau) is what re-emission and the domain exchange read
         upd = pk.active
+        if stats is not None:
+            stats["packet_steps"] += upd.sum()
         pk = pk._replace(
             px=torch.where(upd, px, pk.px),
             py=torch.where(upd, py, pk.py),
@@ -181,6 +188,7 @@ def trace_packets_reference(
     shape: Tuple[int, int, int],
     periodic: Tuple[bool, bool, bool] = (False, False, False),
     max_steps: int = 0,
+    stats=None,
 ):
     """Plain PyTorch march: the JAX lockstep loop, step for step.
 
@@ -195,7 +203,7 @@ def trace_packets_reference(
         packets, tally,
         lambda pk, flat: opacity[flat],
         lambda pk, flat: flat,
-        shape=shape, periodic=periodic, max_steps=max_steps,
+        shape=shape, periodic=periodic, max_steps=max_steps, stats=stats,
     )
 
 
@@ -315,6 +323,7 @@ def trace_packets_spectral_reference(
     n_bins: int,
     periodic: Tuple[bool, bool, bool] = (False, False, False),
     max_steps: int = 0,
+    stats=None,
 ):
     """Plain PyTorch spectral march: the JAX lockstep loop of
     ``trace_packets_spectral``, step for step.  Returns (tally2d, packets)
@@ -326,7 +335,7 @@ def trace_packets_spectral_reference(
         packets, tally2d,
         _spectral_opacity(chi_h, chi_he),
         lambda pk, flat: pk.fbin * ncell + flat,
-        shape=shape, periodic=periodic, max_steps=max_steps,
+        shape=shape, periodic=periodic, max_steps=max_steps, stats=stats,
     )
 
 

@@ -507,3 +507,201 @@ def test_mini_lexington_on_card(cuda):
     assert float(np.median(x["O_n"][shell(1.0, 2.0)])) > 0.9
     assert float(np.median(x["O_p1"][shell(1.0, 2.0)])) < 0.1
     assert (T[nd == 0] == 500.0).all()
+
+
+# ------------------------------------------- K6, K6s and K7 (Voronoi)
+
+PC = 3.086e16
+
+
+def _voronoi_grid(seed, n, periodic=(False, False, False), si=True):
+    from cmacionize_torch.models import voronoi
+
+    rng = np.random.default_rng(seed)
+    geometry = (GridGeometry((-1.256 * PC,) * 3, (2.512 * PC,) * 3, (8, 8, 8), periodic)
+                if si else GridGeometry((0.0,) * 3, (1.0,) * 3, (8, 8, 8), periodic))
+    return voronoi.build_voronoi_grid(geometry, rng.random((n, 3)), num_lloyd=1)
+
+
+def _voronoi_packets(grid, seed, n, device, spectral=False, n_bins=8):
+    """Isotropic packets near the box centre, an ionized sphere in neutral
+    gas with a fully ionized cone along +z (χ per meter), made with numpy."""
+    from cmacionize_torch.models import voronoi
+
+    rng = np.random.default_rng(seed)
+    rel = grid.generators - 0.5
+    r = np.sqrt((rel**2).sum(1))
+    x = np.where(r < 0.3, rng.uniform(1e-7, 1e-5, r.shape), 1.0)
+    x = np.where(rel[:, 2] > r * np.cos(np.radians(25.0)), 1e-9, x)
+    chi = 3.113e9 * 6.3e-22 * x
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pos = 0.5 + rng.uniform(-0.05, 0.05, (n, 3))
+    pk = voronoi.make_voronoi_packets(
+        grid, pos, d, -np.log1p(-rng.random(n)), rng.uniform(0.5, 1.5, n), device=device)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    if not spectral:
+        return t(chi), pk
+    fbin = torch.tensor(rng.integers(0, n_bins, n), dtype=torch.int32, device=device)
+    spk = voronoi.SpectralVoronoiPacketBatch(
+        *pk[:5], t(rng.uniform(0.5e-22, 6.3e-22, n)), t(rng.uniform(0.0, 7e-22, n)), fbin,
+        torch.arange(n, device=device) % 5 != 0, pk.absorbed)
+    return t(3.113e9 * x), t(0.1 * 3.113e9 * x), spk
+
+
+def _compare_marches(out_k, out_r, tally_k, tally_r, n):
+    flags = int(((out_k.absorbed != out_r.absorbed) | (out_k.active != out_r.active)).sum())
+    assert flags <= 1e-5 * n + 1, flags
+    same = (out_k.absorbed == out_r.absorbed) & (out_k.active == out_r.active)
+    assert float((out_k.pos - out_r.pos)[same].abs().max()) <= 1e-5
+    rel_l1 = float((tally_k - tally_r).abs().sum() / tally_r.abs().sum())
+    assert rel_l1 <= 1e-4, rel_l1
+
+
+@pytest.mark.parametrize("periodic, max_steps", [
+    ((False, False, False), 0), ((True, True, True), 0), ((True, False, True), 0),
+    ((False, False, False), 6),
+])
+def test_voronoi_march_kernel_matches_plain_version(cuda, periodic, max_steps):
+    from cmacionize_torch.models import voronoi
+
+    grid = _voronoi_grid(0, 3000, periodic)
+    chi, pk = _voronoi_packets(grid, 1, 50_000, cuda)
+    tables = voronoi.voronoi_tables(grid, cuda)
+    C = grid.n_cells
+    march = dict(eps=voronoi.march_eps(C), max_steps=voronoi.default_max_steps(C, max_steps))
+    before = kernels.LAUNCHES["trace_voronoi"]
+    tally_k, out_k = voronoi.trace_packets_voronoi(grid, chi, pk, max_steps=max_steps,
+                                                   tables=tables)
+    assert kernels.LAUNCHES["trace_voronoi"] == before + 1
+    tally_r, out_r = voronoi.trace_packets_voronoi_reference(
+        tables, chi * grid.scale, pk, torch.zeros(C, device=cuda), **march)
+    torch.cuda.synchronize()
+    n_absorbed = int(out_r.absorbed.sum())
+    assert 0 < n_absorbed and (n_absorbed < pk.size or any(periodic))
+    _compare_marches(out_k, out_r, tally_k, tally_r * grid.scale, pk.size)
+    assert bool(pk.active.all())  # the input batch is left as it was
+
+
+@pytest.mark.parametrize("periodic", [(False, False, False), (True, True, True)])
+def test_voronoi_spectral_kernel_matches_plain_version(cuda, periodic):
+    from cmacionize_torch.models import voronoi
+
+    grid = _voronoi_grid(2, 3000, periodic)
+    n_bins = 8
+    chi_h, chi_he, pk = _voronoi_packets(grid, 3, 50_000, cuda, spectral=True, n_bins=n_bins)
+    tables = voronoi.voronoi_tables(grid, cuda)
+    C = grid.n_cells
+    march = dict(eps=voronoi.march_eps(C), max_steps=voronoi.default_max_steps(C))
+    before = kernels.LAUNCHES["trace_voronoi_spectral"]
+    tally_k, out_k = voronoi.trace_packets_voronoi_spectral(
+        grid, chi_h, chi_he, pk, n_bins=n_bins, tables=tables)
+    assert kernels.LAUNCHES["trace_voronoi_spectral"] == before + 1
+    tally_r, out_r = voronoi.trace_packets_voronoi_spectral_reference(
+        tables, chi_h * grid.scale, chi_he * grid.scale, pk,
+        torch.zeros(n_bins * C, device=cuda), **march)
+    torch.cuda.synchronize()
+    _compare_marches(out_k, out_r, tally_k.reshape(-1), tally_r * grid.scale, pk.size)
+    frozen = ~pk.active
+    assert torch.equal(out_k.pos[frozen], pk.pos[frozen])
+    assert not bool(out_k.absorbed[frozen].any())
+
+
+def _voronoi_hydro_inputs(grid, seed, si, device):
+    from cmacionize_torch.models import voronoi_hydro
+
+    rng = np.random.default_rng(seed)
+    r = np.sqrt(((grid.generators - 0.5) ** 2).sum(1))
+    nd = np.where(r < 0.15, 0.02, np.where(r < 0.25, 3.0, 1.0)) * rng.uniform(0.98, 1.02, r.shape)
+    T = np.where(r < 0.15, 1e4, 100.0)
+    v = rng.normal(size=(len(r), 3)) * (1e4 if si else 0.1)
+    if si:
+        rho, p = nd * 3.113e9 * 1.672621898e-27, nd * 3.113e9 * 1.380649e-23 * T
+    else:
+        rho, p = nd, nd * T / 100.0
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    gamma = 1.0001 if si else 5.0 / 3.0
+    state = voronoi_hydro.conserved_from_primitives(
+        t(rho), t(v[:, 0]), t(v[:, 1]), t(v[:, 2]), t(p), None, gamma)
+    gen_vel = t(rng.normal(size=(len(r), 3)) * (3e3 if si else 0.03))
+    return state, gen_vel, gamma
+
+
+@pytest.mark.parametrize("si, periodic, second_order, dt", [
+    (True, (False, False, False), True, 1.6e11),
+    (True, (False, False, False), False, 2e10),
+    (False, (True, True, True), True, 2e-3),
+    (True, (True, False, True), True, 2e10),
+])
+def test_voronoi_flux_kernel_matches_plain_version(cuda, si, periodic, second_order, dt):
+    from cmacionize_torch.models import voronoi_hydro
+
+    grid = _voronoi_grid(4, 2000, periodic, si=si)
+    state, gen_vel, gamma = _voronoi_hydro_inputs(grid, 5, si, cuda)
+    tables = voronoi_hydro.hydro_tables(grid, cuda)
+    stats_k, stats_r = {}, {}
+    before = kernels.LAUNCHES["voronoi_flux"]
+    out_k = voronoi_hydro.voronoi_flux_update(
+        *tables, state, gen_vel, dt, gamma, second_order, stats=stats_k)
+    assert kernels.LAUNCHES["voronoi_flux"] == before + 1
+    out_r = voronoi_hydro.voronoi_flux_update_reference(
+        *tables, state, gen_vel, dt, gamma, second_order, stats=stats_r)
+    torch.cuda.synchronize()
+    if second_order:
+        assert torch.equal(stats_k["flag"], stats_r["flag"])
+    for name, a, b in zip(out_r._fields, out_r, out_k):
+        assert bool(torch.isfinite(b).all()), name
+        err = float((a - b).abs().max() / a.abs().max())
+        assert err <= 1e-5, (name, err)
+    assert float((out_k.energy - state.energy).abs().max()) > 0.0
+
+
+def test_voronoi_flux_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from cmacionize_torch.kernels.voronoi_flux import voronoi_flux_update_cuda
+    from cmacionize_torch.models import voronoi_hydro
+
+    grid = _voronoi_grid(6, 300)
+    state, gen_vel, gamma = _voronoi_hydro_inputs(grid, 7, True, cuda)
+    tables = voronoi_hydro.hydro_tables(grid, cuda)
+    with pytest.raises(ValueError, match="neighbors"):
+        voronoi_flux_update_cuda(tables.neighbors.long(), *tables[1:], state, gen_vel, 1e10,
+                                 gamma=gamma)
+    with pytest.raises(ValueError, match="gen_vel"):
+        voronoi_flux_update_cuda(*tables, state, gen_vel[:, :2].contiguous(), 1e10, gamma=gamma)
+    with pytest.raises(ValueError, match="CUDA"):
+        voronoi_flux_update_cuda(*(t.cpu() for t in tables), state, gen_vel, 1e10, gamma=gamma)
+
+
+def test_voronoi_drivers_on_card(cuda):
+    """H-only Strömgren volume and a short starbench_voronoi run on the card
+    through K6 and K7."""
+    from cmacionize_torch.models import voronoi, voronoi_hydro
+
+    rng = np.random.default_rng(8)
+    nH, L, alpha = 1.0e8, 1.0e48, 2.7e-19
+    r_s = (3.0 * L / (4.0 * np.pi * alpha * nH * nH)) ** (1.0 / 3.0)
+    box = 6.0 * r_s
+    grid = voronoi.build_voronoi_grid(
+        GridGeometry((0.0,) * 3, (box,) * 3, (8, 8, 8)), rng.random((3000, 3)), num_lloyd=1)
+    kernels.LAUNCHES.clear()
+    sim = voronoi.HOnlyVoronoiSimulation(
+        grid, lambda p: np.full(len(p), nH), device=cuda,
+        source_position=(box / 2,) * 3, luminosity=L, cross_section=6.3e-22,
+        recombination_rate=alpha, n_photons=1 << 16, seed=9)
+    sim.run(12)
+    assert kernels.LAUNCHES["trace_voronoi"] == 12
+    v_exact = 4.0 / 3.0 * np.pi * r_s**3
+    assert abs(sim.ionized_volume() - v_exact) / v_exact < 0.3
+
+    grid = _voronoi_grid(9, 3000)
+    kernels.LAUNCHES.clear()
+    rhd = voronoi_hydro.VoronoiRHDSimulation(
+        grid, device=cuda, gamma=1.0001, timestep=0.141 * 3.15576e13 / 48, luminosity=1e49,
+        source_position=(0.0, 0.0, 0.0), cross_section=6.3e-22, recombination_rate=2.7e-19,
+        n_photons=20000, nloop=4, number_density=3.113e9, temperature=100.0, seed=31)
+    m0 = voronoi_hydro.total_mass(rhd.state, grid.volumes)
+    rhd.run(8)
+    assert kernels.LAUNCHES["trace_voronoi"] == 32 and kernels.LAUNCHES["voronoi_flux"] == 8
+    for f in rhd.state:
+        assert bool(torch.isfinite(f).all())
+    assert voronoi_hydro.total_mass(rhd.state, grid.volumes) == pytest.approx(m0, rel=1e-5)

@@ -153,6 +153,11 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.ops.line_cooling
         import cmacionize_torch.kernels.temperature
         import cmacionize_torch.kernels.trace_packets_spectral
+        import cmacionize_torch.models.voronoi
+        import cmacionize_torch.models.voronoi_hydro
+        import cmacionize_torch.kernels.trace_voronoi
+        import cmacionize_torch.kernels.trace_voronoi_spectral
+        import cmacionize_torch.kernels.voronoi_flux
         # the atomic tables are read by path, not through cmacionize_tpu.data
         import torch
         cmacionize_torch.data.load("verner_photo.npz")
