@@ -8,9 +8,9 @@ Phases (any failed check raises, so the script exits non-zero):
 
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles K1 (``cmacionize_torch/csrc/trace_packets.cu``) with nvcc,
-   while the builds of K2-K7 run beside it (one nvcc per source, all started
-   together), and two spawned worker processes build the Voronoi grids of
-   phases 14 and 19 on the host;
+   while the builds of K2-K7, K5 and K5s run beside it (one nvcc per source,
+   all started together), and two spawned worker processes build the Voronoi
+   grids of phases 14 and 19 and the AMR grids of phase 21 on the host;
 3. kernel parity: K1 against its plain PyTorch version on the card, on the
    same inputs made with numpy from a fixed seed (a 64³ Strömgren-like
    opacity with an ionized cone; 2^17 packets from the centre, then the
@@ -33,9 +33,10 @@ Phases (any failed check raises, so the script exits non-zero):
    state and the front radius R(t) at the ten outputs against the Spitzer /
    Hosokawa-Inutsuka band and the JAX package's trajectory; then K1 alone in
    this (opaque) regime;
-8. build: K2, K4, K6, K6s and K7 (``cmacionize_torch/csrc/
+8. build: K2, K4, K6, K6s, K7, K5 (with K5d) and K5s (``cmacionize_torch/csrc/
    {trace_packets_spectral,temperature,trace_voronoi,trace_voronoi_spectral,
-   voronoi_flux}.cu``), their seconds and ``ptxas -v`` reports;
+   voronoi_flux,trace_octree,trace_octree_spectral}.cu``), their seconds and
+   ``ptxas -v`` reports;
 9. K2 parity: the spectral march against its plain PyTorch version on the
    card, on a 64³ lexington-like state made with numpy from a fixed seed
    (χ_H, χ_He, 1e6 packets from the centre in Planck-sampled bins): flags,
@@ -88,7 +89,29 @@ Phases (any failed check raises, so the script exits non-zero):
 20. K6s parity: the spectral face-plane march against its plain version on
     the inputs of that run's first and last source marches: flags,
     positions, tally, ion integrals; both timed; then K4 against its plain
-    version on the inputs of that run's last temperature solve, both timed.
+    version on the inputs of that run's last temperature solve, both timed;
+21. grids: the two AMR hierarchies and their octree tables, built on the
+    host in a worker process: leaves per level, whether the dense owner map
+    was left out (``owner is None``: the octree path), host seconds;
+22. main path: stromgren_amr, ``benchmarks/stromgren.param``'s box, gas,
+    source, FixedValue σ/α and 20 iterations, with 1.6e7 packets each, on a
+    64³ coarse grid with the zone [-2.5 pc, 2.5 pc)³ refined to level 3
+    (17,006,592 leaves, a 512³ finest lattice) through AMRIonizationSimulation(..., device="cuda").run,
+    timed, with K5's launch count, the ionized volume against the Strömgren
+    volume and the 50%-crossing radius over the leaf centers against the
+    analytic one; then 2 more iterations under torch.profiler;
+23. K5 parity: the octree march against its plain version on the card, on
+    that run's final χ and 1.6e7 fresh packets from the source: flags,
+    positions, tally; both timed;
+24. main path: MultiFreqAMRSimulation on tests/test_multifreq_grids.py:40-72's
+    box, gas, abundances, source and zone at tests/test_amr.py:438-470's
+    depth (16³ coarse, level 5: 2,101,184 leaves), 8e6 packets × 10
+    iterations, 64 bins, 4 re-emission generations, the temperature balance:
+    its structure checks and the K5s, K5d and K4 launch counts, the
+    transport / solve split; then one more iteration under torch.profiler;
+25. K5s parity on the inputs of that run's first and last source marches:
+    flags, positions, tally, ion integrals; K5d against its plain version on
+    the last generation's absorption sites (identical leaf ids); all timed.
 
 Each kernel's record carries ``bound_ms``, the least time an H100 could take
 for the same work (bytes over the HBM rate or operations over the peak
@@ -118,6 +141,7 @@ from cmacionize_torch.device import describe, require_cuda
 from cmacionize_torch.kernels import build
 from cmacionize_torch import constants
 from cmacionize_torch.models import (
+    amr,
     ions,
     multifreq_simulation,
     reemission,
@@ -140,7 +164,7 @@ from cmacionize_torch.models.rhd_simulation import (
     hosokawa_inutsuka_radius,
     spitzer_radius,
 )
-from cmacionize_torch.ops import hydro, recombination, temperature, traversal
+from cmacionize_torch.ops import amr_traversal, hydro, recombination, temperature, traversal
 from cmacionize_torch.utils.params import ParameterFile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -154,6 +178,7 @@ KERNEL_SOURCES = {
     "K1": "trace_packets", "K3": "hydro_step",
     "K2": "trace_packets_spectral", "K4": "temperature",
     "K6": "trace_voronoi", "K6s": "trace_voronoi_spectral", "K7": "voronoi_flux",
+    "K5": "trace_octree", "K5s": "trace_octree_spectral",  # K5d is built with K5
 }
 PC = 3.086e16
 MYR = 3.15576e13
@@ -196,6 +221,16 @@ OPS_PER_K6_STEP = 20  # absorption, deposit, advance with the shift
 OPS_PER_K6S_STEP = 23
 OPS_PER_K7_FACE = 680  # per real face: gradients, trial and update passes, 2 HLLC, sums
 OPS_PER_K7_CELL = 300  # the LSQ matrix, its LU and 5 solves, limiter, prediction
+# K5/K5s/K5d (octree_march.cuh): one internal level of a descent (the half
+# size, three midpoints and comparisons, the octant and row index, three
+# box updates), and the rest of a march step (the nudged point and its
+# coarse cell and root index, three wall distances, the exit, absorption,
+# deposit, advance, snap and the nudged inside test); K5s adds the χ_He
+# product and the FMA; K5d's point without its levels is the coarse cell
+OPS_PER_OCTREE_LEVEL = 16
+OPS_PER_K5_STEP = 72
+OPS_PER_K5S_STEP = 75
+OPS_PER_K5D_POINT = 16
 
 # starbench_voronoi (benchmarks/run_starbench_voronoi.py:32-60, not "small"):
 # 40000 UniformRandom generators from seed 42 with 2 Lloyd iterations, 5e5
@@ -214,6 +249,30 @@ MF_GENERATORS, MF_LLOYD, MF_SEED = 12000, 1, 10
 MF_PHOTONS, MF_BINS, MF_ROUNDS, MF_ITERATIONS = 1_000_000, 64, 4, 10
 MF_DENSITY, MF_LUMINOSITY = 1e8, 4.26e49
 ABUND = {"He": 0.1, "C": 2.2e-4, "N": 4e-5, "O": 3.3e-4, "Ne": 5e-5, "S": 9e-6}
+# stromgren_amr: stromgren.param's box, gas, source and budget, its 64^3 grid
+# as the coarse level and the zone [-2.5 pc, 2.5 pc)^3 refined to level 3;
+# the multi-frequency AMR run: tests/test_multifreq_grids.py:40-72's box
+# (MF_BOX), gas, abundances, source and zone [-1.5 pc, 1.5 pc)^3 at
+# tests/test_amr.py:438-470's depth, level 5; both deep (no owner map)
+AMR_ZONE, AMR_MAX_LEVEL, AMR_LEAVES = 2.5 * PC, 3, 17_006_592
+# stromgren.param's 1e6 packets per iteration starve the zone's level-3
+# leaves (64x smaller in cross-section than its cells): at the zone's
+# corners (4.3 pc) a leaf sees ~1.6 packets per iteration, so many see none,
+# turn neutral and absorb what crosses them next, and the front settled at
+# 0.63 of the analytic radius (this script on an H100 with 1e6).  16x the
+# packets give every leaf of the zone >= 25 expected crossings.
+AMR_PHOTONS = 16_000_000
+MFA_ZONE, MFA_MAX_LEVEL, MFA_LEAVES = 1.5 * PC, 5, 2_101_184
+# The level-5 leaves are 1/1024 of a coarse cell in cross-section: with 1e6
+# packets most of them see no packet above O+'s 35 eV edge, so their O++
+# rate is 0 and the median O_n slot (the O+ share) inside 2 pc came out
+# 0.99997 (this script on an H100).  The share of such leaves falls as the
+# packets per leaf cross-section grow; with 8e6 the median is 0.026 (this
+# script on an H100).
+MFA_PHOTONS = 8_000_000
+AMR_PROFILED_ITERATIONS = 2
+# K5/K5s against their plain versions: positions in coarse cell units
+MAX_AMR_POSITION_DIFF = 1e-5
 # K6/K6s against their plain versions: the same f32 operations per packet
 # (FMAs written out, --fmad=false), the tally in another atomic order
 MAX_VORONOI_POSITION_DIFF = 1e-5  # box units, where the flags agree
@@ -317,6 +376,20 @@ def time_cuda(fn, repeats: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def timed_call(fn):
+    """(``fn()``, its milliseconds on the card by CUDA events): one call
+    without a warm-up, for plain versions that take seconds, whose parity
+    call is also their timing."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 @contextlib.contextmanager
@@ -1275,7 +1348,10 @@ def starbench_voronoi(grid, device):
     check(r_end > r_st, f"front {r_end / PC} pc never expanded beyond r_St {r_st / PC} pc")
     check(0.75 * r_sp < r_end < 1.35 * r_hi,
           f"R = {r_end / PC:.4f} pc outside ({0.75 * r_sp / PC:.4f}, {1.35 * r_hi / PC:.4f}) pc")
-    profile_steps(sim, PROFILED_STEPS)
+    profile_window(f"{PROFILED_STEPS} starbench_voronoi steps at t = {sim.time / MYR:.4f} Myr",
+                   lambda: sim.run(PROFILED_STEPS),
+                   {"K6": ("trace_voronoi_kernel",),
+                    "K7": ("gradients_kernel", "trial_kernel", "update_kernel")})
     with capturing(voronoi, "trace_packets_voronoi", {SBV_NLOOP - 1: "last"},
                    lambda grid_, chi_si, packets, **kw: (chi_si.clone(), clone_batch(packets))
                    ) as captured:
@@ -1290,38 +1366,33 @@ def clone_batch(packets):
     return type(packets)(*(f.clone() for f in packets))
 
 
-def profile_steps(sim, n_steps: int) -> None:
-    """Where the time of ``n_steps`` more steps goes: device time by kernel
-    (torch.profiler) against the host clock of the window."""
+def profile_window(label: str, run, groups: dict) -> None:
+    """Where the time of ``run()`` goes: device time by kernel
+    (torch.profiler), summed over the kernel names of each of ``groups``,
+    against the host clock of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim.run(n_steps)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     averages = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     device_us = {e.key: e.self_device_time_total for e in averages}
     busy = sum(device_us.values()) * 1e-6
-    groups = {
-        "K6": ("trace_voronoi_kernel",),
-        "K7": ("gradients_kernel", "trial_kernel", "update_kernel"),
-    }
+    if busy <= 0.0:
+        log(f"profile of {label}: the profiler saw no device time (host clock {wall:.4f} s)")
+        return
     shares = {name: sum(us for k, us in device_us.items() if any(n in k for n in names)) * 1e-6
               for name, names in groups.items()}
     rest = busy - sum(shares.values())
     n_kernels = sum(e.count for e in averages)
-    if busy <= 0.0:
-        log(f"profile of {n_steps} starbench_voronoi steps: the profiler saw no device time "
-            f"(host clock {wall:.4f} s)")
-        return
-    log(f"profile of {n_steps} starbench_voronoi steps at t = {sim.time / MYR:.4f} Myr "
-        f"(torch.profiler, the same process): host clock {wall:.4f} s, device busy "
-        f"{busy:.4f} s ({busy / wall:.4f} of the window; idle {1 - busy / wall:.4f}); K6 "
-        f"{shares['K6']:.4f} s ({shares['K6'] / busy:.4f} of busy), K7 {shares['K7']:.4f} s "
-        f"({shares['K7'] / busy:.4f}), the rest {rest:.4f} s ({rest / busy:.4f}) in "
-        f"{n_kernels} kernel launches in all")
+    log(f"profile of {label} (torch.profiler, the same process): host clock {wall:.4f} s, "
+        f"device busy {busy:.4f} s ({busy / wall:.4f} of the window; idle "
+        f"{1 - busy / wall:.4f}); "
+        + ", ".join(f"{name} {t:.4f} s ({t / busy:.4f} of busy)" for name, t in shares.items())
+        + f", the rest {rest:.4f} s ({rest / busy:.4f}) in {n_kernels} kernel launches in all")
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
     log("  top device time: " + "; ".join(f"{k[:60]} {us * 1e-3:.3f} ms" for k, us in top))
 
@@ -1436,6 +1507,319 @@ def voronoi_spectral_parity(sim, captured, device) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
+# ------------------------------------------------------ AMR: K5, K5s, K5d
+
+
+def uniform_density(value: float):
+    return lambda p: np.full(len(np.atleast_2d(p)), value)
+
+
+def stromgren_amr_setup():
+    """stromgren.param through the port's ParameterFile, and the refinement
+    of stromgren_amr: (config, geometry, scheme)."""
+    config = HOnlyConfig.from_params(ParameterFile(STROMGREN_PARAM))
+    scheme = amr.SpatialRefinement((-AMR_ZONE,) * 3, (2 * AMR_ZONE,) * 3, AMR_MAX_LEVEL)
+    return config, config.geometry, scheme
+
+
+def multifreq_amr_setup():
+    geometry = GridGeometry(*MF_BOX)
+    return geometry, amr.SpatialRefinement((-MFA_ZONE,) * 3, (2 * MFA_ZONE,) * 3, MFA_MAX_LEVEL)
+
+
+def timed_amr_grid(geometry, scheme, density: float):
+    """Build an AMR hierarchy and its octree tables on the host (run in a
+    worker process while the kernels build): (grid, build s, octree s)."""
+    t0 = time.perf_counter()
+    grid = amr.build_amr_grid(geometry, scheme, uniform_density(density),
+                              max_level=scheme.max_level)
+    t1 = time.perf_counter()
+    grid.octree()
+    return grid, t1 - t0, time.perf_counter() - t1
+
+
+def report_amr_grid(label: str, future, n_leaves: int):
+    grid, t_build, t_octree = future.result()
+    root, children = grid.octree()
+    per_level = np.bincount(grid.levels, minlength=grid.max_level + 1).tolist()
+    log(f"grid: {label}: {grid.n_cells} leaves, per level {per_level}; {children.shape[0]} "
+        f"internal nodes ({children.nbytes / 1e6:.1f} MB of children rows); finest lattice "
+        f"{grid.fine_shape}; owner is None: {grid.owner is None}; built on the host in "
+        f"{t_build:.2f} s, octree tables {t_octree:.2f} s (set-up, in a worker process)")
+    check(grid.n_cells == n_leaves, f"{label}: {grid.n_cells} leaves != {n_leaves}")
+    check(grid.owner is None, f"{label} has a dense owner map: not the octree path")
+    return grid
+
+
+def leaf_radius_ratio(r, xH, r_analytic) -> float:
+    """50%-crossing radius of the radially binned xH profile over the leaf
+    centers / the analytic radius (phase 4's estimator)."""
+    rbins = np.linspace(0, r.max(), 80)
+    idx = np.digitize(r, rbins)
+    sums = np.bincount(idx, weights=xH, minlength=len(rbins) + 1)[1:len(rbins)]
+    counts = np.bincount(idx, minlength=len(rbins) + 1)[1:len(rbins)]
+    good = counts > 0
+    prof = sums[good] / counts[good]
+    rmid = (0.5 * (rbins[1:] + rbins[:-1]))[good]
+    return float(np.interp(0.5, prof, rmid) / r_analytic)
+
+
+def stromgren_amr(grid, device):
+    """stromgren_amr through AMRIonizationSimulation(..., grid=the worker's
+    hierarchy).run(20): the radius ratio and the ionized volume; then two
+    profiled iterations.  Returns (sim, K5 launches)."""
+    config, geometry, scheme = stromgren_amr_setup()
+    sim = amr.AMRIonizationSimulation(
+        geometry, scheme, uniform_density(config.number_density), device=device,
+        source_position=config.source_position, luminosity=config.luminosity,
+        cross_section=config.cross_section, recombination_rate=config.recombination_rate,
+        n_photons=AMR_PHOTONS, max_level=AMR_MAX_LEVEL, seed=42, grid=grid)
+    kernels.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xn = sim.run(config.n_iterations)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["trace_octree"]
+    xn_host = xn.cpu().numpy()
+    r_s = (3.0 * config.luminosity / (4.0 * np.pi * config.number_density**2
+                                      * config.recombination_rate)) ** (1.0 / 3.0)
+    ratio = leaf_radius_ratio(np.sqrt((grid.centers**2).sum(-1)), xn_host.astype(np.float64),
+                              r_s)
+    volume = sim.ionized_volume() / (4.0 / 3.0 * np.pi * r_s**3)
+    n_packets = AMR_PHOTONS * config.n_iterations
+    log(f"stromgren_amr main path: {grid.n_cells} leaves (64^3 coarse, level {AMR_MAX_LEVEL} "
+        f"in [-2.5 pc, 2.5 pc)^3), {AMR_PHOTONS} packets x {config.n_iterations} "
+        f"iterations in {wall:.4f} s wall, cold: the process's first run of the path, with "
+        f"the octree tables' copy to the card ({n_packets / wall:.6g} packets/s); K5 launches "
+        f"{launches}")
+    log(f"  escaped per iteration: {sim.n_escaped.tolist()}")
+    log(f"  50%-radius over leaf centers / analytic ({r_s / PC:.4f} pc): {ratio:.5f}; ionized "
+        f"volume / Stromgren volume {volume:.5f}")
+    check(launches == config.n_iterations, f"stromgren_amr K5 launches {launches}")
+    check(xn_host.shape == (grid.n_cells,) and bool(np.isfinite(xn_host).all()),
+          "stromgren_amr xH finite, one per leaf")
+    check(bool(((xn_host > 0) & (xn_host <= 1)).all()), "stromgren_amr xH in (0, 1]")
+    check(RADIUS_RATIO_RANGE[0] <= ratio <= RADIUS_RATIO_RANGE[1],
+          f"stromgren_amr radius ratio {ratio} outside {RADIUS_RATIO_RANGE}")
+    profile_window(f"{AMR_PROFILED_ITERATIONS} more stromgren_amr iterations",
+                   lambda: sim.run(AMR_PROFILED_ITERATIONS), {"K5": ("trace_octree_kernel",)})
+    return sim, launches
+
+
+def compare_octree_marches(label, out_k, out_r, tally_k, tally_r):
+    """Flag mismatches, the largest position difference (coarse units) over
+    packets whose flags agree, and the tally's relative L1; checked."""
+    n = out_r.px.numel()
+    agree = (out_k.absorbed == out_r.absorbed) & (out_k.active == out_r.active)
+    flag_mismatch = int((~agree).sum())
+    pos_diff = max(float((getattr(out_k, f) - getattr(out_r, f))[agree].abs().max())
+                   for f in ("px", "py", "pz"))
+    tally_abs = (tally_k - tally_r).abs()
+    tally_rel_l1 = float(tally_abs.sum() / tally_r.abs().sum())
+    n_absorbed = int(out_r.absorbed.sum())
+    log(f"{label}: {n} packets, {n_absorbed} absorbed / {int(out_r.active.sum())} still active "
+        f"at the step cap (plain); flag mismatches {flag_mismatch}, max |position diff| "
+        f"{pos_diff:.3e} coarse units, tally rel L1 {tally_rel_l1:.3e}, max |tally diff| "
+        f"{float(tally_abs.max()):.3e}")
+    check(n_absorbed > 0, f"{label}: the input has absorbed packets")
+    check(flag_mismatch <= MAX_FLAG_MISMATCH_FRACTION * n,
+          f"{label}: flag mismatches {flag_mismatch} > {MAX_FLAG_MISMATCH_FRACTION} of {n}")
+    check(pos_diff <= MAX_AMR_POSITION_DIFF, f"{label}: position diff {pos_diff}")
+    check(tally_rel_l1 <= MAX_TALLY_REL_L1, f"{label}: tally rel L1 {tally_rel_l1}")
+    return float(tally_abs.max())
+
+
+def octree_bytes(root, children) -> int:
+    return 4 * root.numel() + 4 * children.numel()
+
+
+def octree_parity(sim, device) -> dict:
+    """K5 against trace_packets_octree_reference on the card, on the
+    stromgren_amr run's final χ and a fresh batch of the run's size from
+    the source; both timed."""
+    grid = sim.grid
+    root, children = grid.octree_tables(device)
+    march = dict(coarse_shape=tuple(grid.geometry.shape), max_level=grid.max_level)
+    chi = sim.number_density * sim.neutral_fraction * sim.cross_section * float(
+        grid.geometry.cell_size[0])
+    scale = 2.0 ** (-grid.max_level)  # finest-lattice units → coarse units
+
+    def coarse(packets):
+        return packets._replace(px=packets.px * scale, py=packets.py * scale,
+                                pz=packets.pz * scale)
+
+    pk = coarse(sim.emit())
+    C, n = grid.n_cells, pk.px.numel()
+
+    def zeros():
+        return torch.zeros(C, dtype=torch.float32, device=device)
+
+    tally_k, out_k = amr_traversal.trace_packets_octree(root, children, chi, pk, zeros(), **march)
+    stats = {}
+    (tally_r, out_r), plain_ms = timed_call(lambda: amr_traversal.trace_packets_octree_reference(
+        root, children, chi, pk, zeros(), stats=stats, **march))
+    max_err = compare_octree_marches("K5 parity (stromgren_amr's final chi, fresh packets)",
+                                     out_k, out_r, tally_k, tally_r)
+    del tally_r, out_r
+    scratch = zeros()
+    ms = time_cuda(lambda: amr_traversal.trace_packets_octree(
+        root, children, chi, pk, scratch, **march), 3)
+    steps, levels = int(stats["packet_steps"]), int(stats["descent_levels"])
+    log(f"timing K5 on {C} leaves / {n} packets ({steps} packet steps, {levels} descent "
+        f"levels, {steps / n:.1f} steps per packet): K5 {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"per march (CUDA events, incl. the packet-state copy; the plain version's one "
+        f"parity call, with its step counting)")
+    # root, children, chi read, the tally read and written; packets in: 8
+    # f32 + 2 flags, out: position, tau, 2 flags
+    bound = roofline(f"K5 ({steps} packet steps, {levels} descent levels)",
+                     octree_bytes(root, children) + 12 * C + 52 * n,
+                     OPS_PER_K5_STEP * steps + OPS_PER_OCTREE_LEVEL * levels, F32_OPS_PER_S)
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def multifreq_amr(grid, device):
+    """MultiFreqAMRSimulation on the deep multi-frequency grid with the
+    diffuse field and the temperature balance; the source marches of the
+    first and the last iteration and the last generation's absorption sites
+    are kept for the parity phase.  Returns (launches, sim, marches,
+    sites)."""
+    per_iteration = 1 + MF_ROUNDS
+    keep = {0: "first", per_iteration * (MF_ITERATIONS - 1): "last"}
+    sim = amr.MultiFreqAMRSimulation(
+        grid, uniform_density(MF_DENSITY), device=device, source_position=(0.0, 0.0, 0.0),
+        luminosity=MF_LUMINOSITY, n_photons=MFA_PHOTONS, abundances=ABUND, do_temperature=True,
+        diffuse_field=True, n_bins=MF_BINS, n_reemission_rounds=MF_ROUNDS, seed=11)
+    with capturing(amr_traversal, "trace_packets_octree_spectral", keep,
+                   lambda root, children, chi_h, chi_he, packets, tally2d, **kw: (
+                       chi_h.clone(), chi_he.clone(), clone_batch(packets))) as marches, \
+            capturing(amr_traversal, "leaf_of_positions", {MF_ROUNDS * MF_ITERATIONS - 1: "last"},
+                      lambda root, children, px, py, pz, **kw: (
+                          px.clone(), py.clone(), pz.clone())) as sites:
+        kernels.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xion, T = sim.run(MF_ITERATIONS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: kernels.LAUNCHES[name]
+                for name in ("trace_octree_spectral", "leaf_of_positions", "temperature")}
+    transport = sum(t for t, _ in sim.phase_seconds)
+    solve = sum(s for _, s in sim.phase_seconds)
+    log(f"multi-frequency AMR: {grid.n_cells} leaves (16^3 coarse, level {MFA_MAX_LEVEL} in "
+        f"[-1.5 pc, 1.5 pc)^3), {MFA_PHOTONS} packets x {MF_ITERATIONS} iterations, {MF_BINS} "
+        f"bins, {MF_ROUNDS} re-emission generations, temperature balance from iteration 4, in "
+        f"{wall:.4f} s wall ({transport:.4f} s transport, {solve:.4f} s solve); launches "
+        f"{launches}")
+    log("  per iteration: transport s, solve s, re-emitted packets per generation")
+    for k, ((t_tr, t_sv), counts) in enumerate(zip(sim.phase_seconds, sim.reemitted)):
+        log(f"  {k + 1:2d}  {t_tr:.4f}  {t_sv:.4f}  {counts.tolist()}")
+    log(f"  secant sweeps (max, mean) "
+        f"{[(int(s.max()), float(s.double().mean())) for s in sim.sweeps]}")
+    check(launches["trace_octree_spectral"] == MF_ITERATIONS * per_iteration,
+          f"K5s launches {launches}")
+    check(launches["leaf_of_positions"] == MF_ITERATIONS * MF_ROUNDS, f"K5d launches {launches}")
+    check(launches["temperature"] == MF_ITERATIONS - 3, f"K4 launches {launches}")
+    r = np.sqrt((grid.centers**2).sum(-1))
+    x = {name: v.cpu().numpy() for name, v in xion.items()}
+    T = T.cpu().numpy()
+    for name, value in {"T": T, **x}.items():
+        check(value.shape == (grid.n_cells,) and bool(np.isfinite(value).all()),
+              f"multi-frequency AMR {name} finite, shape {value.shape}")
+    xH, xHe = np.clip(x["H_n"], 0, 1), np.clip(x["He_n"], 0, 1)
+    check_structure(r, xH, xHe, "multi-frequency AMR")
+    inner = r < 2.0 * PC
+    T_core, o_core = float(np.median(T[inner])), float(np.median(x["O_n"][inner]))
+    log(f"  median xH inside 2 pc {float(np.median(xH[inner])):.3e}, beyond 4.6 pc "
+        f"{float(np.median(xH[r > 4.6 * PC])):.4f}; leaves xH<0.5 {int((xH < 0.5).sum())}, "
+        f"xHe<0.5 {int((xHe < 0.5).sum())}; median T inside 2 pc {T_core:.1f} K, median O_n "
+        f"{o_core:.3e}")
+    check(4000.0 < T_core < 25000.0, f"multi-frequency AMR median T(r < 2 pc) {T_core}")
+    check(o_core < 0.5, f"multi-frequency AMR median O_n(r < 2 pc) {o_core}")
+    check(set(marches) == {"first", "last"} and "last" in sites,
+          "the multi-frequency AMR run's marches and absorption sites were kept")
+    profile_window("one more multi-frequency AMR iteration", lambda: sim.run(1),
+                   {"K5s": ("trace_octree_spectral_kernel",),
+                    "K5d": ("leaf_of_positions_kernel",), "K4": ("temperature_kernel",)})
+    return launches, sim, marches, sites["last"]
+
+
+def amr_spectral_parity(sim, marches, device) -> dict:
+    """K5s against trace_packets_octree_spectral_reference on the card, on
+    the inputs of the multi-frequency AMR run's first and last source
+    marches: flags, positions, the binned tally and the ion integrals; both
+    timed on the last."""
+    grid = sim.grid
+    root, children = grid.octree_tables(device)
+    C, n_bins = grid.n_cells, sim.n_bins
+    march = dict(coarse_shape=tuple(grid.geometry.shape), max_level=grid.max_level,
+                 n_bins=n_bins)
+    weights = (sim._sigma_table32, sim._heating32)
+
+    def zeros():
+        return torch.zeros(n_bins * C, dtype=torch.float32, device=device)
+
+    worst = 0.0
+    for label in ("first", "last"):
+        chi_h, chi_he, packets = marches[label]
+        tally_k, out_k = amr_traversal.trace_packets_octree_spectral(
+            root, children, chi_h, chi_he, packets, zeros(), **march)
+        stats = {}
+        (tally_r, out_r), plain_ms = timed_call(
+            lambda: amr_traversal.trace_packets_octree_spectral_reference(
+                root, children, chi_h, chi_he, packets, zeros(), stats=stats, **march))
+        worst = max(worst, compare_octree_marches(
+            f"K5s parity ({label} iteration's source march)", out_k, out_r, tally_k, tally_r))
+        ions_k = traversal.spectral_tallies_to_ion_integrals(tally_k, *weights, C).double()
+        ions_r = traversal.spectral_tallies_to_ion_integrals(tally_r, *weights, C).double()
+        rel = float(((ions_k - ions_r).abs().sum(1) / ions_r.abs().sum(1).clamp_min(1e-300)).max())
+        log(f"  ion integrals rel L1 (worst row) K5s vs plain {rel:.3e}")
+        check(rel <= MAX_INTEGRAL_REL_L1, f"K5s ion integrals vs plain {rel}")
+        del tally_k, tally_r, ions_k, ions_r
+    steps, levels = int(stats["packet_steps"]), int(stats["descent_levels"])
+    scratch = zeros()
+    ms = time_cuda(lambda: amr_traversal.trace_packets_octree_spectral(
+        root, children, chi_h, chi_he, packets, scratch, **march), 5)
+    n = packets.px.numel()
+    log(f"timing K5s on {C} leaves / {n_bins} bins / {n} packets (the last source march, "
+        f"{steps} packet steps, {levels} descent levels): K5s {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms per march (CUDA events, incl. the packet-state copy; the plain version's one "
+        f"parity call, with its step counting)")
+    # root, children, chi_H and chi_He read, the binned tally read and
+    # written; packets in: K5's plus sigma_H, sigma_He, bin; out: K5's
+    bound = roofline(f"K5s ({steps} packet steps, {levels} descent levels)",
+                     octree_bytes(root, children) + 8 * C + 8 * n_bins * C + 64 * n,
+                     OPS_PER_K5S_STEP * steps + OPS_PER_OCTREE_LEVEL * levels, F32_OPS_PER_S)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def leaf_descent_parity(sim, sites, device) -> dict:
+    """K5d against leaf_of_positions_reference on the card, on the last
+    re-emission generation's absorption sites: identical leaf ids; both
+    timed."""
+    grid = sim.grid
+    root, children = grid.octree_tables(device)
+    march = dict(coarse_shape=tuple(grid.geometry.shape), max_level=grid.max_level)
+    leaf_k = amr_traversal.leaf_of_positions(root, children, *sites, **march)
+    stats = {}
+    leaf_r = amr_traversal.leaf_of_positions_reference(root, children, *sites, stats=stats,
+                                                       **march)
+    torch.cuda.synchronize()
+    mismatch = int((leaf_k != leaf_r).sum())
+    n, levels = sites[0].numel(), int(stats["descent_levels"])
+    ms = time_cuda(lambda: amr_traversal.leaf_of_positions(root, children, *sites, **march), 20)
+    plain_ms = time_cuda(lambda: amr_traversal.leaf_of_positions_reference(
+        root, children, *sites, **march), 3)
+    log(f"K5d parity (the last generation's absorption sites): {n} points, {levels} descent "
+        f"levels, leaf id mismatches {mismatch}; K5d {ms:.4f} ms, plain {plain_ms:.4f} ms per "
+        f"descent (CUDA events)")
+    check(mismatch == 0 and leaf_k.dtype == torch.int32, f"K5d leaf ids differ in {mismatch}")
+    # root and children read; 3 f32 in, one int32 out per point
+    bound = roofline(f"K5d ({levels} descent levels)", octree_bytes(root, children) + 16 * n,
+                     OPS_PER_K5D_POINT * n + OPS_PER_OCTREE_LEVEL * levels, F32_OPS_PER_S)
+    return {"max_abs_err": float(mismatch), "ms": ms, "plain_ms": plain_ms, **bound}
+
+
 def main() -> None:
     device = require_cuda()
     smi = subprocess.run(
@@ -1456,6 +1840,11 @@ def main() -> None:
             "multi-frequency": grid_pool.submit(
                 timed_voronoi_grid, MF_BOX, MF_GENERATORS, MF_SEED, MF_LLOYD),
         }
+        amr_config, amr_geometry, amr_scheme = stromgren_amr_setup()
+        grids["stromgren_amr"] = grid_pool.submit(
+            timed_amr_grid, amr_geometry, amr_scheme, amr_config.number_density)
+        grids["multi-frequency AMR"] = grid_pool.submit(
+            timed_amr_grid, *multifreq_amr_setup(), MF_DENSITY)
         with concurrent.futures.ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:
             builds = {label: pool.submit(timed_build, name)
                       for label, name in KERNEL_SOURCES.items()}
@@ -1476,7 +1865,7 @@ def main() -> None:
             del star
             star_launches = starbench_main_path(device)
 
-            for label in ("K2", "K4", "K6", "K6s", "K7"):
+            for label in ("K2", "K4", "K6", "K6s", "K7", "K5", "K5s"):
                 report_build(label, builds[label])
         spectral_record = spectral_parity(device)
         multifreq_launches = [lexington_archived(device)]
@@ -1501,6 +1890,19 @@ def main() -> None:
         spectral_voronoi_record = voronoi_spectral_parity(mf_sim, captured, device)
         mf_temperature_record = temperature_parity(
             mf_solve_inputs, "multi-frequency Voronoi, the last solve")
+        del mf_sim, mf_grid, captured, mf_solve_inputs
+
+        amr_grid = report_amr_grid("stromgren_amr (64^3 coarse, level 3)",
+                                   grids["stromgren_amr"], AMR_LEAVES)
+        amr_sim, amr_launches = stromgren_amr(amr_grid, device)
+        octree_record = octree_parity(amr_sim, device)
+        del amr_sim, amr_grid
+        mfa_grid = report_amr_grid("multi-frequency AMR (16^3 coarse, level 5)",
+                                   grids["multi-frequency AMR"], MFA_LEAVES)
+        mfa_launches, mfa_sim, mfa_marches, mfa_sites = multifreq_amr(mfa_grid, device)
+        multifreq_launches.append(mfa_launches)
+        octree_spectral_record = amr_spectral_parity(mfa_sim, mfa_marches, device)
+        leaf_record = leaf_descent_parity(mfa_sim, mfa_sites, device)
     finally:
         grid_pool.shutdown(wait=True, cancel_futures=True)
 
@@ -1531,6 +1933,13 @@ def main() -> None:
                spectral_voronoi_record),
         kernel("voronoi_flux", "voronoi_flux.cu", "cmacionize_tpu/models/voronoi_hydro.py:137",
                sbv_launches["voronoi_flux"], flux_record),
+        kernel("trace_octree", "trace_octree.cu", "cmacionize_tpu/ops/amr_traversal.py:48",
+               amr_launches, octree_record),
+        kernel("trace_octree_spectral", "trace_octree_spectral.cu",
+               "cmacionize_tpu/ops/amr_traversal.py:231", mfa_launches["trace_octree_spectral"],
+               octree_spectral_record),
+        kernel("leaf_of_positions", "trace_octree.cu", "cmacionize_tpu/ops/amr_traversal.py:182",
+               mfa_launches["leaf_of_positions"], leaf_record),
     ]
     print(json.dumps({"kernels": kernel_records}), flush=True)
     print(

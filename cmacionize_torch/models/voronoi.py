@@ -471,10 +471,10 @@ class SpectralVoronoiPacketBatch(NamedTuple):
         return self.pos.shape[0]
 
 
-def make_voronoi_packets(grid: VoronoiGrid, position, direction, tau, weight,
-                         device="cpu") -> VoronoiPacketBatch:
-    """A batch from numpy [P,3] positions (box units) and directions; the
-    start cells come from :meth:`VoronoiGrid.locate`."""
+def make_voronoi_packets(grid: VoronoiGrid, position, direction, tau, weight, *,
+                         device) -> VoronoiPacketBatch:
+    """A batch on ``device`` from numpy [P,3] positions (box units) and
+    directions; the start cells come from :meth:`VoronoiGrid.locate`."""
     cell = torch.tensor(grid.locate(np.asarray(position)), device=device)
 
     def f32(a):

@@ -79,10 +79,24 @@ def _wall_distance(pos, cell, dirn):
 
 
 def _fma(a, b, c):
-    """a·b + c rounded once, as a fused multiply-add: the f32 product is
-    exact in f64.  XLA on the CPU fuses the JAX march's position advance this
-    way, and K1 uses ``__fmaf_rn`` there, so all three advance alike."""
-    return (a.double() * b.double() + c.double()).to(c.dtype)
+    """a·b + c of f32 tensors rounded once, as a fused multiply-add.  XLA on
+    the CPU fuses the JAX march's position advance this way, and K1 uses
+    ``__fmaf_rn`` there, so all three advance alike.
+
+    The f32 product is exact in f64; the f64 sum is rounded to odd (its
+    rounding error, from a TwoSum, moves an inexact even sum to its odd
+    neighbour), so that the final rounding to f32 is the correctly rounded
+    one.  A plain f64 sum rounds twice, and where it lands exactly halfway
+    between two f32 values it can pick the other one."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    t = s - p
+    err = (p - (s - t)) + (cd - t)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(c.dtype)
 
 
 def _inside(cx, cy, cz, shape):

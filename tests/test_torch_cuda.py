@@ -1,9 +1,11 @@
-"""K1-K4 and the port's drivers on the card (marked ``cuda``).
+"""The CUDA kernels (K1-K7, K5, K5s, K5d) and the port's drivers on the card
+(marked ``cuda``).
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip where CUDA is
 missing; the plain versions they compare against are tested against the JAX
 package in test_torch_traversal.py, test_torch_hydro.py,
-test_torch_spectral.py and test_torch_temperature.py.  The file imports no
+test_torch_spectral.py, test_torch_temperature.py, test_torch_voronoi*.py
+and test_torch_amr.py.  The file imports no
 JAX, so that it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
@@ -705,3 +707,204 @@ def test_voronoi_drivers_on_card(cuda):
     for f in rhd.state:
         assert bool(torch.isfinite(f).all())
     assert voronoi_hydro.total_mass(rhd.state, grid.volumes) == pytest.approx(m0, rel=1e-5)
+
+
+# ---------------------------------------------- K5, K5s and K5d (AMR octree)
+
+
+def _octree_grid(n=16, max_level=5, zone=1.0 / 16):
+    """A deep grid: the coarse cells of the corner zone refined to
+    ``max_level`` (16³ at level 5: a 512³ finest lattice, no owner map)."""
+    from cmacionize_torch.models import amr
+
+    scheme = amr.SpatialRefinement((0.0,) * 3, (zone,) * 3, max_level)
+    return amr.build_amr_grid(GridGeometry((0.0,) * 3, (1.0,) * 3, (n, n, n)), scheme,
+                              lambda p: np.ones(len(p)), max_level=max_level)
+
+
+def _octree_inputs(grid, seed, n, device, spectral=False, n_bins=8):
+    """χ per coarse unit per leaf (an ionized core around the refined corner
+    in neutral gas) and packets from near the corner, a quarter on walls of
+    the finest lattice, made with numpy; positions in coarse units."""
+    rng = np.random.default_rng(seed)
+    nx = grid.geometry.shape[0]
+    r = np.sqrt(((grid.centers - 0.05) ** 2).sum(1)) * nx
+    x = np.where(r < 4.0, rng.uniform(1e-4, 1e-3, r.shape), 1.0)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pos = rng.uniform(0.3, 1.2, (n, 3))
+    pos[: n // 4] = np.round(pos[: n // 4] * 32) / 32
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    root, children = (torch.tensor(a, device=device) for a in grid.octree())
+    pk = traversal.make_packets(t(pos), t(d), t(-np.log1p(-rng.random(n))),
+                                t(rng.uniform(0.5, 1.5, n)), grid.geometry.shape)
+    march = dict(coarse_shape=grid.geometry.shape, max_level=grid.max_level)
+    if not spectral:
+        return root, children, t(30.0 * x), pk, march
+    fbin = torch.tensor(rng.integers(0, n_bins, n), dtype=torch.int32, device=device)
+    spk = traversal.SpectralPacketBatch(
+        *pk[:11], t(rng.uniform(0.5, 6.3, n)), t(rng.uniform(0.0, 7.0, n)), fbin,
+        torch.arange(n, device=device) % 5 != 0, pk.absorbed)
+    return root, children, t(3.0 * x), t(0.3 * x), spk, march
+
+
+def _compare_octree_marches(out_k, out_r, tally_k, tally_r, n):
+    flags = int(((out_k.absorbed != out_r.absorbed) | (out_k.active != out_r.active)).sum())
+    assert flags <= 1e-5 * n + 1, flags
+    same = (out_k.absorbed == out_r.absorbed) & (out_k.active == out_r.active)
+    for f in ("px", "py", "pz"):
+        assert float((getattr(out_k, f) - getattr(out_r, f))[same].abs().max()) <= 1e-5, f
+    rel_l1 = float((tally_k - tally_r).abs().sum() / tally_r.abs().sum())
+    assert rel_l1 <= 1e-4, rel_l1
+
+
+@pytest.mark.parametrize("max_level, max_steps", [(5, 0), (3, 0), (5, 7)])
+def test_octree_kernel_matches_plain_version(cuda, max_level, max_steps):
+    from cmacionize_torch.ops import amr_traversal
+
+    grid = _octree_grid(max_level=max_level, zone=1.0 / 16 if max_level == 5 else 0.25)
+    root, children, chi, pk, march = _octree_inputs(grid, 1, 50_000, cuda)
+    C = grid.n_cells
+    before = kernels.LAUNCHES["trace_octree"]
+    tally_k, out_k = amr_traversal.trace_packets_octree(
+        root, children, chi, pk, torch.zeros(C, device=cuda), max_steps=max_steps, **march)
+    assert kernels.LAUNCHES["trace_octree"] == before + 1
+    tally_r, out_r = amr_traversal.trace_packets_octree_reference(
+        root, children, chi, pk, torch.zeros(C, device=cuda), max_steps=max_steps, **march)
+    torch.cuda.synchronize()
+    n_absorbed = int(out_r.absorbed.sum())
+    assert 0 < n_absorbed < pk.size
+    _compare_octree_marches(out_k, out_r, tally_k, tally_r, pk.size)
+    assert bool(pk.active.all())  # the input batch is left as it was
+
+
+def test_octree_spectral_kernel_matches_plain_version(cuda):
+    from cmacionize_torch.ops import amr_traversal
+
+    grid = _octree_grid()
+    n_bins = 8
+    root, children, chi_h, chi_he, pk, march = _octree_inputs(
+        grid, 3, 50_000, cuda, spectral=True, n_bins=n_bins)
+    C = grid.n_cells
+    before = kernels.LAUNCHES["trace_octree_spectral"]
+    tally_k, out_k = amr_traversal.trace_packets_octree_spectral(
+        root, children, chi_h, chi_he, pk, torch.zeros(n_bins * C, device=cuda),
+        n_bins=n_bins, **march)
+    assert kernels.LAUNCHES["trace_octree_spectral"] == before + 1
+    tally_r, out_r = amr_traversal.trace_packets_octree_spectral_reference(
+        root, children, chi_h, chi_he, pk, torch.zeros(n_bins * C, device=cuda),
+        n_bins=n_bins, **march)
+    torch.cuda.synchronize()
+    assert int(out_r.absorbed.sum()) > 0
+    _compare_octree_marches(out_k, out_r, tally_k, tally_r, pk.size)
+    frozen = ~pk.active
+    assert torch.equal(out_k.px[frozen], pk.px[frozen])
+    assert not bool(out_k.absorbed[frozen].any())
+
+
+def test_leaf_descent_kernel_matches_plain_version(cuda):
+    from cmacionize_torch.ops import amr_traversal
+
+    grid = _octree_grid()
+    root, children = (torch.tensor(a, device=cuda) for a in grid.octree())
+    rng = np.random.default_rng(5)
+    q = rng.uniform(-0.2, 16.2, (200_000, 3)).astype(np.float32)
+    q[:50_000] = rng.uniform(0.0, 1.0, (50_000, 3)).astype(np.float32)  # the deep corner
+    q[:20_000] = np.round(q[:20_000] * 32) / 32  # on walls of the finest lattice
+    pts = [torch.tensor(q[:, i], device=cuda) for i in range(3)]
+    march = dict(coarse_shape=grid.geometry.shape, max_level=grid.max_level)
+    before = kernels.LAUNCHES["leaf_of_positions"]
+    leaf_k = amr_traversal.leaf_of_positions(root, children, *pts, **march)
+    assert kernels.LAUNCHES["leaf_of_positions"] == before + 1
+    leaf_r = amr_traversal.leaf_of_positions_reference(root, children, *pts, **march)
+    assert leaf_k.dtype == torch.int32 and torch.equal(leaf_k, leaf_r)
+    assert int(leaf_k.max()) < grid.n_cells and int(leaf_k.min()) >= 0
+
+
+def test_octree_level10_chain_terminates_on_card(cuda):
+    """tests/test_amr.py's far-corner chain through K5: every packet
+    terminates well inside the step cap."""
+    from cmacionize_torch.models import amr
+    from cmacionize_torch.ops import amr_traversal
+
+    class FarCornerChain:
+        def refine(self, level, centers, volume, nd, fractions):
+            if level >= 10:
+                return np.zeros(len(centers), bool)
+            return np.all(centers > 1.0 - 1.0 / 16 / (2**level), axis=1)
+
+    g = amr.build_amr_grid(GridGeometry((0.0,) * 3, (1.0,) * 3, (16, 16, 16)), FarCornerChain(),
+                           lambda p: np.ones(len(p)), max_level=10)
+    root, children = (torch.tensor(a, device=cuda) for a in g.octree())
+    rng = np.random.default_rng(1)
+    n = 2048
+    d = rng.normal(size=(n, 3))
+    d = torch.tensor((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32),
+                     device=cuda)
+    tau = torch.tensor((-np.log1p(-rng.random(n))).astype(np.float32), device=cuda)
+    pk = traversal.make_packets(torch.full((n, 3), 15.95, device=cuda) + 1e-4 * d, d, tau,
+                                torch.ones(n, device=cuda), (16, 16, 16))
+    _, out = amr_traversal.trace_packets_octree(
+        root, children, torch.full((g.n_cells,), 0.05, device=cuda),
+        pk, torch.zeros(g.n_cells, device=cuda), coarse_shape=(16, 16, 16), max_level=10,
+        max_steps=4000)
+    assert int(out.active.sum()) == 0 and 0 < int(out.absorbed.sum()) < n
+
+
+def test_octree_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from cmacionize_torch.kernels.leaf_of_positions import leaf_of_positions_cuda
+    from cmacionize_torch.kernels.trace_octree import trace_octree_cuda
+    from cmacionize_torch.kernels.trace_octree_spectral import trace_octree_spectral_cuda
+
+    grid = _octree_grid(max_level=3, zone=0.25)
+    root, children, chi, pk, march = _octree_inputs(grid, 4, 100, cuda)
+    C = grid.n_cells
+    fields = pk._asdict()
+    kw = dict(eps=1e-4, max_steps=10, **march)
+    with pytest.raises(ValueError, match="children"):
+        trace_octree_cuda(root, children.long(), chi, torch.zeros(C, device=cuda), fields, **kw)
+    with pytest.raises(ValueError, match="tally"):
+        trace_octree_cuda(root, children, chi, torch.zeros(C + 1, device=cuda), fields, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        trace_octree_cuda(root.cpu(), children.cpu(), chi.cpu(), torch.zeros(C), fields, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        trace_octree_spectral_cuda(root, children, chi, chi, torch.zeros(1, device=cuda),
+                                   fields, n_bins=2**31 // C + 1, **kw)
+    leaf = torch.empty(pk.size, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="leaf"):
+        leaf_of_positions_cuda(root, children, pk.px, pk.py, pk.pz, leaf, **march)
+
+
+def test_amr_drivers_on_card(cuda):
+    """H-only and multi-frequency ionization on a deep grid through K5, K5s
+    and K5d (the mirrors of tests/test_amr.py's deep tests)."""
+    from cmacionize_torch.models import amr
+
+    box = 1.0e17
+    scheme = amr.SpatialRefinement((0.0,) * 3, (box / 16,) * 3, max_level=5)
+    geom = GridGeometry((0.0,) * 3, (box,) * 3, (16, 16, 16))
+    kernels.LAUNCHES.clear()
+    sim = amr.AMRIonizationSimulation(
+        geom, scheme, lambda p: np.full(len(p), 1e8), device=cuda,
+        source_position=(0.05 * box,) * 3, luminosity=4.26e49, cross_section=6.3e-22,
+        recombination_rate=4e-19, n_photons=1 << 16, max_level=5, seed=3)
+    assert sim.grid.owner is None
+    xn = sim.run(4)
+    assert kernels.LAUNCHES["trace_octree"] == 4
+    assert float(xn.min()) < 1e-2 and sim.ionized_volume() > 0
+    assert tuple(sim.n_escaped.shape) == (4,)
+
+    kernels.LAUNCHES.clear()
+    grid = amr.build_amr_grid(geom, scheme, lambda p: np.full(len(p), 1e8), max_level=5)
+    mf = amr.MultiFreqAMRSimulation(
+        grid, lambda p: np.full(len(p), 1e8), device=cuda, source_position=(0.05 * box,) * 3,
+        luminosity=4.26e49, n_photons=1 << 16,
+        abundances={"He": 0.1, "C": 2.2e-4, "N": 4e-5, "O": 3.3e-4, "Ne": 5e-5, "S": 9e-6},
+        do_temperature=True, diffuse_field=True, n_bins=16, n_reemission_rounds=2, seed=4)
+    xion, T = mf.run(4)
+    assert kernels.LAUNCHES["trace_octree_spectral"] == 12
+    assert kernels.LAUNCHES["leaf_of_positions"] == 8
+    assert kernels.LAUNCHES["temperature"] == 1
+    xH = xion["H_n"].cpu().numpy()
+    assert np.isfinite(xH).all() and xH.min() < 1e-2 and xH.max() > 0.9
+    assert bool(torch.isfinite(T).all())

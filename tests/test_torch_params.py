@@ -158,6 +158,11 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.kernels.trace_voronoi
         import cmacionize_torch.kernels.trace_voronoi_spectral
         import cmacionize_torch.kernels.voronoi_flux
+        import cmacionize_torch.models.amr
+        import cmacionize_torch.ops.amr_traversal
+        import cmacionize_torch.kernels.trace_octree
+        import cmacionize_torch.kernels.trace_octree_spectral
+        import cmacionize_torch.kernels.leaf_of_positions
         # the atomic tables are read by path, not through cmacionize_tpu.data
         import torch
         cmacionize_torch.data.load("verner_photo.npz")

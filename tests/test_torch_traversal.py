@@ -269,3 +269,33 @@ def test_cuda_wrapper_rejects_cpu_tensors():
             torch.ones(64), torch.zeros(64), packets._asdict(),
             shape=shape, periodic=(False,) * 3, max_steps=48,
         )
+
+
+def _round_f32(x):
+    """The f32 nearest to the rational ``x``, ties to even (normal range)."""
+    from fractions import Fraction
+
+    f = np.float32(float(x))
+    candidates = (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf)))
+    return min(candidates, key=lambda v: (abs(Fraction(float(v)) - x),
+                                         int(np.array(v).view(np.int32)) & 1))
+
+
+def test_fma_rounds_once():
+    """``_fma`` is the correctly rounded a·b + c, as ``__fmaf_rn`` and XLA's
+    fused advance are, also where the f64 sum lands halfway between two f32
+    values (there a plain f64 sum rounded to f32 picks the even neighbour)."""
+    from fractions import Fraction
+
+    a = torch.tensor([8 * (1 + 2**-23)], dtype=torch.float32)
+    b = torch.tensor([8 * (1 - 2**-23)], dtype=torch.float32)
+    c = torch.tensor([2.0**30 + 128], dtype=torch.float32)
+    assert float((a.double() * b.double() + c.double()).float()) == 2.0**30 + 256
+    assert float(traversal._fma(a, b, c)) == 2.0**30 + 128
+    rng = np.random.default_rng(3)
+    A, B, C = ((rng.standard_normal(2000) * 10 ** rng.uniform(-3, 3, 2000)).astype(np.float32)
+               for _ in range(3))
+    got = traversal._fma(torch.tensor(A), torch.tensor(B), torch.tensor(C)).numpy()
+    want = [_round_f32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+            for x, y, z in zip(A, B, C)]
+    np.testing.assert_array_equal(got, np.array(want, np.float32))

@@ -167,7 +167,8 @@ class TestTransport:
         d = rng.normal(size=(P, 3))
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         p0 = np.full((P, 3), 0.5)
-        packets = voronoi.make_voronoi_packets(g, p0, d, np.full(P, 1e30), np.ones(P))
+        packets = voronoi.make_voronoi_packets(
+            g, p0, d, np.full(P, 1e30), np.ones(P), device="cpu")
         tally, pk = voronoi.trace_packets_voronoi(g, chi, packets)
         assert not pk.active.any() and not pk.absorbed.any()
         t = np.full(P, np.inf)
@@ -190,7 +191,7 @@ class TestTransport:
         p0 = np.full((P, 3), 0.5) + (rng.random((P, 3)) - 0.5) * 0.1
         tau = rng.random(P).astype(np.float32) * 3.0
         chi_si = np.full(g.n_cells, 2.0 * nside / BOX, np.float32)
-        packets = voronoi.make_voronoi_packets(g, p0, d, tau, np.ones(P))
+        packets = voronoi.make_voronoi_packets(g, p0, d, tau, np.ones(P), device="cpu")
         tally_v, pk_v = voronoi.trace_packets_voronoi(g, torch.tensor(chi_si), packets)
 
         shape = (nside,) * 3
@@ -210,7 +211,7 @@ class TestTransport:
             _geom(periodic=(True, True, True)), voronoi.uniform_regular_generators((4, 4, 4)))
         packets = voronoi.make_voronoi_packets(
             g, np.array([[0.51, 0.51, 0.51]]), np.array([[1.0, 0.0, 0.0]]),
-            np.array([1e30]), np.ones(1))
+            np.array([1e30]), np.ones(1), device="cpu")
         tally, pk = voronoi.trace_packets_voronoi(
             g, torch.full((g.n_cells,), 1e-30), packets, max_steps=37)
         assert bool(pk.active[0])
@@ -224,7 +225,7 @@ class TestTransport:
         def count(g, max_steps):
             packets = voronoi.make_voronoi_packets(
                 g, np.array([[0.51, 0.51, 0.51]] * 2), np.array([[1.0, 0.0, 0.0]] * 2),
-                np.array([1e30, 1e30]), np.ones(2))
+                np.array([1e30, 1e30]), np.ones(2), device="cpu")
             packets = packets._replace(active=torch.tensor([True, False]))
             stats = {}
             voronoi.trace_packets_voronoi_reference(
@@ -298,7 +299,8 @@ def test_march_matches_jax_bit_for_bit(periodic):
     tally_j, out_j = jax_voronoi.trace_packets_voronoi(
         jgrid, jnp.asarray(chi), jax_voronoi.make_voronoi_packets(jgrid, pos, d, tau, weight))
     tally_t, out_t = voronoi.trace_packets_voronoi(
-        grid, torch.tensor(chi), voronoi.make_voronoi_packets(grid, pos, d, tau, weight))
+        grid, torch.tensor(chi),
+        voronoi.make_voronoi_packets(grid, pos, d, tau, weight, device="cpu"))
     n_abs = int(np.asarray(out_j.absorbed).sum())
     assert 0 < n_abs and (n_abs < len(pos) or any(periodic))
     for name in ("pos", "cell", "tau_left", "active", "absorbed"):
@@ -325,7 +327,7 @@ def test_spectral_march_matches_jax_bit_for_bit(periodic):
         jnp.asarray(active), jpk.absorbed)
     tally_j, out_j = jax_voronoi.trace_packets_voronoi_spectral(
         jgrid, jnp.asarray(chi_h), jnp.asarray(chi_he), jspk, n_bins=n_bins)
-    tpk = voronoi.make_voronoi_packets(grid, pos, d, tau, weight)
+    tpk = voronoi.make_voronoi_packets(grid, pos, d, tau, weight, device="cpu")
     tspk = voronoi.SpectralVoronoiPacketBatch(
         *tpk[:5], torch.tensor(sig_h), torch.tensor(sig_he), torch.tensor(fbin),
         torch.tensor(active), tpk.absorbed)
