@@ -8,7 +8,7 @@ Phases (any failed check raises, so the script exits non-zero):
 
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles K1 (``cmacionize_torch/csrc/trace_packets.cu``) with nvcc,
-   while the builds of K2-K7, K5 and K5s run beside it (one nvcc per source,
+   while the builds of K2-K7, K5, K5s, K8 and K8p run beside it (one nvcc per source,
    all started together), and two spawned worker processes build the Voronoi
    grids of phases 14 and 19 and the AMR grids of phase 21 on the host;
 3. kernel parity: K1 against its plain PyTorch version on the card, on the
@@ -33,10 +33,10 @@ Phases (any failed check raises, so the script exits non-zero):
    state and the front radius R(t) at the ten outputs against the Spitzer /
    Hosokawa-Inutsuka band and the JAX package's trajectory; then K1 alone in
    this (opaque) regime;
-8. build: K2, K4, K6, K6s, K7, K5 (with K5d) and K5s (``cmacionize_torch/csrc/
-   {trace_packets_spectral,temperature,trace_voronoi,trace_voronoi_spectral,
-   voronoi_flux,trace_octree,trace_octree_spectral}.cu``), their seconds and
-   ``ptxas -v`` reports;
+8. build: K2, K4, K6, K6s, K7, K5 (with K5d), K5s, K8 and K8p
+   (``cmacionize_torch/csrc/{trace_packets_spectral,temperature,trace_voronoi,
+   trace_voronoi_spectral,voronoi_flux,trace_octree,trace_octree_spectral,
+   peel_off,peel_off_polarized}.cu``), their seconds and ``ptxas -v`` reports;
 9. K2 parity: the spectral march against its plain PyTorch version on the
    card, on a 64³ lexington-like state made with numpy from a fixed seed
    (χ_H, χ_He, 1e6 packets from the centre in Planck-sampled bins): flags,
@@ -111,7 +111,21 @@ Phases (any failed check raises, so the script exits non-zero):
     transport / solve split; then one more iteration under torch.profiler;
 25. K5s parity on the inputs of that run's first and last source marches:
     flags, positions, tally, ion integrals; K5d against its plain version on
-    the last generation's absorption sites (identical leaf ids); all timed.
+    the last generation's absorption sites (identical leaf ids); all timed;
+26. main path: dusty_galaxy (models/dusty_galaxy.py's DUSTY_GALAXY_PARAMS,
+    built in code with the CLI's keys: 201³ cells, 5e5 photons, 12 orders, a 200 × 200 CCD, θ =
+    89.7°) through ParameterFile → dust_config_from_params →
+    DustSimulation(config, device="cuda").run(), cold and warm, with the
+    scattering events per order, the K1 and K8 launch counts, and the image
+    against the JAX package's (tests/torch_dust_reference.npz) by
+    correlation, flux centroid, radial profile and total flux; then one run
+    under torch.profiler and one whose peel-off inputs are kept;
+27. main path: the same configuration through run_polarized(), with I
+    against the JAX I plane, the image-integrated Q/I and U/I against the
+    JAX seeds and |V| ≤ 1e-8 max I; a profiled run and a kept one;
+28. K8 parity on phase 26's emission and last-order peel-off inputs, K8p
+    parity on phase 27's first and last orders: identical τ and pixels, the
+    images' relative L1; all timed.
 
 Each kernel's record carries ``bound_ms``, the least time an H100 could take
 for the same work (bytes over the HBM rate or operations over the peak
@@ -139,9 +153,12 @@ import torch
 from cmacionize_torch import kernels
 from cmacionize_torch.device import describe, require_cuda
 from cmacionize_torch.kernels import build
+from cmacionize_torch.kernels.peel_off import peel_off_cuda
+from cmacionize_torch.kernels.peel_off_polarized import peel_off_polarized_cuda
 from cmacionize_torch import constants
 from cmacionize_torch.models import (
     amr,
+    dust_simulation,
     ions,
     multifreq_simulation,
     reemission,
@@ -150,6 +167,7 @@ from cmacionize_torch.models import (
     voronoi_hydro,
 )
 from cmacionize_torch.models.density_functions import density_function_from_params
+from cmacionize_torch.models.dusty_galaxy import DUSTY_GALAXY_PARAMS, image_measures
 from cmacionize_torch.models.grid import GridGeometry
 from cmacionize_torch.models.ionization_simulation import (
     HOnlyConfig,
@@ -164,7 +182,14 @@ from cmacionize_torch.models.rhd_simulation import (
     hosokawa_inutsuka_radius,
     spitzer_radius,
 )
-from cmacionize_torch.ops import amr_traversal, hydro, recombination, temperature, traversal
+from cmacionize_torch.ops import (
+    amr_traversal,
+    hydro,
+    peel_off,
+    recombination,
+    temperature,
+    traversal,
+)
 from cmacionize_torch.utils.params import ParameterFile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -179,6 +204,7 @@ KERNEL_SOURCES = {
     "K2": "trace_packets_spectral", "K4": "temperature",
     "K6": "trace_voronoi", "K6s": "trace_voronoi_spectral", "K7": "voronoi_flux",
     "K5": "trace_octree", "K5s": "trace_octree_spectral",  # K5d is built with K5
+    "K8": "peel_off", "K8p": "peel_off_polarized",
 }
 PC = 3.086e16
 MYR = 3.15576e13
@@ -231,6 +257,25 @@ OPS_PER_OCTREE_LEVEL = 16
 OPS_PER_K5_STEP = 72
 OPS_PER_K5S_STEP = 75
 OPS_PER_K5D_POINT = 16
+# K8/K8p (cartesian_march.cuh, peel_march.cuh, peel_off.cu,
+# peel_off_polarized.cu).  One march step: 3 wall distances (2 comparisons,
+# the wall, the difference, the division, the max: 18), the exit (2), the
+# chi index and floor (5), tau_cell
+# and the absorption test (2), the advance (3 FMAs: 6), the snap (4),
+# tau_left (1), the inside test (6).  One event of K8 at emission: the start
+# cells (9), the pixel (6 for the SI position, 2 x 5 for the two dots, 2 x 6
+# for the window, 2 for the index: 30), the factor (1), exp (20), the product
+# and the deposit (2).  A scattering event adds the HG phase: the dot (5),
+# the base (2), pow as log + exp (40), 2 products and the division (3).  One
+# event of K8p: K8's start cells, pixel, exp and deposits (64 with four
+# atomics and att), the peel-off algebra (3-term dots 4 x 5, the sine 4, the
+# in-plane axes 9 + 9, two cross products 18, two Stokes rotations 22, the
+# matrix with pow 40, acos 20, exp 20 and cos 20 (~120), the four observed
+# components 16)
+OPS_PER_K8_STEP = 44
+OPS_PER_K8_EVENT = 62
+OPS_PER_K8_PHASE = 50
+OPS_PER_K8P_EVENT = 300
 
 # starbench_voronoi (benchmarks/run_starbench_voronoi.py:32-60, not "small"):
 # 40000 UniformRandom generators from seed 42 with 2 Lloyd iterations, 5e5
@@ -273,6 +318,17 @@ MFA_PHOTONS = 8_000_000
 AMR_PROFILED_ITERATIONS = 2
 # K5/K5s against their plain versions: positions in coarse cell units
 MAX_AMR_POSITION_DIFF = 1e-5
+DUST_REFERENCE = os.path.join(ROOT, "tests", "torch_dust_reference.npz")
+DUST_SEED = 42
+# image measures (dusty_galaxy.image_measures, the order of the
+# reference's pairs) and the bars of benchmarks/RESULTS.md:191-195; the
+# thresholds are twice the JAX seeds' envelope where that is tighter
+DUST_MEASURES = ("correlation", "centroid_px", "profile", "flux")
+DUST_BARS = {"correlation": 0.98, "centroid_px": 0.5, "profile": 0.06}
+# K8/K8p against their plain versions: identical tau and pixels (the same
+# f32 march and projection); the images differ by the atomics' order and
+# last-bit differences of pow, exp, acos and cos
+MAX_PEEL_OFF_REL_L1 = 1e-5
 # K6/K6s against their plain versions: the same f32 operations per packet
 # (FMAs written out, --fmad=false), the tally in another atomic order
 MAX_VORONOI_POSITION_DIFF = 1e-5  # box units, where the flags agree
@@ -1820,6 +1876,250 @@ def leaf_descent_parity(sim, sites, device) -> dict:
     return {"max_abs_err": float(mismatch), "ms": ms, "plain_ms": plain_ms, **bound}
 
 
+# ------------------------------------------------------ dust: K8 and K8p
+
+
+def load_dust_reference() -> dict:
+    """tests/torch_dust_reference.npz (the JAX package's images of
+    DUSTY_GALAXY_PARAMS), checked to be of this configuration."""
+    with np.load(DUST_REFERENCE) as f:
+        ref = {k: f[k] for k in f.files}
+    check(json.loads(str(ref["params"])) == json.loads(json.dumps(DUSTY_GALAXY_PARAMS)),
+          f"{DUST_REFERENCE} was made for other parameters; run tests/torch_dust_reference.py")
+    return ref
+
+
+def dust_bars(pairs: np.ndarray) -> dict:
+    """The image thresholds: twice the envelope of the JAX package's seed
+    pairs, never looser than the bars of benchmarks/RESULTS.md:191-195
+    (correlation >= 0.98, centroid within 0.5 px, profile <= 0.06); the total
+    flux has no bar there."""
+    worst = dict(zip(DUST_MEASURES, pairs.min(0)))
+    worst.update({k: float(np.abs(pairs[:, i]).max()) for i, k in enumerate(DUST_MEASURES)
+                  if k != "correlation"})
+    return {"correlation": max(DUST_BARS["correlation"], 1.0 - 2.0 * (1.0 - worst["correlation"])),
+            "centroid_px": min(DUST_BARS["centroid_px"], 2.0 * worst["centroid_px"]),
+            "profile": min(DUST_BARS["profile"], 2.0 * worst["profile"]),
+            "flux": 2.0 * worst["flux"]}
+
+
+def check_image(label: str, image: np.ndarray, reference: np.ndarray, pairs: np.ndarray):
+    m = image_measures(reference, image)
+    bars = dust_bars(pairs)
+    log(f"  {label} against the JAX image (seed 1): correlation {m['correlation']:.5f} "
+        f"(>= {bars['correlation']:.5f}), centroid {m['centroid_px']:.4f} px (<= "
+        f"{bars['centroid_px']:.4f}), profile {m['profile']:.4f} (<= {bars['profile']:.4f}), "
+        f"flux {m['flux']:+.5f} (|.| <= {bars['flux']:.5f}); the JAX seeds' pairs: "
+        f"correlation {pairs[:, 0].min():.5f}-{pairs[:, 0].max():.5f}, centroid <= "
+        f"{pairs[:, 1].max():.4f} px, profile <= {pairs[:, 2].max():.4f}, |flux| <= "
+        f"{np.abs(pairs[:, 3]).max():.5f}")
+    check(image.shape == reference.shape and bool(np.isfinite(image).all()) and image.sum() > 0,
+          f"{label}: finite, positive, of shape {reference.shape}")
+    check(m["correlation"] >= bars["correlation"], f"{label} correlation {m['correlation']}")
+    check(m["centroid_px"] <= bars["centroid_px"], f"{label} centroid {m['centroid_px']} px")
+    check(m["profile"] <= bars["profile"], f"{label} profile {m['profile']}")
+    check(abs(m["flux"]) <= bars["flux"], f"{label} flux {m['flux']}")
+
+
+def copy_peel_off(chi, position, weight, active, ccd, *, view, direction=None, **kw):
+    return (position.clone(), weight.clone(), active.clone(),
+            None if direction is None else direction.clone(), kw)
+
+
+def copy_peel_off_polarized(chi, position, direction, nref, stokes, active, planes, **kw):
+    return (position.clone(), direction.clone(), nref.clone(),
+            tuple(s.clone() for s in stokes), active.clone(), kw)
+
+
+def timed_run(run):
+    """(run(), host seconds), synchronised, with the launches of the run."""
+    kernels.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def dusty_galaxy(device, ref):
+    """Phase 26: DUSTY_GALAXY_PARAMS through ParameterFile ->
+    dust_config_from_params -> DustSimulation(config, device="cuda").run(),
+    cold and warm, against the JAX image; then one profiled run and one run
+    whose peel-off inputs are kept for phase 28.  Returns (sim, launches,
+    captured inputs by call number)."""
+    config = dust_simulation.dust_config_from_params(ParameterFile(DUSTY_GALAXY_PARAMS))
+    t0 = time.perf_counter()
+    sim = dust_simulation.DustSimulation(config, device=device, seed=DUST_SEED)
+    log(f"dusty_galaxy: {config.geometry.shape} cells, {config.n_photons} photons, "
+        f"{config.n_scatterings} orders, {config.ccd_pixels} CCD, theta "
+        f"{np.degrees(config.view_theta):.4f} deg; chi built on the host in "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
+    image, cold, launches = timed_run(sim.run)
+    orders = list(sim.scattered_per_order)
+    _, warm, _ = timed_run(sim.run)
+    log(f"dusty_galaxy main path (intensity): {cold:.4f} s wall cold (the process's first run "
+        f"of the path), {warm:.4f} s warm; launches {launches}; scattering events per order "
+        f"{orders}")
+    scattering = sum(c > 0 for c in orders)
+    check(launches.get("trace_packets") == len(orders), f"K1 launches {launches}")
+    check(launches.get("peel_off") == 1 + scattering, f"K8 launches {launches}")
+    check(orders[-1] == 0 or len(orders) == config.n_scatterings, f"orders {orders}")
+    check(all(a >= b for a, b in zip(orders, orders[1:])), f"events per order: {orders}")
+    check_image("intensity image", image.cpu().numpy(), ref["image_a"], ref["pairs_intensity"])
+    profile_window("one more dusty_galaxy intensity run", sim.run,
+                   {"K1": ("trace_packets_kernel",), "K8": ("peel_off_kernel",)})
+    keep = {i: i for i in range(1 + config.n_scatterings)}
+    with capturing(peel_off, "peel_off_deposit", keep, copy_peel_off) as captured:
+        sim.run()
+    return sim, {k: launches.get(k, 0) for k in ("trace_packets", "peel_off")}, captured
+
+
+def dusty_galaxy_polarized(sim, ref):
+    """Phase 27: the same configuration through run_polarized(): I against
+    the JAX I plane, the image-integrated Q/I and U/I against the JAX seeds,
+    |V|; then one profiled run and one whose K8p inputs are kept."""
+    planes, wall, launches = timed_run(sim.run_polarized)
+    orders = list(sim.scattered_per_order)
+    log(f"dusty_galaxy main path (polarized): {wall:.4f} s wall, the process's first polarized "
+        f"run; launches {launches}; scattering events per order {orders}")
+    check(launches.get("peel_off") == 1, f"K8 launches {launches}")
+    check(launches.get("peel_off_polarized") == sum(c > 0 for c in orders),
+          f"K8p launches {launches}")
+    host = {k: v.cpu().numpy().astype(np.float64) for k, v in planes.items()}
+    check_image("polarized I", host["I"], ref["pol_I_a"], ref["pairs_polarized_I"])
+    for k in "QU":
+        ours = host[k].sum() / host["I"].sum()
+        theirs = ref[f"pol_{k}I"].astype(np.float64)
+        bar = 2.0 * float(theirs.max() - theirs.min())
+        log(f"  {k}/I {ours:+.6f}; the JAX seeds {np.round(theirs, 6).tolist()}, seed 1 "
+            f"{theirs[0]:+.6f}: |diff| {abs(ours - theirs[0]):.6f} (<= {bar:.6f}, twice the "
+            f"seeds' range)")
+        check(abs(ours - theirs[0]) <= bar, f"{k}/I {ours} vs JAX {theirs[0]}")
+    v_ratio = float(np.abs(host["V"]).max() / host["I"].max())
+    log(f"  max |V| / max I {v_ratio:.3e} (p_c = 0)")
+    check(v_ratio <= 1e-8, f"|V| / max I {v_ratio}")
+    profile_window("one more dusty_galaxy polarized run", sim.run_polarized,
+                   {"K1": ("trace_packets_kernel",), "K8": ("peel_off_kernel",),
+                    "K8p": ("peel_off_polarized_kernel",)})
+    keep = {i: i for i in range(sim.config.n_scatterings)}
+    with capturing(peel_off, "peel_off_deposit_polarized", keep,
+                   copy_peel_off_polarized) as captured:
+        sim.run_polarized()
+    return {k: launches.get(k, 0) for k in ("trace_packets", "peel_off",
+                                             "peel_off_polarized")}, captured
+
+
+def compare_peel_off(label, n_active, tau_k, pix_k, tau_r, pix_r, active, planes_k, planes_r):
+    """Identical τ and pixels over the active events, each image's relative
+    L1; checked.  Returns the largest |image difference|."""
+    tau_same = bool(torch.equal(tau_k[active], tau_r[active]))
+    pix_same = bool(torch.equal(pix_k[active], pix_r[active]))
+    rel = [float((a - b).abs().sum() / b.abs().sum().clamp_min(1e-30))
+           for a, b in zip(planes_k, planes_r)]
+    worst = max(float((a - b).abs().max()) for a, b in zip(planes_k, planes_r))
+    log(f"{label}: {n_active} active events of {active.numel()}; tau identical {tau_same}, "
+        f"pixels identical {pix_same}, image rel. L1 "
+        + ", ".join(f"{r:.3e}" for r in rel) + f", max |diff| {worst:.3e}")
+    check(tau_same and pix_same, f"{label}: tau or pixels differ")
+    check(max(rel) <= MAX_PEEL_OFF_REL_L1, f"{label}: image rel. L1 {rel}")
+    return worst
+
+
+def active_steps(chi, position, active, view) -> int:
+    """The march steps the active events need (the kernels march only
+    those; the plain version marches every event, as the JAX driver does)."""
+    stats = {}
+    peel_off.peel_off_tau_reference(chi, position[active], view=view, stats=stats)
+    return int(stats["packet_steps"])
+
+
+def peel_off_parity(sim, captured) -> dict:
+    """Phase 28, K8: against peel_off_deposit_reference on the inputs of the
+    intensity run's emission peel-off and of its last scattering order's;
+    both timed (the plain version from its parity call).  The record's times
+    and bound are the emission peel-off's, the main path's largest K8
+    launch."""
+    view, chi = sim.view, sim.chi
+    npix = view.pixels[0] * view.pixels[1]
+    last = max(captured)
+    worst, record = 0.0, None
+    for label, key in (("emission", 0), (f"order {last}", last)):
+        position, weight, active, direction, kw = captured[key]
+        n, n_active = position.shape[0], int(active.sum())
+        tau_k = torch.empty(n, device=chi.device)
+        pix_k = torch.empty(n, dtype=torch.int32, device=chi.device)
+        ccd_k, ccd_r = (torch.zeros(npix, device=chi.device) for _ in range(2))
+        peel_off_cuda(chi, position, direction, weight, active, ccd_k, view=view,
+                      tau_out=tau_k, pix_out=pix_k, **kw)
+        factor = peel_off.peel_off_factor(weight, direction, view=view, **kw)
+        (tau_r, pix_r), plain_ms = timed_call(lambda: peel_off.peel_off_deposit_reference(
+            chi, position, factor, active, ccd_r, view=view))
+        worst = max(worst, compare_peel_off(f"K8 parity ({label})", n_active, tau_k, pix_k,
+                                            tau_r, pix_r, active, (ccd_k,), (ccd_r,)))
+        scratch = torch.zeros(npix, device=chi.device)
+        ms = time_cuda(lambda: peel_off.peel_off_deposit(
+            chi, position, weight, active, scratch, view=view, direction=direction, **kw), 20)
+        steps = active_steps(chi, position, active, view)
+        log(f"timing K8 ({label}, {n} events, {n_active} active, {steps} march steps): K8 "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms per peel-off (CUDA events; the plain one's "
+            f"parity call)")
+        if record is None:
+            # chi, every event's flag, the position and weight (and direction)
+            # of the active events only (an inactive one reads its flag and
+            # returns), the image read and written
+            per_active = 16 + (0 if direction is None else 12)
+            ops = OPS_PER_K8_STEP * steps + OPS_PER_K8_EVENT * n_active
+            if direction is not None:
+                ops += OPS_PER_K8_PHASE * n_active
+            bound = roofline(f"K8 ({label}: {steps} steps, {n_active} active events)",
+                             4 * chi.numel() + n + per_active * n_active + 8 * npix, ops,
+                             F32_OPS_PER_S)
+            record = {"ms": ms, "plain_ms": plain_ms, **bound}
+    return {"max_abs_err": worst, **record}
+
+
+def peel_off_polarized_parity(sim, captured) -> dict:
+    """Phase 28, K8p: against peel_off_polarized_reference on the inputs of
+    the polarized run's first and last scattering orders; both timed (the
+    plain version from its parity call).  The record's times and bound are
+    the first order's, the main path's largest K8p launch."""
+    view, chi = sim.view, sim.chi
+    npix = view.pixels[0] * view.pixels[1]
+    last = max(captured)
+    worst, record = 0.0, None
+    for label, key in (("order 1", 0), (f"order {last + 1}", last)):
+        position, direction, nref, stokes, active, kw = captured[key]
+        band = kw["band"]
+        n, n_active = position.shape[0], int(active.sum())
+        tau_k = torch.empty(n, device=chi.device)
+        pix_k = torch.empty(n, dtype=torch.int32, device=chi.device)
+        planes_k, planes_r = ([torch.zeros(npix, device=chi.device) for _ in range(4)]
+                              for _ in range(2))
+        peel_off_polarized_cuda(chi, position, direction, nref, stokes, active, planes_k,
+                                view=view, band=band, tau_out=tau_k, pix_out=pix_k)
+        (tau_r, pix_r), plain_ms = timed_call(lambda: peel_off.peel_off_polarized_reference(
+            chi, position, direction, nref, stokes, active, planes_r, view=view, band=band))
+        worst = max(worst, compare_peel_off(f"K8p parity ({label})", n_active, tau_k, pix_k,
+                                            tau_r, pix_r, active, planes_k, planes_r))
+        scratch = [torch.zeros(npix, device=chi.device) for _ in range(4)]
+        ms = time_cuda(lambda: peel_off.peel_off_deposit_polarized(
+            chi, position, direction, nref, stokes, active, scratch, view=view, band=band), 20)
+        steps = active_steps(chi, position, active, view)
+        log(f"timing K8p ({label}, {n} events, {n_active} active, {steps} march steps): K8p "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms per peel-off (CUDA events; the plain one's "
+            f"parity call)")
+        if record is None:
+            # chi, every event's flag, the position, direction, normal and
+            # Stokes vector of the active events only; four planes read and
+            # written
+            bound = roofline(f"K8p ({label}: {steps} steps, {n_active} active events)",
+                             4 * chi.numel() + n + 52 * n_active + 32 * npix,
+                             OPS_PER_K8_STEP * steps + OPS_PER_K8P_EVENT * n_active,
+                             F32_OPS_PER_S)
+            record = {"ms": ms, "plain_ms": plain_ms, **bound}
+    return {"max_abs_err": worst, **record}
+
+
 def main() -> None:
     device = require_cuda()
     smi = subprocess.run(
@@ -1865,7 +2165,7 @@ def main() -> None:
             del star
             star_launches = starbench_main_path(device)
 
-            for label in ("K2", "K4", "K6", "K6s", "K7", "K5", "K5s"):
+            for label in ("K2", "K4", "K6", "K6s", "K7", "K5", "K5s", "K8", "K8p"):
                 report_build(label, builds[label])
         spectral_record = spectral_parity(device)
         multifreq_launches = [lexington_archived(device)]
@@ -1903,8 +2203,16 @@ def main() -> None:
         multifreq_launches.append(mfa_launches)
         octree_spectral_record = amr_spectral_parity(mfa_sim, mfa_marches, device)
         leaf_record = leaf_descent_parity(mfa_sim, mfa_sites, device)
+        del mfa_sim, mfa_grid, mfa_marches, mfa_sites
     finally:
         grid_pool.shutdown(wait=True, cancel_futures=True)
+
+    dust_reference = load_dust_reference()
+    dust_sim, dust_launches, dust_captured = dusty_galaxy(device, dust_reference)
+    pol_launches, pol_captured = dusty_galaxy_polarized(dust_sim, dust_reference)
+    peel_record = peel_off_parity(dust_sim, dust_captured)
+    peel_pol_record = peel_off_polarized_parity(dust_sim, pol_captured)
+    del dust_sim, dust_captured, pol_captured
 
     def kernel(name, source, replaces, n_launches, record):
         return {"name": name, "route": "cuda", "source": f"cmacionize_torch/csrc/{source}",
@@ -1912,7 +2220,8 @@ def main() -> None:
 
     kernel_records = [
         kernel("trace_packets", "trace_packets.cu", "cmacionize_tpu/ops/traversal.py:115",
-               launches + star_launches["trace_packets"],
+               launches + star_launches["trace_packets"] + dust_launches["trace_packets"]
+               + pol_launches["trace_packets"],
                {**parity, "max_abs_err": max(small["max_abs_err"], parity["max_abs_err"])}),
         kernel("trace_packets_spectral", "trace_packets_spectral.cu",
                "cmacionize_tpu/ops/traversal.py:503",
@@ -1940,6 +2249,11 @@ def main() -> None:
                octree_spectral_record),
         kernel("leaf_of_positions", "trace_octree.cu", "cmacionize_tpu/ops/amr_traversal.py:182",
                mfa_launches["leaf_of_positions"], leaf_record),
+        kernel("peel_off", "peel_off.cu", "cmacionize_tpu/models/dust_simulation.py:243",
+               dust_launches["peel_off"] + pol_launches["peel_off"], peel_record),
+        kernel("peel_off_polarized", "peel_off_polarized.cu",
+               "cmacionize_tpu/ops/polarization.py:156", pol_launches["peel_off_polarized"],
+               peel_pol_record),
     ]
     print(json.dumps({"kernels": kernel_records}), flush=True)
     print(

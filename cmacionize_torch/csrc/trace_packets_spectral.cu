@@ -7,8 +7,8 @@
 // that is not carried over).  The plain PyTorch version is
 // cmacionize_torch/ops/traversal.py:trace_packets_spectral_reference.
 //
-// It is K1 (csrc/trace_packets.cu) with two changes, step for step as in
-// the JAX march:
+// It is K1 (csrc/trace_packets.cu, on the step of cartesian_march.cuh) with
+// two changes, step for step as in the JAX march:
 //   * the opacity is per packet, chi = max(chi_H[cell] sigma_H +
 //     chi_He[cell] sigma_He, 1e-30);
 //   * the deposit l * w goes to tally[fbin * ncell + cell], a frequency-binned
@@ -36,33 +36,11 @@
 // terminate.  Sorting packets by bin or privatising the tally per block are
 // later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cartesian_march.cuh"
 
 namespace {
 
-constexpr float kEpsDir = 1e-12f;  // _EPS_DIR of the JAX march
-constexpr float kChiFloor = 1e-30f;
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float wall_distance(float pos, int cell, float dirn) {
-  if (!(fabsf(dirn) > kEpsDir)) return __int_as_float(0x7f800000);  // +inf
-  const float wall = static_cast<float>(cell + (dirn > 0.0f ? 1 : 0));
-  return fmaxf((wall - pos) / dirn, 0.0f);
-}
-
-// Periodic wrap of one axis: a step leaves the range by at most one cell.
-__device__ __forceinline__ void wrap(float& p, int& c, int n) {
-  if (c < 0) {
-    p = p + static_cast<float>(n);
-    c += n;
-  } else if (c >= n) {
-    p = p - static_cast<float>(n);
-    c -= n;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) trace_packets_spectral_kernel(
+__global__ void __launch_bounds__(cart::kThreads) trace_packets_spectral_kernel(
     const float* __restrict__ chi_h, const float* __restrict__ chi_he,
     float* __restrict__ tally, float* __restrict__ px_io,
     float* __restrict__ py_io, float* __restrict__ pz_io,
@@ -78,70 +56,37 @@ __global__ void __launch_bounds__(kThreads) trace_packets_spectral_kernel(
   bool active = active_io[i] != 0;
   if (!active) return;  // frozen: state stays as handed in
 
-  float px = px_io[i], py = py_io[i], pz = pz_io[i];
-  int cx = cx_io[i], cy = cy_io[i], cz = cz_io[i];
-  const float dx = dx_in[i], dy = dy_in[i], dz = dz_in[i];
-  float tau_left = tau_io[i];
+  cart::Ray r{px_io[i], py_io[i], pz_io[i], cx_io[i], cy_io[i], cz_io[i],
+              dx_in[i],  dy_in[i],  dz_in[i],  tau_io[i]};
+  const cart::Grid g = cart::make_grid(nx, ny, nz, periodic_mask);
   const float w = weight_in[i];
   const float sig_h = sig_h_in[i], sig_he = sig_he_in[i];
   const int64_t ncell = static_cast<int64_t>(nx) * ny * nz;
   float* const bin_tally = tally + static_cast<int64_t>(fbin_in[i]) * ncell;
   bool absorbed = absorbed_io[i] != 0;
-  const bool per_x = periodic_mask & 1, per_y = periodic_mask & 2,
-             per_z = periodic_mask & 4;
-  const int step_x = dx > 0.0f ? 1 : -1;
-  const int step_y = dy > 0.0f ? 1 : -1;
-  const int step_z = dz > 0.0f ? 1 : -1;
+  // chi_h * sig_h + chi_he * sig_he, fused as XLA fuses it
+  const auto chi = [&](int flat) {
+    return __fmaf_rn(__ldg(chi_h + flat), sig_h, __ldg(chi_he + flat) * sig_he);
+  };
+  const auto deposit = [&](int flat, float l) { atomicAdd(bin_tally + flat, l * w); };
 
-  active = cx >= 0 && cx < nx && cy >= 0 && cy < ny && cz >= 0 && cz < nz;
+  active = cart::inside(r, g);
   for (int step = 0; active && step < max_steps; ++step) {
-    const float tx = wall_distance(px, cx, dx);
-    const float ty = wall_distance(py, cy, dy);
-    const float tz = wall_distance(pz, cz, dz);
-    const float l_exit = fminf(tx, fminf(ty, tz));
-
-    const int flat = (cx * ny + cy) * nz + cz;
-    const float he = __ldg(chi_he + flat) * sig_he;
-    const float chi = fmaxf(__fmaf_rn(__ldg(chi_h + flat), sig_h, he), kChiFloor);
-    const float tau_cell = chi * l_exit;
-    const bool absorbed_now = tau_cell >= tau_left;
-    const float l_travel = absorbed_now ? tau_left / chi : l_exit;
-    atomicAdd(bin_tally + flat, l_travel * w);
-
-    px = __fmaf_rn(dx, l_travel, px);
-    py = __fmaf_rn(dy, l_travel, py);
-    pz = __fmaf_rn(dz, l_travel, pz);
-    if (absorbed_now) {
-      tau_left = 0.0f;
+    if (cart::step(r, g, chi, deposit)) {
       absorbed = true;
       active = false;
       break;
     }
-    // snap the crossed coordinate onto the wall (x, then y, then z on ties)
-    if (l_exit == tx) {
-      px = static_cast<float>(dx > 0.0f ? cx + 1 : cx);
-      cx += step_x;
-    } else if (l_exit == ty) {
-      py = static_cast<float>(dy > 0.0f ? cy + 1 : cy);
-      cy += step_y;
-    } else {
-      pz = static_cast<float>(dz > 0.0f ? cz + 1 : cz);
-      cz += step_z;
-    }
-    if (per_x) wrap(px, cx, nx);
-    if (per_y) wrap(py, cy, ny);
-    if (per_z) wrap(pz, cz, nz);
-    tau_left = tau_left - tau_cell;
-    active = cx >= 0 && cx < nx && cy >= 0 && cy < ny && cz >= 0 && cz < nz;
+    active = cart::inside(r, g);
   }
 
-  px_io[i] = px;
-  py_io[i] = py;
-  pz_io[i] = pz;
-  cx_io[i] = cx;
-  cy_io[i] = cy;
-  cz_io[i] = cz;
-  tau_io[i] = tau_left;
+  px_io[i] = r.px;
+  py_io[i] = r.py;
+  pz_io[i] = r.pz;
+  cx_io[i] = r.cx;
+  cy_io[i] = r.cy;
+  cz_io[i] = r.cz;
+  tau_io[i] = r.tau_left;
   active_io[i] = active ? 1 : 0;
   absorbed_io[i] = absorbed ? 1 : 0;
 }
@@ -160,8 +105,8 @@ extern "C" int cmi_trace_packets_spectral(
     int n, int nx, int ny, int nz, int n_bins, int periodic_mask, int max_steps,
     void* stream) {
   if (n > 0 && n_bins > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    trace_packets_spectral_kernel<<<blocks, kThreads, 0,
+    const int blocks = (n + cart::kThreads - 1) / cart::kThreads;
+    trace_packets_spectral_kernel<<<blocks, cart::kThreads, 0,
                                     static_cast<cudaStream_t>(stream)>>>(
         chi_h, chi_he, tally, px, py, pz, cx, cy, cz, dx, dy, dz, tau_left,
         weight, sig_h, sig_he, fbin, active, absorbed, n, nx, ny, nz,

@@ -1,11 +1,11 @@
-"""The CUDA kernels (K1-K7, K5, K5s, K5d) and the port's drivers on the card
-(marked ``cuda``).
+"""The CUDA kernels (K1-K7, K5, K5s, K5d, K8, K8p) and the port's drivers on
+the card (marked ``cuda``).
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip where CUDA is
 missing; the plain versions they compare against are tested against the JAX
 package in test_torch_traversal.py, test_torch_hydro.py,
-test_torch_spectral.py, test_torch_temperature.py, test_torch_voronoi*.py
-and test_torch_amr.py.  The file imports no
+test_torch_spectral.py, test_torch_temperature.py, test_torch_voronoi*.py,
+test_torch_amr.py, test_torch_dust.py and test_torch_polarization.py.  The file imports no
 JAX, so that it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
@@ -908,3 +908,173 @@ def test_amr_drivers_on_card(cuda):
     xH = xion["H_n"].cpu().numpy()
     assert np.isfinite(xH).all() and xH.min() < 1e-2 and xH.max() > 0.9
     assert bool(torch.isfinite(T).all())
+
+
+# -- K8, K8p: the dust peel-off ------------------------------------------------
+
+
+def _dust_sim(cuda, shape=(40, 40, 40), **kw):
+    from cmacionize_torch.models import dust_simulation as dust
+
+    kpc = dust.KPC
+    base = dict(geometry=GridGeometry((-12 * kpc,) * 3, (24 * kpc,) * 3, shape),
+                dust_central_density=21.9 * 1.674e-27 * 1e6, dust_scale_radius=6 * kpc,
+                dust_scale_height=0.22 * kpc, stellar_scale_radius=5 * kpc,
+                stellar_scale_height=0.6 * kpc, n_photons=20000, ccd_pixels=(48, 40),
+                view_theta=np.radians(89.7), view_phi=0.0)
+    base.update(kw)
+    return dust.DustSimulation(dust.DustConfig(**base), device=cuda, seed=5)
+
+
+def _dust_events(sim, seed, n, cuda):
+    rng = np.random.default_rng(seed)
+    shape = np.asarray(sim.view.shape)
+    pos = rng.uniform(size=(n, 3)) * (shape - 1e-3)
+    pos[: n // 8] = np.round(pos[: n // 8] * 4) / 4  # on cell walls
+    d = rng.normal(size=(n, 3))
+    d[:64] = sim.view.phase_direction  # toward the observer
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    a = rng.normal(size=(n, 3))
+    nref = a - (a * d).sum(1, keepdims=True) * d
+    nref /= np.linalg.norm(nref, axis=1, keepdims=True)
+    w = rng.uniform(0.5, 1.5, n) / n
+    stokes = (w, *(rng.uniform(-0.3, 0.3, n) * w for _ in range(2)),
+              rng.uniform(-0.05, 0.05, n) * w)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=cuda)
+
+    active = torch.tensor(rng.uniform(size=n) < 0.8, device=cuda)
+    return t(pos), t(d), t(nref), tuple(t(s) for s in stokes), active
+
+
+DUST_VIEWS = {
+    "edge-on": {},
+    "face-on": dict(view_theta=0.0),
+    "window": dict(view_theta=np.radians(35.0), view_phi=0.3, ccd_anchor=(-1.5e20, -1.2e20),
+                   ccd_sides=(2.8e20, 2.2e20)),
+    "periodic": dict(view_theta=np.radians(60.0), view_phi=1.0),
+}
+
+
+@pytest.mark.parametrize("view", sorted(DUST_VIEWS))
+def test_peel_off_kernels_match_plain_versions(cuda, view):
+    """K8 (emission and scattering) and K8p against their plain versions:
+    identical τ and pixels, the images within f32 round-off."""
+    from cmacionize_torch.kernels.peel_off import peel_off_cuda
+    from cmacionize_torch.kernels.peel_off_polarized import peel_off_polarized_cuda
+    from cmacionize_torch.ops import peel_off
+    from cmacionize_torch.ops.polarization import ScatteringBand
+
+    kw = dict(DUST_VIEWS[view])
+    if view == "periodic":
+        kpc = 3.086e19
+        kw["geometry"] = GridGeometry((-12 * kpc, -16 * kpc, -10 * kpc),
+                                      (24 * kpc, 32 * kpc, 20 * kpc), (24, 32, 20),
+                                      (True, False, True))
+    sim = _dust_sim(cuda, **kw)
+    v = sim.view
+    n = 50_000
+    pos, d, nref, stokes, active = _dust_events(sim, 7, n, cuda)
+    npix = v.pixels[0] * v.pixels[1]
+    band = ScatteringBand(hgg=0.44, pl=0.43, albedo=0.67, kappa=0.0, sc=0.3, pc=0.2)
+
+    def planes():
+        return tuple(torch.zeros(npix, device=cuda) for _ in range(4))
+
+    for direction in (None, d):
+        ccd_k, ccd_r = torch.zeros(npix, device=cuda), torch.zeros(npix, device=cuda)
+        tau_k = torch.empty(n, device=cuda)
+        pix_k = torch.empty(n, dtype=torch.int32, device=cuda)
+        before = kernels.LAUNCHES["peel_off"]
+        peel_off_cuda(sim.chi, pos, direction, stokes[0], active, ccd_k, view=v, albedo=0.67,
+                      hgg=0.44, tau_out=tau_k, pix_out=pix_k)
+        assert kernels.LAUNCHES["peel_off"] == before + 1
+        factor = peel_off.peel_off_factor(stokes[0], direction, view=v, albedo=0.67, hgg=0.44)
+        tau_r, pix_r = peel_off.peel_off_deposit_reference(sim.chi, pos, factor, active, ccd_r,
+                                                           view=v)
+        torch.cuda.synchronize()
+        assert torch.equal(tau_k[active], tau_r[active])
+        assert torch.equal(pix_k[active], pix_r[active])
+        assert bool((pix_k[~active] == -1).all())
+        assert float(tau_r.max()) > 0.1
+        rel_l1 = float((ccd_k - ccd_r).abs().sum() / ccd_r.abs().sum())
+        assert rel_l1 <= 1e-5, rel_l1
+
+    planes_k, planes_r = planes(), planes()
+    tau_k = torch.empty(n, device=cuda)
+    pix_k = torch.empty(n, dtype=torch.int32, device=cuda)
+    before = kernels.LAUNCHES["peel_off_polarized"]
+    peel_off_polarized_cuda(sim.chi, pos, d, nref, stokes, active, planes_k, view=v, band=band,
+                            tau_out=tau_k, pix_out=pix_k)
+    assert kernels.LAUNCHES["peel_off_polarized"] == before + 1
+    tau_r, pix_r = peel_off.peel_off_polarized_reference(sim.chi, pos, d, nref, stokes, active,
+                                                         planes_r, view=v, band=band)
+    torch.cuda.synchronize()
+    assert torch.equal(tau_k[active], tau_r[active])
+    assert torch.equal(pix_k[active], pix_r[active])
+    for k, a, b in zip("IQUV", planes_k, planes_r):
+        rel_l1 = float((a - b).abs().sum() / b.abs().sum())
+        assert rel_l1 <= 1e-5, (k, rel_l1)
+
+
+def test_peel_off_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from cmacionize_torch.kernels.peel_off import peel_off_cuda
+    from cmacionize_torch.kernels.peel_off_polarized import peel_off_polarized_cuda
+    from cmacionize_torch.ops.polarization import ScatteringBand
+
+    sim = _dust_sim(cuda, shape=(8, 8, 8))
+    v = sim.view
+    pos, d, nref, stokes, active = _dust_events(sim, 1, 100, cuda)
+    ccd = torch.zeros(v.pixels[0] * v.pixels[1], device=cuda)
+    with pytest.raises(ValueError, match="chi"):
+        peel_off_cuda(sim.chi.double(), pos, None, stokes[0], active, ccd, view=v)
+    with pytest.raises(ValueError, match="ccd"):
+        peel_off_cuda(sim.chi, pos, None, stokes[0], active, ccd[:-1], view=v)
+    with pytest.raises(ValueError, match="CUDA"):
+        peel_off_cuda(sim.chi.cpu(), pos.cpu(), None, stokes[0].cpu(), active.cpu(), ccd.cpu(),
+                      view=v)
+    with pytest.raises(ValueError, match="active"):
+        peel_off_cuda(sim.chi, pos, d, stokes[0], active.float(), ccd, view=v)
+    with pytest.raises(ValueError, match="position"):
+        peel_off_cuda(sim.chi, pos.t(), d, stokes[0], active, ccd, view=v)
+    band = ScatteringBand(hgg=0.44, pl=0.43, albedo=0.67, kappa=0.0)
+    with pytest.raises(ValueError, match="nref"):
+        peel_off_polarized_cuda(sim.chi, pos, d, nref[:50], stokes, active, (ccd,) * 4, view=v,
+                                band=band)
+    with pytest.raises(ValueError, match="four"):
+        peel_off_polarized_cuda(sim.chi, pos, d, nref, stokes, active, (ccd,) * 3, view=v,
+                                band=band)
+
+
+def test_dust_drivers_on_card(cuda, monkeypatch):
+    """run() and run_polarized() on the card go through K1 for the
+    interactions, K8 at emission and every order that scattered, K8p for the
+    polarized orders, and never through the plain versions."""
+    from cmacionize_torch.ops import peel_off
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for name in ("peel_off_deposit_reference", "peel_off_polarized_reference"):
+        monkeypatch.setattr(peel_off, name, plain)
+    monkeypatch.setattr(traversal, "trace_packets_reference", plain)
+    sim = _dust_sim(cuda, shape=(48, 48, 48), ccd_pixels=(32, 32))
+    kernels.LAUNCHES.clear()
+    image = sim.run()
+    counts = sim.scattered_per_order
+    scattering_orders = sum(c > 0 for c in counts)
+    assert kernels.LAUNCHES["trace_packets"] == len(counts)
+    assert kernels.LAUNCHES["peel_off"] == 1 + scattering_orders
+    assert counts[-1] == 0 or len(counts) == 12
+    assert image.device.type == "cuda" and image.shape == (32, 32)
+    assert bool(torch.isfinite(image).all()) and float(image.sum()) > 0
+
+    kernels.LAUNCHES.clear()
+    out = sim.run_polarized()
+    counts = sim.scattered_per_order
+    assert kernels.LAUNCHES["peel_off"] == 1
+    assert kernels.LAUNCHES["peel_off_polarized"] == sum(c > 0 for c in counts)
+    assert float(out["I"].sum()) > 0
+    assert float(out["V"].abs().max()) <= 1e-8 * float(out["I"].max())
+    assert float(out["Q"].sum()) < 0  # polarized parallel to the edge-on disc

@@ -163,6 +163,12 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.kernels.trace_octree
         import cmacionize_torch.kernels.trace_octree_spectral
         import cmacionize_torch.kernels.leaf_of_positions
+        import cmacionize_torch.ops.polarization
+        import cmacionize_torch.models.dust_simulation
+        import cmacionize_torch.models.dusty_galaxy
+        import cmacionize_torch.ops.peel_off
+        import cmacionize_torch.kernels.peel_off
+        import cmacionize_torch.kernels.peel_off_polarized
         # the atomic tables are read by path, not through cmacionize_tpu.data
         import torch
         cmacionize_torch.data.load("verner_photo.npz")
