@@ -33,7 +33,7 @@ Phases (any failed check raises, so the script exits non-zero):
    state and the front radius R(t) at the ten outputs against the Spitzer /
    Hosokawa-Inutsuka band and the JAX package's trajectory; then K1 alone in
    this (opaque) regime;
-8. build: K2, K4, K6, K6s, K7, K5 (with K5d), K5s, K8 and K8p
+8. build: K2, K4 (with K4f), K6, K6s, K7, K5 (with K5d), K5s, K8 and K8p
    (``cmacionize_torch/csrc/{trace_packets_spectral,temperature,trace_voronoi,
    trace_voronoi_spectral,voronoi_flux,trace_octree,trace_octree_spectral,
    peel_off,peel_off_polarized}.cu``), their seconds and ``ptxas -v`` reports;
@@ -55,6 +55,16 @@ Phases (any failed check raises, so the script exits non-zero):
 12. K4 parity: the temperature balance against its plain PyTorch version on
     the card, on the inputs the full-size run handed to its fourth
     temperature solve (all cells), both timed;
+12a. main path: the same full-size lexingtonHII20 run with
+    ``TemperatureCalculator: backend: f32-device`` set on the parsed
+    parameters (the same seed), so that every temperature solve launches
+    K4f: the K2 and K4f launch counts, the per-iteration split, the sweeps,
+    every Lexington band, and the final state against the f64 run's with the
+    bands of tests/test_multifreq.py:151-162; after each of the two
+    full-size runs, one more iteration under torch.profiler;
+12b. K4f parity: the f32 balance against its plain version on the inputs of
+    that run's fourth solve (all 262144 cells), both timed, and K4 timed on
+    the same cells widened to f64;
 13. main path: ``benchmarks/stromgren_diffuse.param`` at full size (64³, 1e6
     packets × 20 iterations, FixedValue σ/α, re-emission, K2 only), with the
     H front radius against the archived 1.617e17 m;
@@ -240,6 +250,12 @@ OPS_PER_K3_CELL = 700  # 6 faces: states, HLLC, accumulation
 # and one secant sweep is three evaluations and the update (~120).
 OPS_PER_K4_BALANCE = 14 * 44 + 167 + 96 + 145 + 25 + 10 * 1539 + 3 * 124 + 126
 OPS_PER_K4_SWEEP = 3 * OPS_PER_K4_BALANCE + 120
+# K4f, the same body in f32, but each of the 103 collision strengths comes
+# from the log-Omega table (two loads, the interpolation 3, exp 20: 24 in
+# place of the fit's 91), with the node and fraction once per evaluation
+# (log, the clamp, the division, floor, the fraction: 26)
+OPS_PER_K4F_BALANCE = OPS_PER_K4_BALANCE - (10 * 10 + 3) * (91 - 24) + 26
+OPS_PER_K4F_SWEEP = 3 * OPS_PER_K4F_BALANCE + 120
 # K6/K6s per real face of the cell (the padding of a row needs no test): two
 # 3-term dots, the plane distance, the minimum
 OPS_PER_VORONOI_FACE = 16
@@ -367,6 +383,13 @@ MAX_INTEGRAL_REL_L1 = 1e-5
 MIN_T_MATCH_FRACTION = 0.99
 T_MATCH_REL = 1e-9
 MAX_T_REL_ERR = 5e-3
+# K4f against its plain version: the same f32 operations and libdevice
+# expf/logf/powf, but a last-bit difference grows in f32's cancellations
+T32_MATCH_REL = 1e-4
+# the f32-device lexington run against the f64 one, over the cells the f64
+# run ionized (tests/test_multifreq.py:151-162)
+F32_BACKEND_MEDIAN_T = 5e-3
+F32_BACKEND_Q95_T = 3e-2
 # H front radii (the estimator of benchmarks/compare_reference.py) of the JAX
 # package's archived runs (benchmarks/RESULTS.md) and the allowed deviation
 JAX_LEXINGTON_FRONT_M = 9.223e16  # lexingtonHII20 at 32³ / 1e6 × 10
@@ -971,30 +994,36 @@ def spectral_parity(device) -> dict:
 
 def run_multifreq(sim: MultiFreqIonizationSimulation, label: str):
     """Run ``sim`` with the launch counts set to 0 just before; returns
-    (xion, T, wall seconds, {kernel: launches})."""
+    (xion, T, wall seconds, {kernel: launches}).  The temperature solves
+    launch K4f under the f32 backend and K4 otherwise."""
     kernels.LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     xion, T = sim.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: kernels.LAUNCHES[name] for name in ("trace_packets_spectral", "temperature")}
+    launches = {name: kernels.LAUNCHES[name]
+                for name in ("trace_packets_spectral", "temperature", "temperature_f32")}
     cfg = sim.config
     transport = sum(t for t, _ in sim.phase_seconds)
     solve = sum(s for _, s in sim.phase_seconds)
     log(
         f"{label}: {sim.geometry.shape}, {cfg.n_photons} packets x {cfg.n_iterations} "
         f"iterations, {cfg.n_bins} bins, {cfg.n_reemission_rounds if cfg.diffuse_field else 0} "
-        f"re-emission generations, in {wall:.4f} s wall ({transport:.4f} s transport, "
+        f"re-emission generations, temperature backend {cfg.temperature_backend}, in "
+        f"{wall:.4f} s wall ({transport:.4f} s transport, "
         f"{solve:.4f} s solve; {cfg.n_photons * cfg.n_iterations / wall:.6g} source "
         f"packets/s); launches {launches}"
     )
     marches = cfg.n_iterations * (1 + (cfg.n_reemission_rounds if cfg.diffuse_field else 0))
     solves = (max(cfg.n_iterations - cfg.minimum_iteration_number, 0)
               if cfg.do_temperature else 0)
+    f32 = cfg.temperature_backend == "f32-device" and cfg.fixed_alpha is None
     check(launches["trace_packets_spectral"] == marches,
           f"{label}: K2 launches {launches} != {marches}")
-    check(launches["temperature"] == solves, f"{label}: K4 launches {launches} != {solves}")
+    check(launches["temperature_f32" if f32 else "temperature"] == solves
+          and launches["temperature" if f32 else "temperature_f32"] == 0,
+          f"{label}: K4/K4f launches {launches}, {solves} solves")
     for name, value in {"T": T, **xion}.items():
         check(tuple(value.shape) == tuple(sim.geometry.shape), f"{label}: {name} shape")
         check(bool(torch.isfinite(value).all()), f"{label}: {name} is finite")
@@ -1016,13 +1045,17 @@ def lexington_archived(device) -> int:
     return launches
 
 
-def lexington_full(device):
-    """lexingtonHII20 at full size, with the inputs of its fourth temperature
-    solve kept for K4's parity phase."""
-    sim = lexington_simulation(device)
-    with capturing(multifreq_simulation.temperature, "solve_temperature", {3: "fourth"},
+def lexington_full(device, backend: str = "f64-host"):
+    """lexingtonHII20 at full size with the given temperature backend, with
+    the inputs of its fourth temperature solve kept for the parity phase;
+    the physical bands of the benchmark.  Returns (launches, the fourth
+    solve's inputs, the final state as numpy arrays)."""
+    sim = lexington_simulation(device, temperature_backend=backend)
+    solve = "solve_temperature_device" if backend == "f32-device" else "solve_temperature"
+    label = f"lexingtonHII20 at full size ({backend})"
+    with capturing(multifreq_simulation.temperature, solve, {3: "fourth"},
                    copy_solve) as captured:
-        xion, T, wall, launches = run_multifreq(sim, "lexingtonHII20 at full size")
+        xion, T, wall, launches = run_multifreq(sim, label)
     cfg = sim.config
     log("  per iteration: transport s, solve s, re-emitted packets per generation")
     for k, ((t_tr, t_sv), counts) in enumerate(zip(sim.phase_seconds, sim.reemitted)):
@@ -1074,16 +1107,40 @@ def lexington_full(device):
         f"case B = (1 - p_H) alpha_A, {r_st_a / PC:.3f} pc (ratio {r_ion / r_st_a:.4f}) with "
         f"alpha_A; H front radius {front:.4e} m"
     )
-    check(INTERIOR_T_BAND[0] < T_shell < INTERIOR_T_BAND[1], f"interior T {T_shell}")
-    check(xH_med < 3e-3, f"median xH in 1-2.5 pc {xH_med}")
-    check(vol_He <= 1.05 * vol_H, f"He front outside the H front: {vol_He} > {vol_H}")
-    check(o_p > 0.9 and o_pp < 0.1, f"O+ {o_p}, O++ {o_pp}")
-    check(xH_far > 0.9, f"exterior median xH {xH_far}")
+    check(INTERIOR_T_BAND[0] < T_shell < INTERIOR_T_BAND[1], f"{label}: interior T {T_shell}")
+    check(xH_med < 3e-3, f"{label}: median xH in 1-2.5 pc {xH_med}")
+    check(vol_He <= 1.05 * vol_H, f"{label}: He front outside the H front: {vol_He} > {vol_H}")
+    check(o_p > 0.9 and o_pp < 0.1, f"{label}: O+ {o_p}, O++ {o_pp}")
+    check(xH_far > 0.9, f"{label}: exterior median xH {xH_far}")
     check(STROMGREN_RATIO_BAND[0] < r_ion / r_st < STROMGREN_RATIO_BAND[1],
-          f"r_ion / r_Stromgren {r_ion / r_st}")
+          f"{label}: r_ion / r_Stromgren {r_ion / r_st}")
     check(len(sim.sweeps) > 3 and "fourth" in captured,
-          f"the run made {len(sim.sweeps)} temperature solves")
-    return launches, captured["fourth"]
+          f"{label}: the run made {len(sim.sweeps)} temperature solves")
+    profile_window(f"one more iteration of {label}", lambda: sim.run(sim.iteration + 1),
+                   {"K2": ("trace_packets_spectral_kernel",),
+                    "K4f" if backend == "f32-device" else "K4": ("temperature_kernel",)})
+    return launches, captured["fourth"], {"T": T, **x}
+
+
+def compare_backends(f64_state: dict, f32_state: dict) -> None:
+    """The f32-device run's final state against the f64 run's, with the
+    bands of tests/test_multifreq.py:151-162, over the cells the f64 run
+    ionized (xH < 0.5)."""
+    ion = f64_state["H_n"].ravel() < 0.5
+    T64, T32 = f64_state["T"].ravel()[ion], f32_state["T"].ravel()[ion]
+    rel = np.abs(T32 - T64) / T64
+    v64, v32 = int(ion.sum()), int((f32_state["H_n"] < 0.5).sum())
+    o64 = float(np.median(f64_state["O_n"].ravel()[ion]))
+    o32 = float(np.median(f32_state["O_n"].ravel()[ion]))
+    log(f"f32-device against f64 (lexingtonHII20 64^3, the final state): over the {v64} "
+        f"ionized cells median |dT|/T {np.median(rel):.4e}, 95% quantile "
+        f"{np.quantile(rel, 0.95):.4e}, max {rel.max():.4e}; ionized cells {v32} vs {v64}; "
+        f"median O_n {o32:.6f} vs {o64:.6f}")
+    check(np.median(rel) < F32_BACKEND_MEDIAN_T, f"f32 backend median |dT|/T {np.median(rel)}")
+    check(np.quantile(rel, 0.95) < F32_BACKEND_Q95_T,
+          f"f32 backend 95% |dT|/T {np.quantile(rel, 0.95)}")
+    check(abs(v32 - v64) <= max(0.02 * v64, 5), f"f32 backend ionized cells {v32} vs {v64}")
+    check(abs(o32 - o64) <= 1e-4 + 0.05 * abs(o64), f"f32 backend median O_n {o32} vs {o64}")
 
 
 def temperature_parity(solve_inputs, label: str) -> dict:
@@ -1128,6 +1185,70 @@ def temperature_parity(solve_inputs, label: str) -> dict:
     # metal fractions, and the int32 sweep count
     bound = roofline(f"K4 ({label}; {sweeps} secant sweeps)", T_prev.numel() * (18 * 8 + 15 * 8 + 4),
                      OPS_PER_K4_SWEEP * sweeps, F64_OPS_PER_S)
+    return {"max_abs_err": float(diff(got.T, ref.T).max()), "ms": ms, "plain_ms": plain_ms,
+            **bound}
+
+
+def temperature_f32_parity(solve_inputs, label: str) -> dict:
+    """K4f against solve_temperature_device_reference on the card, on every
+    cell of the f32 solve whose inputs are ``solve_inputs`` (rounded to f32,
+    as the backend rounds them); both timed, and K4 timed on the same cells
+    widened to f64."""
+    T_prev, j, h, nd, abundances, kwargs = solve_inputs
+
+    def f32(a):
+        return a.to(torch.float32)
+
+    T_prev, nd, h = f32(T_prev), f32(nd), (f32(h[0]), f32(h[1]))
+    j = {k: f32(v) for k, v in j.items()}
+    got = temperature.solve_temperature_device(T_prev, j, h, nd, abundances, **kwargs)
+    ref = temperature.solve_temperature_device_reference(T_prev, j, h, nd, abundances, **kwargs)
+    torch.cuda.synchronize()
+
+    def diff(a, b, scale=1.0):  # |a - b| / scale: 0 where both are NaN, inf where one is
+        a, b = a.double(), b.double()
+        both = torch.isnan(a) & torch.isnan(b)
+        d = torch.where(both, 0.0, (a - b).abs() / scale)
+        return torch.nan_to_num(d, nan=float("inf"))
+
+    rel = diff(got.T, ref.T, ref.T.double().abs())
+    match = float((rel <= T32_MATCH_REL).double().mean())
+    max_rel = float(rel.max())
+    state = {"h0": float(diff(got.h0, ref.h0).max()), "he0": float(diff(got.he0, ref.he0).max())}
+    state["metals"] = max(float(diff(got.metals[k], ref.metals[k]).max()) for k in ref.metals)
+    same_sweeps = float((got.sweeps == ref.sweeps).double().mean())
+    log(
+        f"K4f parity ({label}): {T_prev.numel()} cells, {int((nd <= 0).sum())} without gas: "
+        f"{match:.6f} of cells within {T32_MATCH_REL} relative in T, max |dT|/T "
+        f"{max_rel:.3e}, max |d| h0 {state['h0']:.3e}, he0 {state['he0']:.3e}, metals "
+        f"{state['metals']:.3e}; same sweep count in {same_sweeps:.6f} of cells (max "
+        f"{int(ref.sweeps.max())}, mean {float(ref.sweeps.double().mean()):.2f})"
+    )
+    check(match >= MIN_T_MATCH_FRACTION,
+          f"K4f ({label}): {match} of cells match, < {MIN_T_MATCH_FRACTION}")
+    check(max_rel <= MAX_T_REL_ERR, f"K4f ({label}): max |dT|/T {max_rel} > {MAX_T_REL_ERR}")
+
+    ms = time_cuda(lambda: temperature.solve_temperature_device(
+        T_prev, j, h, nd, abundances, **kwargs), 3)
+    plain_ms = time_cuda(lambda: temperature.solve_temperature_device_reference(
+        T_prev, j, h, nd, abundances, **kwargs), 1)
+
+    def f64(a):
+        return a.to(torch.float64)
+
+    j64, h64 = {k: f64(v) for k, v in j.items()}, (f64(h[0]), f64(h[1]))
+    k4 = temperature.solve_temperature(f64(T_prev), j64, h64, f64(nd), abundances, **kwargs)
+    k4_ms = time_cuda(lambda: temperature.solve_temperature(
+        f64(T_prev), j64, h64, f64(nd), abundances, **kwargs), 3)
+    log(f"timing K4f ({label}) on {T_prev.numel()} cells: K4f {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms per solve; K4 on the same cells widened to f64 {k4_ms:.4f} ms "
+        f"({int(k4.sweeps.sum())} sweeps against K4f's {int(got.sweeps.sum())}) (CUDA events)")
+    sweeps = int(got.sweeps.sum())
+    # f32 in: T, 14 rates, 2 heating integrals, density; out: T, h0, he0, 12
+    # metal fractions, and the int32 sweep count
+    bound = roofline(f"K4f ({label}; {sweeps} secant sweeps)",
+                     T_prev.numel() * (18 * 4 + 15 * 4 + 4),
+                     OPS_PER_K4F_SWEEP * sweeps, F32_OPS_PER_S)
     return {"max_abs_err": float(diff(got.T, ref.T).max()), "ms": ms, "plain_ms": plain_ms,
             **bound}
 
@@ -2169,11 +2290,17 @@ def main() -> None:
                 report_build(label, builds[label])
         spectral_record = spectral_parity(device)
         multifreq_launches = [lexington_archived(device)]
-        full_launches, solve_inputs = lexington_full(device)
+        full_launches, solve_inputs, f64_state = lexington_full(device)
         multifreq_launches.append(full_launches)
         temperature_record = temperature_parity(
             solve_inputs, "lexingtonHII20 64^3, the fourth solve")
         del solve_inputs
+        f32_launches, f32_inputs, f32_state = lexington_full(device, "f32-device")
+        multifreq_launches.append(f32_launches)
+        compare_backends(f64_state, f32_state)
+        temperature_f32_record = temperature_f32_parity(
+            f32_inputs, "lexingtonHII20 64^3 f32-device, the fourth solve")
+        del f32_inputs, f64_state, f32_state
         multifreq_launches.append(stromgren_diffuse(device))
 
         sbv_grid = report_grid("starbench_voronoi (40000 generators, 2 Lloyd iterations)",
@@ -2233,6 +2360,9 @@ def main() -> None:
                sum(run["temperature"] for run in multifreq_launches),
                {**temperature_record, "max_abs_err": max(
                    temperature_record["max_abs_err"], mf_temperature_record["max_abs_err"])}),
+        kernel("temperature_f32", "temperature.cu", "cmacionize_tpu/ops/temperature.py:338",
+               sum(run.get("temperature_f32", 0) for run in multifreq_launches),
+               temperature_f32_record),
         kernel("trace_voronoi", "trace_voronoi.cu", "cmacionize_tpu/models/voronoi.py:472",
                honly_launches + sbv_launches["trace_voronoi"],
                {**march_record, "max_abs_err": max(

@@ -1,10 +1,12 @@
-"""Wrapper of K4, the CUDA per-cell thermal balance (``csrc/temperature.cu``).
+"""Wrappers of K4 and K4f, the CUDA per-cell thermal balance in f64 and in
+scaled f32 (``csrc/temperature.cu``, one body templated on the precision).
 
-The wrapper packs the atomic tables and the scalars of a solve into one f64
-buffer on the host (:func:`kernel_tables`, whose layout matches the offsets
-in the source), checks what the kernel takes (one CUDA device, f64, lengths),
-allocates the outputs with ``torch.empty``, launches on PyTorch's current
-stream and raises if the launch was refused.
+Each wrapper packs the atomic tables and the scalars of a solve into one
+buffer of the working precision on the host (:func:`kernel_tables`, whose
+layout matches the offsets in the source; K4f also takes the f32 log-Ω table
+of ``ops/line_cooling.py``), checks what the kernel takes (one CUDA device,
+the dtype, lengths), allocates the outputs with ``torch.empty``, launches on
+PyTorch's current stream and raises if the launch was refused.
 """
 
 from __future__ import annotations
@@ -23,24 +25,38 @@ from cmacionize_torch.models.ions import ION_NAMES, METAL_NAMES
 from cmacionize_torch.ops import charge_transfer, line_cooling, recombination
 
 NAME = "temperature"
+# K4f is built into K4's library and counts its launches under this name
+NAME_F32 = "temperature_f32"
 # log(1.1 / 0.9): the log-secant's bracket width
 LOG_BRACKET = math.log(1.1 / 0.9)
+# He Lyman-alpha on-the-spot heating energy: 21.2 eV - 13.6 eV (J)
+HE_LYA_HEATING_ENERGY = 1.21765423e-18
+#: coefficient prefactor of the f32 solve: it lifts the 1e-40-class cooling
+#: coefficients into normal f32 range; gain and loss carry the same factor,
+#: and the secant uses them only in ratios and a relative convergence test
+DEVICE_SOLVE_SCALE = 1.0e26
 
-_HEADER = 16
+_HEADER = 32
 _REC_STRIDE = 20
 _CT_STRIDE = 8
 _ELEMENTS = ("He", "C", "N", "O", "Ne", "S")
 
 
 def _recombination_rows() -> np.ndarray:
-    """[14, 20]: radiative kind (0 rnew, 1 rrec) and coefficients, then the
-    dielectronic kind (0 none, 1 NS83, 2/3/4 the S_p1/S_p2/S_p3 sums) and
-    its coefficients."""
+    """[14, 20]: radiative kind (0 rnew, 1 rrec) and coefficients (rnew: A,
+    1 - B, 1 + B, T0, T1; rrec: a, -b, the exponents formed in f64 as the
+    plain version's Python numbers are), then the dielectronic kind (0 none,
+    1 NS83, 2/3/4 the S_p1/S_p2/S_p3 sums) and its coefficients."""
     rows = np.zeros((len(ION_NAMES), _REC_STRIDE))
     for i, name in enumerate(ION_NAMES):
         kind, coeffs = recombination.RADIATIVE[name]
         rows[i, 0] = 0.0 if kind == "rnew" else 1.0
-        rows[i, 1:1 + len(coeffs)] = coeffs
+        if kind == "rnew":
+            A, B, T0, T1 = coeffs
+            rows[i, 1:6] = (A, 1.0 - B, 1.0 + B, T0, T1)
+        else:
+            a, b = coeffs
+            rows[i, 1:3] = (a, -b)
         if name in recombination.DIELECTRONIC_NS83:
             diel = (1, recombination.DIELECTRONIC_NS83[name])
         elif name == "S_p1":
@@ -51,8 +67,8 @@ def _recombination_rows() -> np.ndarray:
             diel = (4, sum(recombination.S_P3_TERMS, ()))
         else:
             diel = (0, ())
-        rows[i, 5] = diel[0]
-        rows[i, 6:6 + len(diel[1])] = diel[1]
+        rows[i, 6] = diel[0]
+        rows[i, 7:7 + len(diel[1])] = diel[1]
     return rows
 
 
@@ -81,14 +97,27 @@ def _fit_coefficients(gamma) -> np.ndarray:
     return g
 
 
-def kernel_tables(abundances, *, pahfac, crfac, epsilon, minimum_ionized_temperature):
-    """The packed f64 buffer of ``csrc/temperature.cu`` for one solve."""
+def kernel_tables(abundances, *, pahfac, crfac, epsilon, minimum_ionized_temperature,
+                  scale=1.0):
+    """The packed f64 buffer of ``csrc/temperature.cu`` for one solve, with
+    the balance coefficients times ``scale``; K4f takes it rounded to f32.
+    Products of Python numbers are formed here in f64, as the plain version
+    forms them before they meet a tensor."""
+    AHe = abundances.get("He", 0.0)
     header = np.zeros(_HEADER)
     header[:6] = [abundances.get(e, 0.0) for e in _ELEMENTS]
     header[6:14] = (
         pahfac, crfac, epsilon, minimum_ionized_temperature, LOG_BRACKET,
-        line_cooling.COLLISION_PREFACTOR, constants.BOLTZMANN, recombination.K_PER_EV,
+        line_cooling.COLLISION_PREFACTOR, constants.BOLTZMANN * scale, recombination.K_PER_EV,
     )
+    header[14:20] = (
+        scale, HE_LYA_HEATING_ENERGY * scale, 1.5e-37 * scale, 1.42e-40 * scale,
+        2.85e-40 * scale, 1.55e-39 * scale,
+    )
+    header[20:26] = (
+        1.0 + 2.0 * AHe, 1.0 + AHe, 2.0 + AHe, 4.0 * AHe, 2.0 * AHe, crfac * (1.2e-25 * scale),
+    )
+    header[26:28] = line_cooling.omega_grid_constants()
     five_A, five_E, five_invw, five_gamma, two_A, two_E, two_invw, two_gamma = (
         linecooling_tables()
     )
@@ -100,37 +129,42 @@ def kernel_tables(abundances, *, pahfac, crfac, epsilon, minimum_ionized_tempera
     return np.concatenate([np.asarray(p, np.float64).ravel() for p in parts])
 
 
-def _launcher():
-    fn = load_library(NAME).cmi_temperature
+def omega_table() -> np.ndarray:
+    """[512, 103] f32: per log-T node, the ten five-level coolants' 10
+    transitions then the three two-level coolants (K4f's layout of
+    ``line_cooling.omega_tables``)."""
+    _, five, two = line_cooling.omega_tables()
+    return np.ascontiguousarray(
+        np.concatenate([five.reshape(five.shape[0], -1), two], axis=1), np.float32)
+
+
+def _launcher(symbol: str, n_pointers: int):
+    fn = getattr(load_library(NAME), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def solve_temperature_cuda(T_init, j, h, nd, abundances, *, pahfac, crfac, epsilon,
-                           max_iterations, minimum_ionized_temperature):
-    """K4: the log-secant thermal balance of every cell.
-
-    ``T_init``, ``nd`` and each of ``j`` (dict ion name → rate) and ``h``
-    ((hH, hHe)) are f64 tensors of one shape on one CUDA device.  Returns
-    (T, h0, he0, metals dict, sweeps int32), each of that shape.
-    """
+def _solve(label, dtype, T_init, j, h, nd, abundances, *, pahfac, crfac, epsilon,
+           max_iterations, minimum_ionized_temperature, scale):
+    """Check, pack, allocate and launch K4 (f64) or K4f (f32)."""
     device = T_init.device
     if device.type != "cuda":
-        raise ValueError(f"solve_temperature_cuda needs CUDA tensors, got {device}")
+        raise ValueError(f"{label} needs CUDA tensors, got {device}")
     shape = T_init.shape
     n = T_init.numel()
     inputs = {"T_init": T_init, "nd": nd, "hH": h[0], "hHe": h[1]}
     inputs.update({f"j[{name}]": j[name] for name in ION_NAMES})
+    type_name = str(dtype).removeprefix("torch.")
     for name, t in inputs.items():
-        if t.device != device or t.dtype != torch.float64 or t.shape != shape:
+        if t.device != device or t.dtype != dtype or t.shape != shape:
             raise ValueError(
-                f"solve_temperature_cuda: {name} must be float64 of shape "
+                f"{label}: {name} must be {type_name} of shape "
                 f"{tuple(shape)} on {device}; got {t.dtype} of {tuple(t.shape)} on {t.device}"
             )
     if len(METAL_NAMES) * n >= 2**31 or max_iterations < 0:
-        raise ValueError("solve_temperature_cuda: sizes must fit int32")
+        raise ValueError(f"{label}: sizes must fit int32")
 
     j_stack = torch.stack([j[name].reshape(-1) for name in ION_NAMES])
     h_stack = torch.stack([h[0].reshape(-1), h[1].reshape(-1)])
@@ -138,24 +172,58 @@ def solve_temperature_cuda(T_init, j, h, nd, abundances, *, pahfac, crfac, epsil
     nd_flat = nd.reshape(-1).contiguous()
     host_tables = kernel_tables(
         abundances, pahfac=pahfac, crfac=crfac, epsilon=epsilon,
-        minimum_ionized_temperature=minimum_ionized_temperature,
+        minimum_ionized_temperature=minimum_ionized_temperature, scale=scale,
     )
-    tables = torch.tensor(host_tables, dtype=torch.float64, device=device)
-    T, h0, he0 = (torch.empty(n, dtype=torch.float64, device=device) for _ in range(3))
-    metals = torch.empty((len(METAL_NAMES), n), dtype=torch.float64, device=device)
+    tables = torch.tensor(host_tables, dtype=dtype, device=device)
+    T, h0, he0 = (torch.empty(n, dtype=dtype, device=device) for _ in range(3))
+    metals = torch.empty((len(METAL_NAMES), n), dtype=dtype, device=device)
     sweeps = torch.empty(n, dtype=torch.int32, device=device)
 
-    launch = _launcher()
+    buffers = [tables]
+    if dtype == torch.float32:
+        buffers.append(torch.tensor(omega_table(), device=device))
+    buffers += [T0, j_stack, h_stack, nd_flat, T, h0, he0, metals, sweeps]
+    launch = _launcher("cmi_temperature_f32" if dtype == torch.float32 else "cmi_temperature",
+                       len(buffers))
     stream = torch.cuda.current_stream(device).cuda_stream
-    pointers = [t.data_ptr() for t in (
-        tables, T0, j_stack, h_stack, nd_flat, T, h0, he0, metals, sweeps)]
     with torch.cuda.device(device):
-        err = launch(*pointers, n, int(max_iterations), host_tables.size, stream)
+        err = launch(*[t.data_ptr() for t in buffers], n, int(max_iterations),
+                     host_tables.size, stream)
     if err != 0:
-        raise RuntimeError(f"solve_temperature_cuda: CUDA error {err} at launch")
-    LAUNCHES[NAME] += 1
+        raise RuntimeError(f"{label}: CUDA error {err} at launch")
+    LAUNCHES[NAME_F32 if dtype == torch.float32 else NAME] += 1
     return (
         T.reshape(shape), h0.reshape(shape), he0.reshape(shape),
         {name: metals[k].reshape(shape) for k, name in enumerate(METAL_NAMES)},
         sweeps.reshape(shape),
+    )
+
+
+def solve_temperature_cuda(T_init, j, h, nd, abundances, *, pahfac, crfac, epsilon,
+                           max_iterations, minimum_ionized_temperature):
+    """K4: the f64 log-secant thermal balance of every cell.
+
+    ``T_init``, ``nd`` and each of ``j`` (dict ion name → rate) and ``h``
+    ((hH, hHe)) are f64 tensors of one shape on one CUDA device.  Returns
+    (T, h0, he0, metals dict, sweeps int32), each of that shape.
+    """
+    return _solve(
+        "solve_temperature_cuda", torch.float64, T_init, j, h, nd, abundances, pahfac=pahfac,
+        crfac=crfac, epsilon=epsilon, max_iterations=max_iterations,
+        minimum_ionized_temperature=minimum_ionized_temperature, scale=1.0,
+    )
+
+
+def solve_temperature_device_cuda(T_init, j, h, nd, abundances, *, pahfac, crfac, epsilon,
+                                  max_iterations, minimum_ionized_temperature):
+    """K4f: the f32 log-secant thermal balance of every cell, every gain and
+    loss coefficient times ``DEVICE_SOLVE_SCALE`` (``ops/temperature.py``).
+
+    The same inputs as :func:`solve_temperature_cuda`, in f32; returns f32
+    (T, h0, he0, metals dict) and the int32 sweeps.
+    """
+    return _solve(
+        "solve_temperature_device_cuda", torch.float32, T_init, j, h, nd, abundances,
+        pahfac=pahfac, crfac=crfac, epsilon=epsilon, max_iterations=max_iterations,
+        minimum_ionized_temperature=minimum_ionized_temperature, scale=DEVICE_SOLVE_SCALE,
     )

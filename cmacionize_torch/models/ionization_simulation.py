@@ -196,15 +196,30 @@ class HOnlyIonizationSimulation:
         iterations)."""
         return self.run(self.iteration + n_iterations)
 
-    def run(self, n_iterations: Optional[int] = None):
+    def run(self, n_iterations: Optional[int] = None, diagnostics=None):
         """Run MC iterations until ``n_iterations`` (total, default the
-        config's) are done; returns the neutral fraction."""
+        config's) are done; returns the neutral fraction.
+
+        ``diagnostics``: an optional
+        :class:`~cmacionize_torch.utils.diagnostics.IterationDiagnostics`,
+        given each iteration's "iteration" phase (timed to the device's
+        synchronise) and its emitted, escaped and absorbed packets; it reads
+        the escaped count back every iteration."""
         cfg = self.config
         n_iterations = n_iterations or cfg.n_iterations
         first = self.iteration
         n_escs = []
         while self.iteration < n_iterations:
-            n_escs.append(self.step(self.emit()))
+            if diagnostics is None:
+                n_escs.append(self.step(self.emit()))
+                continue
+            with diagnostics.phase("iteration", synchronize=self._synchronize):
+                n_escs.append(self.step(self.emit()))
+            n_escaped = int(n_escs[-1])
+            diagnostics.count("photons emitted", cfg.n_photons)
+            diagnostics.count("photons escaped", n_escaped)
+            diagnostics.count("photons absorbed", cfg.n_photons - n_escaped)
+            diagnostics.end_iteration()
         if n_escs:
             self.n_escaped = torch.stack(n_escs)
             if not isinstance(self.log, NullLog):
@@ -214,6 +229,10 @@ class HOnlyIonizationSimulation:
                         f"{n_esc} / {cfg.n_photons} photons escaped"
                     )
         return self.neutral_fraction
+
+    def _synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def stromgren_radius_analytic(self) -> float:
         """Analytic Strömgren radius for the homogeneous H-only setup (m),

@@ -9,12 +9,19 @@ TemperatureCalculator).  Per iteration, on one device:
     → diffuse re-emission generations (absorbed packets re-enter the march)
     → one f32 matrix product turns the binned tally into per-ion
       mean-intensity and heating integrals
-    → the per-cell coupled H/He/metal ionization solve, with the f64
-      log-secant temperature balance (K4 on the GPU) from
-      ``minimum_iteration_number`` on.
+    → the per-cell coupled H/He/metal ionization solve, with the
+      log-secant temperature balance from ``minimum_iteration_number`` on:
+      f64 (K4 on the GPU), or with ``TemperatureCalculator: backend:
+      f32-device`` the scaled f32 solve (K4f on the GPU).
 
-The march runs in f32, the solves in f64, all on the device the driver is
-given; there is no default device.  Left out of the JAX driver, because they
+The march runs in f32, the solves in f64 (the f32 backend rounds its inputs
+to f32 and widens its results), all on the device the driver is given; there
+is no default device.  The source spectrum is a Planck curve, a line, or a
+tabulated stellar atmosphere (``models/atmosphere_spectra.py``).  Optional:
+a :class:`~cmacionize_torch.models.trackers.TrackerManager` fed the binned
+tally of each iteration (``tracker_manager``), typed cell trackers fed every
+marched generation (:meth:`attach_cell_trackers`), and per-iteration
+diagnostics (``run(diagnostics=)``).  Left out of the JAX driver, because they
 are bookkeeping for the TPU: the 2^19-packet batch split (the port marches
 all packets at once), the width compaction of the re-emission generations
 (K2 takes the full-width batch with the re-emission mask as its active
@@ -25,6 +32,7 @@ converges).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, Optional, Tuple
@@ -33,35 +41,42 @@ import numpy as np
 import torch
 
 from cmacionize_torch import constants
-from cmacionize_torch.models import ions, reemission, sources
+from cmacionize_torch.models import atmosphere_spectra, ions, reemission, sources
 from cmacionize_torch.models.grid import GridGeometry
 from cmacionize_torch.ops import cross_sections, ionization, recombination, temperature
 from cmacionize_torch.ops import traversal
 from cmacionize_torch.utils.logging import Log, NullLog
 
-NOT_PORTED = "not ported yet (ROADMAP.md, queue 1, item 6)"
 ATMOSPHERE_SPECTRA = ("wmbasic", "castellikurucz", "pegase3", "popstar")
 # state of cells without gas: neutral, with the neutral-metal slots at 1
 NEUTRAL_ONE = ("H_n", "He_n", "N_n", "O_n", "Ne_n")
 
 
 def solve_cell_state(j, h, nd, T_prev, abundances, do_temp, pahfac=0.0, crfac=0.0,
-                     fixed_alpha=None):
+                     fixed_alpha=None, backend="f64-host"):
     """Per-cell coupled ionization (+ temperature) solve on flat or shaped
     f64 tensors of one shape.
 
     j: dict ion → photoionization rate (s⁻¹); h: (hH, hHe) heating integrals;
     nd: number density; T_prev: the previous temperature.  With ``do_temp``
-    the temperature balance runs (K4 on CUDA tensors); otherwise T stays and
-    the ionization state follows at T (or at the FixedValue rates
-    ``fixed_alpha``), with cells without radiation set neutral.  Cells
-    without gas are pinned neutral at 500 K.
+    the temperature balance runs: with ``backend == "f32-device"`` (and no
+    FixedValue rates) the scaled f32 solve on j, h, nd and T_prev rounded to
+    f32, its results widened to f64 (K4f on CUDA tensors); with any other
+    backend string the f64 solve (K4 on CUDA tensors), as in the JAX
+    package.  Otherwise T stays and the ionization state follows at T (or
+    at the FixedValue rates ``fixed_alpha``), with cells without radiation
+    set neutral.  Cells without gas are pinned neutral at 500 K.
 
     Returns (T, xion dict, sweeps): ``sweeps`` holds the secant sweeps of
     each cell, or is None without the temperature balance.
     """
     sweeps = None
-    if do_temp:
+    if do_temp and backend == "f32-device" and fixed_alpha is None:
+        T, h0, he0, metals, sweeps = temperature.solve_temperature_device(
+            T_prev, j, h, nd, abundances, pahfac=pahfac, crfac=crfac)
+        T, h0, he0 = (value.to(torch.float64) for value in (T, h0, he0))
+        metals = {name: value.to(torch.float64) for name, value in metals.items()}
+    elif do_temp:
         T, h0, he0, metals, sweeps = temperature.solve_temperature(
             T_prev, j, h, nd, abundances, pahfac=pahfac, crfac=crfac)
     else:
@@ -136,7 +151,7 @@ class MultiFreqConfig:
     initial_temperature: float
     source_position: Tuple[float, float, float]
     luminosity: float
-    spectrum_type: str  # "planck" | "monochromatic"
+    spectrum_type: str  # "planck" | "monochromatic" | a tabulated family
     spectrum_temperature: float  # for planck
     spectrum_frequency: float  # for monochromatic
     n_photons: int
@@ -144,12 +159,19 @@ class MultiFreqConfig:
     abundances: Dict[str, float]
     do_temperature: bool = True
     minimum_iteration_number: int = 3  # the T-solve only from this loop on
+    #: "f64-host" (the f64 solve, K4) or "f32-device" (the scaled f32 solve,
+    #: K4f); any other string runs the f64 solve, as in the JAX package
+    #: (parameter file: ``TemperatureCalculator: backend``)
+    temperature_backend: str = "f64-host"
     diffuse_field: bool = True
     n_bins: int = 128
     n_reemission_rounds: int = 8
     pahfac: float = 0.0
     crfac: float = 0.0
     initial_neutral_fraction: float = 1.0e-6
+    # (frequencies, cdf) arrays of a tabulated atmosphere spectrum (WMBasic,
+    # CastelliKurucz, Pegase3, PopStar), read by from_params
+    spectrum_table: Optional[Tuple] = None
     # FixedValue microphysics: frequency-independent cross sections and
     # temperature-independent recombination rates, keyed by ion name
     fixed_sigma: Optional[Tuple] = None  # ((name, value_m2), ...)
@@ -161,20 +183,19 @@ class MultiFreqConfig:
     @classmethod
     def from_params(cls, params) -> "MultiFreqConfig":
         """The configuration of a parameter file, as the JAX ``from_params``
-        reads it.  What this port defers raises ``NotImplementedError``:
-        tabulated atmosphere spectra, ``TemperatureCalculator: backend``
-        other than the f64 solve, ``TrackerManager``, ``Parallel`` and
-        ``RestartManager`` blocks."""
+        reads it.  What this port defers raises ``NotImplementedError``: the
+        ``TrackerManager`` block (the command line's), ``Parallel``
+        (ROADMAP.md queue 1, item 7) and ``RestartManager`` (item 3)."""
         for block in ("TrackerManager", "Parallel", "RestartManager"):
             if params.has_value(block):
-                raise NotImplementedError(f"{block}: block {NOT_PORTED}")
-        backend = params.get_string("TemperatureCalculator:backend", "f64-host")
-        if backend != "f64-host":
-            raise NotImplementedError(f"TemperatureCalculator backend {backend!r}: {NOT_PORTED}")
+                raise NotImplementedError(
+                    f"{block}: block not ported yet (ROADMAP.md, queue 1)")
         geometry = GridGeometry.from_params(params)
         spectrum_type = params.get_string("PhotonSourceSpectrum:type", "Planck").lower()
+        spectrum_table = None
         if spectrum_type in ATMOSPHERE_SPECTRA:
-            raise NotImplementedError(f"PhotonSourceSpectrum {spectrum_type!r}: {NOT_PORTED}")
+            table = atmosphere_spectra.atmosphere_spectrum_from_params(params)
+            spectrum_table = (table.frequencies, table.cdf)
         abund = dict(ions.DEFAULT_ABUNDANCES)
         for element in abund:
             for key in (f"Abundances:{element}", f"AbundanceModel:{element}"):
@@ -228,10 +249,12 @@ class MultiFreqConfig:
             abundances=abund,
             do_temperature=params.get_bool(
                 "TemperatureCalculator:do temperature calculation", False),
+            temperature_backend=params.get_string("TemperatureCalculator:backend", "f64-host"),
             diffuse_field=params.get_bool("IonizationSimulation:diffuse field", False),
             pahfac=params.get_number("TemperatureCalculator:PAH heating factor", 0.0),
             crfac=params.get_number(
                 "TemperatureCalculator:cosmic ray heating factor", 0.0),
+            spectrum_table=spectrum_table,
             fixed_sigma=fixed_sigma,
             fixed_alpha=fixed_alpha,
             bimodal_sigma=bimodal_sigma,
@@ -251,6 +274,10 @@ class MultiFreqIonizationSimulation:
     ``reemitted`` the re-emitted packets of each generation (a device
     tensor); ``sweeps`` the secant sweeps of every cell of each temperature
     solve (device tensors).
+
+    ``tracker_manager``, when set to a
+    :class:`~cmacionize_torch.models.trackers.TrackerManager`, accumulates
+    the binned tally of every iteration.
     """
 
     def __init__(self, config: MultiFreqConfig, device, log: Optional[Log] = None,
@@ -292,7 +319,9 @@ class MultiFreqIonizationSimulation:
         ])
 
         # the source spectrum as a distribution over the bins
-        if config.spectrum_type.startswith("mono"):
+        if config.spectrum_table is not None:
+            pdf = sources.tabulated_bin_pdf(self.bin_edges, *config.spectrum_table)
+        elif config.spectrum_type.startswith("mono"):
             pdf = sources.monochromatic_bin_pdf(self.bin_edges, config.spectrum_frequency)
         else:
             pdf = sources.planck_bin_pdf(self.bin_centers, config.spectrum_temperature)
@@ -336,6 +365,17 @@ class MultiFreqIonizationSimulation:
         self.phase_seconds = []
         self.reemitted = []
         self.sweeps = []
+        self.tracker_manager = None
+        self._cell_trackers = None
+
+    def attach_cell_trackers(self, trackers) -> None:
+        """Feed a :class:`~cmacionize_torch.models.trackers.CellTrackers` every
+        marched generation from the next iteration on (it moves to the
+        driver's device).  Not for periodic boxes: the segment estimator needs
+        straight paths in cell coordinates."""
+        if any(self.geometry.periodic):
+            raise NotImplementedError("cell trackers require a non-periodic box")
+        self._cell_trackers = trackers.to(self.device)
 
     def load_reference_state(self, xion, temperature, number_density) -> None:
         """Continue from a state given as numpy arrays (for example the JAX
@@ -354,9 +394,25 @@ class MultiFreqIonizationSimulation:
 
     # ---------------------------------------------------------------- MC core
 
+    def _track(self, before, after, valid, slot) -> None:
+        """Add one marched generation to the cell trackers, if attached."""
+        trackers = self._cell_trackers
+        if trackers is None:
+            return
+
+        def stack(batch, *fields):
+            return torch.stack([getattr(batch, f) for f in fields], 1)
+
+        trackers.accumulate(*trackers.contributions(
+            stack(before, "px", "py", "pz"), stack(before, "dx", "dy", "dz"),
+            stack(after, "px", "py", "pz"), before.fbin, before.weight, valid, slot,
+        ))
+
     def _mc_shoot(self, xH, xHe, T):
         """Emit + march + re-emission generations → ([n_ion+2, ncell]
-        integrals in raw Σ ℓσw units, [generations] re-emitted counts)."""
+        integrals in raw Σ ℓσw units, [generations] re-emitted counts).
+        The binned tally goes to ``tracker_manager`` and every generation to
+        the cell trackers, where they are set."""
         cfg = self.config
         shape = self.geometry.shape
         ncell = self.geometry.n_cells
@@ -380,8 +436,11 @@ class MultiFreqIonizationSimulation:
         )
         tally2d = torch.zeros(cfg.n_bins * ncell, dtype=torch.float32, device=self.device)
         march = dict(shape=shape, n_bins=cfg.n_bins, periodic=self.geometry.periodic)
+        emitted = packets
         tally2d, packets = traversal.trace_packets_spectral(
             chi_h, chi_he, packets, tally2d, **march)
+        self._track(emitted, packets, torch.ones_like(packets.active),
+                    torch.zeros_like(packets.fbin))
 
         reemitted = []
         if cfg.diffuse_field:
@@ -389,7 +448,7 @@ class MultiFreqIonizationSimulation:
                 flat = torch.clamp(
                     (packets.cx * shape[1] + packets.cy) * shape[2] + packets.cz, 0, ncell - 1
                 ).to(torch.int64)
-                remask, new_freq, _ = reemission.reemit_batch(
+                remask, new_freq, h_channel = reemission.reemit_batch(
                     gen, self._spectra, packets.absorbed, packets.sig_h, packets.sig_he,
                     xH32[flat], xHe32[flat], T32[flat], AHe,
                 )
@@ -406,9 +465,15 @@ class MultiFreqIonizationSimulation:
                     active=remask, absorbed=torch.zeros_like(remask),
                 )
                 reemitted.append(remask.sum())
+                emitted = packets
                 tally2d, packets = traversal.trace_packets_spectral(
                     chi_h, chi_he, packets, tally2d, **march)
+                # PHOTONTYPE slot: 1 diffuse H, 2 diffuse He
+                self._track(emitted, packets, remask,
+                            torch.where(h_channel, 1, 2).to(torch.int32))
 
+        if self.tracker_manager is not None:
+            self.tracker_manager.accumulate(tally2d)
         integrals = traversal.spectral_tallies_to_ion_integrals(
             tally2d, self._sigma_table32, self._heating32, ncell)
         counts = (torch.stack(reemitted) if reemitted
@@ -434,33 +499,53 @@ class MultiFreqIonizationSimulation:
         T, xion, sweeps = solve_cell_state(
             j, h, self.number_density.to(torch.float64), self.temperature,
             cfg.abundances, do_temp, pahfac=cfg.pahfac, crfac=cfg.crfac,
-            fixed_alpha=cfg.fixed_alpha,
+            fixed_alpha=cfg.fixed_alpha, backend=cfg.temperature_backend,
         )
         return T, xion, j, sweeps
 
-    def run(self, n_iterations: Optional[int] = None):
+    def run(self, n_iterations: Optional[int] = None, diagnostics=None):
         """Run iterations until ``n_iterations`` (total, default the
-        config's) are done; returns (xion dict, temperature)."""
+        config's) are done; returns (xion dict, temperature).
+
+        ``diagnostics``: an optional
+        :class:`~cmacionize_torch.utils.diagnostics.IterationDiagnostics`,
+        given the "trace" and "solve" phases (timed to the device's
+        synchronise) and the emitted packets and re-emission rounds of each
+        iteration."""
         cfg = self.config
         n_iterations = n_iterations or cfg.n_iterations
+
+        def phase(name):
+            if diagnostics is None:
+                return contextlib.nullcontext()
+            return diagnostics.phase(name, synchronize=lambda: _synchronize(self.device))
+
         while self.iteration < n_iterations:
             loop = self.iteration
             # opacity fractions are physical: clamp the stored raw iterates
             xH = torch.clamp(self.xion["H_n"], 0.0, 1.0)
             xHe = torch.clamp(self.xion["He_n"], 0.0, 1.0)
             t0 = time.perf_counter()
-            integrals, reemitted = self._mc_shoot(xH, xHe, self.temperature)
+            with phase("trace"):
+                integrals, reemitted = self._mc_shoot(xH, xHe, self.temperature)
             _synchronize(self.device)
             t1 = time.perf_counter()
+            if self._cell_trackers is not None:
+                self._cell_trackers.end_iteration()
             do_temp = cfg.do_temperature and loop >= cfg.minimum_iteration_number
-            self.temperature, self.xion, self.j_fields, sweeps = self._solve_state(
-                integrals, do_temp)
+            with phase("solve"):
+                self.temperature, self.xion, self.j_fields, sweeps = self._solve_state(
+                    integrals, do_temp)
             _synchronize(self.device)
             t2 = time.perf_counter()
             self.phase_seconds.append((t1 - t0, t2 - t1))
             self.reemitted.append(reemitted)
             if sweeps is not None:
                 self.sweeps.append(sweeps)
+            if diagnostics is not None:
+                diagnostics.count("photons emitted", cfg.n_photons)
+                diagnostics.count("reemission rounds", cfg.n_reemission_rounds)
+                diagnostics.end_iteration()
             self.iteration += 1
             if not isinstance(self.log, NullLog):
                 self.log.info(

@@ -1,10 +1,10 @@
 """Photon sources: isotropic point-source emission and spectra over bins.
 
 Port of the point-source part of ``cmacionize_tpu/models/sources.py``
-(``isotropic_directions``, ``sample_tau_targets``, ``emit_point_source``) and
-of the multi-frequency driver's spectrum sampling over frequency bins
-(``MultiFreqIonizationSimulation.__init__`` and ``_emit_bins`` in
-``cmacionize_tpu/models/multifreq_simulation.py``).  Random numbers come from an
+(``isotropic_directions``, ``sample_tau_targets``, ``emit_point_source``,
+``TabulatedSpectrum``) and of the multi-frequency driver's spectrum sampling
+over frequency bins (``MultiFreqIonizationSimulation.__init__`` and
+``_emit_bins`` in ``cmacionize_tpu/models/multifreq_simulation.py``).  Random numbers come from an
 explicit ``torch.Generator`` on the packets' device.  Its stream cannot
 reproduce ``jax.random``, so the port agrees with the JAX package in
 distribution only; tests that need identical packets build them with numpy.
@@ -12,6 +12,7 @@ distribution only; tests that need identical packets build them with numpy.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -60,6 +61,44 @@ def emit_point_source(
     pz = gz + nudge * dz
     weight = torch.ones(n, dtype=dtype, device=generator.device)
     return px, py, pz, dx, dy, dz, tau, weight
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """Piecewise-linear interpolation of (xp, fp) at x, as ``jnp.interp``:
+    xp increasing (flat steps allowed), x clamped to [xp[0], xp[-1]]."""
+    x = torch.clamp(x, xp[0], xp[-1])
+    i = torch.clamp(torch.searchsorted(xp, x, right=True) - 1, 0, xp.numel() - 2)
+    x0, x1, f0, f1 = xp[i], xp[i + 1], fp[i], fp[i + 1]
+    step = x1 - x0
+    t = torch.where(step > 0, (x - x0) / torch.where(step > 0, step, 1.0), 0.0)
+    return f0 + t * (f1 - f0)
+
+
+@dataclasses.dataclass(frozen=True)
+class TabulatedSpectrum:
+    """Inverse-CDF sampling of a tabulated spectrum in photon-number space.
+
+    ``frequencies``/``cdf`` are 1D tables with cdf[0] = 0, cdf[-1] = 1.
+    """
+
+    frequencies: np.ndarray
+    cdf: np.ndarray
+
+    def sample(self, generator: torch.Generator, n: int, dtype=torch.float32):
+        """n frequencies (Hz) drawn with the generator, on its device."""
+        xi = _uniform(generator, n, dtype)
+
+        def table(a):
+            return torch.tensor(np.asarray(a), dtype=dtype, device=generator.device)
+
+        return interp(xi, table(self.cdf), table(self.frequencies))
+
+
+def tabulated_bin_pdf(bin_edges, frequencies, cdf) -> np.ndarray:
+    """Per-bin weights of a tabulated spectrum: the increment of its CDF
+    across each bin (exact for the tabulated distribution)."""
+    edge_cdf = np.interp(bin_edges, frequencies, cdf)
+    return np.maximum(np.diff(edge_cdf), 0.0)
 
 
 def planck_bin_pdf(bin_centers, temperature: float) -> np.ndarray:

@@ -4,12 +4,13 @@ Port of ``cmacionize_tpu/ops/ionization.py``: ``hydrogen_neutral_fraction``
 and ``normalize_mean_intensity`` (the H-only path, f32), the coupled
 hydrogen-helium fixed point ``hydrogen_helium_neutral_fractions`` and the
 closed-form metal chains ``metal_ion_fractions`` (the multi-frequency path,
-f64).  Mean-intensity tallies are normalized by jfac = L_tot / (W_tot ·
-V_cell) into photoionization rates j [s^-1], then the balance is solved per
-cell (the reference's src/IonizationStateCalculator.cpp).  The arithmetic is
-written in the JAX package's order, divisions by a number go through
-``recombination.div``, and K4 (``csrc/temperature.cu``) repeats the H-He and
-metal expressions operation for operation.
+f64, or f32 in the device backend of the temperature solve).
+Mean-intensity tallies are normalized by jfac = L_tot / (W_tot · V_cell) into
+photoionization rates j [s^-1], then the balance is solved per cell (the
+reference's src/IonizationStateCalculator.cpp).  The arithmetic is written in
+the JAX package's order, divisions by a number go through
+``recombination.div``, and K4 and K4f (``csrc/temperature.cu``) repeat the
+H-He and metal expressions operation for operation.
 """
 
 from __future__ import annotations
@@ -56,7 +57,10 @@ def normalize_mean_intensity(tally, luminosity, total_weight, cell_volume):
 # Coupled hydrogen-helium balance (f64)
 # ---------------------------------------------------------------------------
 
-TINY = 1e-300  # f64 division guard
+def tiny(x: torch.Tensor) -> float:
+    """The division guard of x's dtype: 1e-300 in f64, 1e-30 in f32 (where
+    1e-300 rounds to 0), as the JAX package's ``_tiny``."""
+    return 1e-300 if x.dtype == torch.float64 else 1e-30
 
 
 def hydrogen_helium_neutral_fractions(jH, jHe, nH, AHe, T, alphaH, alphaHe,
@@ -88,7 +92,7 @@ def hydrogen_helium_neutral_fractions(jH, jHe, nH, AHe, T, alphaH, alphaHe,
     h0old = 0.99 * (1.0 - torch.exp(div(-0.5, ch1)))
     h0 = 0.9 * h0old
     he0old = torch.where(
-        has_che, torch.clamp_max(div(0.5, torch.clamp_min(che, TINY)), 1.0),
+        has_che, torch.clamp_max(div(0.5, torch.clamp_min(che, tiny(che))), 1.0),
         torch.ones_like(che),
     )
     he0 = torch.zeros_like(h0)
@@ -105,7 +109,7 @@ def hydrogen_helium_neutral_fractions(jH, jHe, nH, AHe, T, alphaH, alphaHe,
         h0old_n = h0
         he0old_n = torch.clamp_min(he0, 0.0)
 
-        pHots = div(1.0, 1.0 + 77.0 * he0old_n / (sqrtT * torch.clamp_min(h0old_n, TINY)))
+        pHots = div(1.0, 1.0 + 77.0 * he0old_n / (sqrtT * torch.clamp_min(h0old_n, tiny(h0old_n))))
         ch = ch1 - ch2 * AHe * (1.0 - he0old_n) * pHots / (1.0 - h0old_n)
 
         # helium quadratic with Taylor fallback
@@ -116,7 +120,7 @@ def hydrogen_helium_neutral_fractions(jH, jHe, nH, AHe, T, alphaH, alphaHe,
         disc_he = torch.sqrt(
             torch.clamp_min(bhe * bhe - 4.0 * AHe * opAHeh0 * che * che, 0.0)
         )
-        he0_exact = (bhe - disc_he) / (2.0 * AHe * torch.clamp_min(che, TINY))
+        he0_exact = (bhe - disc_he) / (2.0 * AHe * torch.clamp_min(che, tiny(che)))
         he0_new = torch.where(t1he < 1e-3, opAHeh0 * che_bhe, he0_exact)
         he0_new = torch.where(has_che, he0_new, torch.ones_like(he0_new))
 
@@ -127,7 +131,7 @@ def hydrogen_helium_neutral_fractions(jH, jHe, nH, AHe, T, alphaH, alphaHe,
         t1 = 4.0 * ch_b * ch_b * opA
         disc_h = torch.sqrt(torch.clamp_min(b * b - 4.0 * ch * ch * opA, 0.0))
         sign_ch = torch.where(ch >= 0, 1.0, -1.0).to(ch.dtype)
-        h0_exact = (b - disc_h) / (2.0 * sign_ch * torch.clamp_min(torch.abs(ch), TINY))
+        h0_exact = (b - disc_h) / (2.0 * sign_ch * torch.clamp_min(torch.abs(ch), tiny(ch)))
         h0_new = torch.where(t1 < 1e-3, ch_b * opA, h0_exact)
 
         # averaging damping: the reference increments its counter first, so
@@ -182,7 +186,7 @@ def metal_ion_fractions(j, ne, T, nh0, nhe0, nhp, alphas):
         numer = j[name]
         if with_ion_H:
             numer = numer + nhp * ct.ionization_rate_H(name, t4)
-        return numer / torch.clamp_min(denom, TINY)
+        return numer / torch.clamp_min(denom, tiny(denom))
 
     def chain(first, *ratios):
         """Stage fractions of one element from R(2,1) and the next ratios."""
@@ -197,12 +201,12 @@ def metal_ion_fractions(j, ne, T, nh0, nhe0, nhp, alphas):
 
     out = {}
     # carbon: no CT term for C+ (negligible per the reference)
-    C21 = j["C_p1"] / torch.clamp_min(safe_ne * alphas["C_p1"], TINY)
+    C21 = j["C_p1"] / torch.clamp_min(safe_ne * alphas["C_p1"], tiny(safe_ne))
     out["C_p1"], out["C_p2"] = chain(C21, ratio("C_p2"))
     out["N_n"], out["N_p1"], out["N_p2"] = chain(
         ratio("N_n", with_ion_H=True), ratio("N_p1"), ratio("N_p2"))
     out["O_n"], out["O_p1"] = chain(ratio("O_n", with_ion_H=True), ratio("O_p1"))
-    Ne21 = j["Ne_n"] / torch.clamp_min(safe_ne * alphas["Ne_n"], TINY)
+    Ne21 = j["Ne_n"] / torch.clamp_min(safe_ne * alphas["Ne_n"], tiny(safe_ne))
     out["Ne_n"], out["Ne_p1"] = chain(Ne21, ratio("Ne_p1"))
     out["S_p1"], out["S_p2"], out["S_p3"] = chain(
         ratio("S_p1"), ratio("S_p2"), ratio("S_p3"))

@@ -1,4 +1,4 @@
-"""Thermal equilibrium: the coupled ionization + heating/cooling solve, f64.
+"""Thermal equilibrium: the coupled ionization + heating/cooling solve.
 
 Port of ``cmacionize_tpu/ops/temperature.py`` (the reference's
 src/TemperatureCalculator.cpp): per cell, find T such that photo-heating
@@ -6,13 +6,28 @@ balances radiative cooling, with the H/He/metal ionization state recomputed
 at each trial temperature, by the reference's log-secant iteration with
 evaluations at 1.1T, 0.9T and T.
 
-:func:`solve_temperature` dispatches on the device: CPU tensors run the plain
-PyTorch version (:func:`solve_temperature_reference`), CUDA tensors launch K4
-(``csrc/temperature.cu``, one thread per cell).  The plain version is the
-JAX package's lockstep loop: a cell freezes once it has converged and keeps
-its values.  It evaluates the balance only on the cells still live in a
-sweep (the per-cell results are those of the masked full-width loop, since
-each cell's arithmetic is its own), and it counts the sweeps each cell ran.
+Two backends, as in the JAX package:
+
+- :func:`solve_temperature`, f64: CPU tensors run the plain PyTorch version
+  (:func:`solve_temperature_reference`), CUDA tensors launch K4
+  (``csrc/temperature.cu``, one thread per cell);
+- :func:`solve_temperature_device`, f32 with every gain and loss coefficient
+  multiplied by :data:`DEVICE_SOLVE_SCALE` (``TemperatureCalculator: backend:
+  f32-device``): CPU tensors run :func:`solve_temperature_device_reference`,
+  CUDA tensors launch K4f, the f32 form of the same kernel.
+
+The plain version is the JAX package's lockstep loop: a cell freezes once it
+has converged and keeps its values.  It evaluates the balance only on the
+cells still live in a sweep (the per-cell results are those of the masked
+full-width loop, since each cell's arithmetic is its own), and it counts the
+sweeps each cell ran.  The same code serves both dtypes: Python numbers meet
+tensors as JAX's weakly typed scalars do (rounded once to the tensor's dtype),
+and products of Python numbers, such as ``1.42e-40 * scale``, are formed in
+Python f64 first, as in the JAX expressions.
+
+The JAX package's ``solve_temperature_device_chunked`` is not ported: its
+fixed 32768-cell chunks work around the TPU compile's constant budget, and
+its per-cell results equal the unchunked call (tested on the CPU).
 """
 
 from __future__ import annotations
@@ -21,14 +36,17 @@ from typing import NamedTuple
 
 import torch
 
-from cmacionize_torch.kernels.temperature import LOG_BRACKET, solve_temperature_cuda
+from cmacionize_torch.kernels.temperature import (
+    DEVICE_SOLVE_SCALE,
+    HE_LYA_HEATING_ENERGY,
+    LOG_BRACKET,
+    solve_temperature_cuda,
+    solve_temperature_device_cuda,
+)
 from cmacionize_torch.models.ions import METAL_NAMES
 from cmacionize_torch.ops import ionization, line_cooling, recombination
+from cmacionize_torch.ops.ionization import tiny
 from cmacionize_torch.ops.recombination import div
-
-# He Lyman-alpha on-the-spot heating energy: 21.2 eV - 13.6 eV (J)
-HE_LYA_HEATING_ENERGY = 1.21765423e-18
-TINY = 1e-300
 
 
 class BalanceResult(NamedTuple):
@@ -70,13 +88,16 @@ def coolant_abundances(metals, abundances):
     ], dim=-1)
 
 
-def cooling_heating_balance(T, j, h, nd, abundances, pahfac=0.0, crfac=0.0):
-    """One balance evaluation at the temperature field T (f64 tensors).
+def cooling_heating_balance(T, j, h, nd, abundances, pahfac=0.0, crfac=0.0, scale=1.0):
+    """One balance evaluation at the temperature field T (f64 or f32 tensors).
 
     j: dict ion name → photoionization rate (s⁻¹, jfac-normalized);
     h: (hH, hHe) heating integrals (hfac-normalized); nd: hydrogen number
-    density (m⁻³); abundances: dict element → abundance.
+    density (m⁻³); abundances: dict element → abundance.  ``scale`` multiplies
+    every gain and loss coefficient before it meets a tensor (1.0 leaves the
+    f64 arithmetic as it is; the f32 solve passes DEVICE_SOLVE_SCALE).
     """
+    guard = tiny(T)
     AHe = abundances.get("He", 0.0)
     alphaH = recombination.recombination_rate("H_n", T)
     alphaHe = recombination.recombination_rate("He_n", T)
@@ -95,13 +116,13 @@ def cooling_heating_balance(T, j, h, nd, abundances, pahfac=0.0, crfac=0.0):
 
     # heating
     hH, hHe = h
-    gain = nd * (hH * h0 + hHe * AHe * he0)
+    gain = nd * ((hH * scale) * h0 + (hHe * scale) * AHe * he0)
     alpha_e_2sP = 4.17e-20 * T4 ** (-0.861)
-    pHots = div(1.0, 1.0 + 77.0 * he0 / (sqrtT * torch.clamp_min(h0, TINY)))
-    gain = gain + pHots * HE_LYA_HEATING_ENERGY * alpha_e_2sP * nenhep
-    gain = gain + 1.5e-37 * nd * ne * pahfac
+    pHots = div(1.0, 1.0 + 77.0 * he0 / (sqrtT * torch.clamp_min(h0, guard)))
+    gain = gain + pHots * (HE_LYA_HEATING_ENERGY * scale) * alpha_e_2sP * nenhep
+    gain = gain + (1.5e-37 * scale) * nd * ne * pahfac
     if crfac > 0.0:
-        gain = gain + div(crfac * 1.2e-25, torch.sqrt(torch.clamp_min(ne, TINY)))
+        gain = gain + div(crfac * (1.2e-25 * scale), torch.sqrt(torch.clamp_min(ne, guard)))
 
     # metal ionization (for the coolant abundances)
     alphas = {name: recombination.recombination_rate(name, T) for name in METAL_NAMES}
@@ -112,14 +133,14 @@ def cooling_heating_balance(T, j, h, nd, abundances, pahfac=0.0, crfac=0.0):
 
     # cooling
     abund = coolant_abundances(metals, abundances)
-    loss = line_cooling.cooling_rate(T, ne, abund) * nd
+    loss = line_cooling.cooling_rate(T, ne, abund, scale=scale) * nd
     cgaunt = 5.5 - logT
     gff = 1.1 + 0.34 * torch.exp(div(-cgaunt * cgaunt, 3.0))
-    loss = loss + 1.42e-40 * gff * sqrtT * (nenhp + nenhep)
-    loss = loss + 2.85e-40 * nenhp * sqrtT * (
+    loss = loss + (1.42e-40 * scale) * gff * sqrtT * (nenhp + nenhep)
+    loss = loss + (2.85e-40 * scale) * nenhp * sqrtT * (
         5.914 - 0.5 * logT + 0.01184 * T ** (1.0 / 3.0)
     )
-    loss = loss + 1.55e-39 * nenhep * T**0.3647
+    loss = loss + (1.55e-39 * scale) * nenhep * T**0.3647
 
     return BalanceResult(
         h0=h0, he0=he0, gain=torch.clamp_min(gain, 0.0),
@@ -129,25 +150,28 @@ def cooling_heating_balance(T, j, h, nd, abundances, pahfac=0.0, crfac=0.0):
 
 def _log_ratio(a, b):
     """log(a/b) with the reference's handling of zeros."""
-    pos = torch.where(a > 0.0, torch.log(torch.clamp_min(a, TINY) / b), -99.0)
+    pos = torch.where(a > 0.0, torch.log(torch.clamp_min(a, tiny(a)) / b), -99.0)
     zero = torch.where(a > 0.0, 99.0, 0.0).to(a.dtype)
     return torch.where(b > 0.0, pos.to(a.dtype), zero)
 
 
-def _secant_sweep(T0, j, h, nd, abundances, pahfac, crfac, minimum_ionized_temperature):
+def _secant_sweep(T0, j, h, nd, abundances, pahfac, crfac, minimum_ionized_temperature,
+                  scale):
     """One log-secant sweep for live cells: (T, gain, loss, h0, he0, metals)."""
+    guard = tiny(T0)
+
     def balance(T):
-        return cooling_heating_balance(T, j, h, nd, abundances, pahfac, crfac)
+        return cooling_heating_balance(T, j, h, nd, abundances, pahfac, crfac, scale)
 
     bal1 = balance(1.1 * T0)
     bal2 = balance(0.9 * T0)
     bal0 = balance(T0)
     expdiff = _log_ratio(bal1.gain, bal2.gain) - _log_ratio(bal1.loss, bal2.loss)
     good = (bal0.gain > 0.0) & (expdiff != 0.0)
-    ratio = bal0.loss / torch.clamp_min(bal0.gain, TINY)
+    ratio = bal0.loss / torch.clamp_min(bal0.gain, guard)
     exponent = torch.clamp(div(LOG_BRACKET, torch.where(good, expdiff, 1.0)), -50, 50)
     T_new = torch.where(
-        good, T0 * torch.exp(exponent * torch.log(torch.clamp_min(ratio, TINY))), 1.1 * T0
+        good, T0 * torch.exp(exponent * torch.log(torch.clamp_min(ratio, guard))), 1.1 * T0
     )
 
     # bounds: the neutral floor and the ionized cap force convergence
@@ -177,8 +201,10 @@ def _temperature_fixups(T0, h0, he0, metals, j):
 def solve_temperature_reference(
     T_init, j, h, nd, abundances, pahfac=0.0, crfac=0.0, epsilon: float = 1e-3,
     max_iterations: int = 100, minimum_ionized_temperature: float = 4000.0,
+    scale: float = 1.0,
 ) -> TemperatureSolution:
-    """Plain PyTorch log-secant solve (the JAX ``solve_temperature``).
+    """Plain PyTorch log-secant solve (the JAX ``solve_temperature``), in the
+    dtype of the inputs, with the balance coefficients times ``scale``.
 
     Cells start at T_init (8000 K where T_init ≤ 4000 K) and sweep until
     |gain - loss| ≤ ε·gain or ``max_iterations`` sweeps; a cell that went
@@ -186,6 +212,7 @@ def solve_temperature_reference(
     1e10 K ionized.  Cells whose balance is NaN (no gas) never converge and
     run every sweep.
     """
+    guard = tiny(T_init)
     shape = T_init.shape
     T_init, nd = T_init.reshape(-1), nd.reshape(-1)
     j = {name: value.reshape(-1) for name, value in j.items()}
@@ -202,10 +229,11 @@ def solve_temperature_reference(
             break
         T_l, j_l, h_l, nd_l = inputs
         T_new, gain, loss, h0, he0, metals = _secant_sweep(
-            T_l, j_l, h_l, nd_l, abundances, pahfac, crfac, minimum_ionized_temperature)
+            T_l, j_l, h_l, nd_l, abundances, pahfac, crfac, minimum_ionized_temperature,
+            scale)
         values = [T_new, h0, he0] + [metals[name] for name in METAL_NAMES]
         # a cell freezes once the reference's top-of-loop check would exit
-        frozen = torch.abs(gain - loss) <= epsilon * torch.clamp_min(gain, TINY)
+        frozen = torch.abs(gain - loss) <= epsilon * torch.clamp_min(gain, guard)
         if sweep == max_iterations - 1:
             frozen = torch.ones_like(frozen)
         if bool(frozen.any()):
@@ -250,3 +278,48 @@ def solve_temperature(
     if T_init.device.type == "cpu":
         return solve_temperature_reference(T_init, j, h, nd, abundances, **kwargs)
     return TemperatureSolution(*solve_temperature_cuda(T_init, j, h, nd, abundances, **kwargs))
+
+
+def _to_f32(T_init, j, h, nd):
+    def f32(a):
+        return a.to(torch.float32)
+
+    return f32(T_init), {k: f32(v) for k, v in j.items()}, (f32(h[0]), f32(h[1])), f32(nd)
+
+
+def solve_temperature_device_reference(
+    T_init, j, h, nd, abundances, pahfac=0.0, crfac=0.0, epsilon: float = 1e-3,
+    max_iterations: int = 100, minimum_ionized_temperature: float = 4000.0,
+) -> TemperatureSolution:
+    """Plain PyTorch f32 solve (the JAX ``solve_temperature_device``): the
+    inputs rounded to f32, the log-secant of :func:`solve_temperature_reference`
+    in f32 with every coefficient times :data:`DEVICE_SOLVE_SCALE`, and the
+    post-conditions on the f32 rates.  Returns f32 fields and the sweeps."""
+    return solve_temperature_reference(
+        *_to_f32(T_init, j, h, nd), abundances, pahfac=pahfac, crfac=crfac, epsilon=epsilon,
+        max_iterations=max_iterations,
+        minimum_ionized_temperature=minimum_ionized_temperature, scale=DEVICE_SOLVE_SCALE,
+    )
+
+
+def solve_temperature_device(
+    T_init, j, h, nd, abundances, pahfac=0.0, crfac=0.0, epsilon: float = 1e-3,
+    max_iterations: int = 100, minimum_ionized_temperature: float = 4000.0,
+) -> TemperatureSolution:
+    """The f32 backend of the temperature solve (``TemperatureCalculator:
+    backend: f32-device``) on tensors of one shape, rounded to f32 first.
+
+    Returns f32 (T, h0, he0, metals) and the int32 sweeps, with the
+    post-conditions of :func:`solve_temperature`.  CPU tensors run
+    :func:`solve_temperature_device_reference`; CUDA tensors launch K4f, which
+    counts its launches in ``kernels.LAUNCHES["temperature_f32"]``.
+    """
+    kwargs = dict(
+        pahfac=float(pahfac), crfac=float(crfac), epsilon=float(epsilon),
+        max_iterations=int(max_iterations),
+        minimum_ionized_temperature=float(minimum_ionized_temperature),
+    )
+    if T_init.device.type == "cpu":
+        return solve_temperature_device_reference(T_init, j, h, nd, abundances, **kwargs)
+    return TemperatureSolution(*solve_temperature_device_cuda(
+        *_to_f32(T_init, j, h, nd), abundances, **kwargs))

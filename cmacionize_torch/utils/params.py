@@ -11,6 +11,8 @@ parser:
 
 * block mappings nested by indentation (spaces only), ``key: value`` lines;
 * flow lists ``[a, b, c]`` of scalars;
+* block sequences ``- item`` of scalars or flow lists, as the value of a key
+  with no inline value (the tracker files' ``positions:`` lists);
 * ``#`` comments, whole-line or after whitespace;
 * bare and quoted scalars, resolved as YAML 1.1 (PyYAML's ``safe_load``) does:
   booleans (true/yes/on, ...), decimal ints, floats with a decimal point,
@@ -18,8 +20,9 @@ parser:
   PyYAML, and is turned into a number only when read through ``get_int`` or
   ``get_number``.
 
-Anything outside the subset (block sequences, anchors, multi-line scalars,
-non-decimal ints) raises ``ValueError`` instead of being read differently.
+Anything outside the subset (sequences of mappings, anchors, multi-line
+scalars, non-decimal ints) raises ``ValueError`` instead of being read
+differently.
 """
 
 from __future__ import annotations
@@ -130,8 +133,10 @@ def parse_yaml_subset(text: str) -> dict:
     # (indent, mapping) of the open mappings, innermost last
     stack = None
     # (mapping, key, indent) of a key with no inline value: an indented
-    # mapping may follow, otherwise its value is null
+    # mapping or a block sequence may follow, otherwise its value is null
     pending = None
+    # (items, indent) of the block sequence being read
+    sequence = None
     for lineno, raw in enumerate(text.splitlines(), start=1):
         line = _strip_comment(raw).rstrip()
         body = line.lstrip(" ")
@@ -142,12 +147,24 @@ def parse_yaml_subset(text: str) -> dict:
         indent = len(line) - len(body)
         if stack is None:
             stack = [(indent, root)]
+        is_item = body == "-" or body.startswith("- ")
         if pending is not None:
             mapping, key, key_indent = pending
             pending = None
-            if indent > key_indent:
+            if is_item and indent >= key_indent:
+                mapping[key] = []
+                sequence = (mapping[key], indent)
+            elif indent > key_indent:
                 mapping[key] = {}
                 stack.append((indent, mapping[key]))
+        if sequence is not None:
+            if is_item and indent == sequence[1]:
+                item = body[1:].strip()
+                if not item or _KEY_RE.match(item):
+                    raise ValueError(f"line {lineno}: only scalars and flow lists in sequences")
+                sequence[0].append(_resolve_value(item))
+                continue
+            sequence = None
         while len(stack) > 1 and indent < stack[-1][0]:
             stack.pop()
         if indent != stack[-1][0]:

@@ -1,12 +1,13 @@
-"""The CUDA kernels (K1-K7, K5, K5s, K5d, K8, K8p) and the port's drivers on
-the card (marked ``cuda``).
+"""The CUDA kernels (K1-K7, K4f, K5, K5s, K5d, K8, K8p) and the port's drivers
+on the card (marked ``cuda``).
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip where CUDA is
 missing; the plain versions they compare against are tested against the JAX
 package in test_torch_traversal.py, test_torch_hydro.py,
-test_torch_spectral.py, test_torch_temperature.py, test_torch_voronoi*.py,
-test_torch_amr.py, test_torch_dust.py and test_torch_polarization.py.  The file imports no
-JAX, so that it runs where JAX is not installed:
+test_torch_spectral.py, test_torch_temperature.py, test_torch_temperature_f32.py,
+test_torch_voronoi*.py, test_torch_amr.py, test_torch_dust.py and
+test_torch_polarization.py.  The file imports no JAX, so that it runs where
+JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
@@ -20,7 +21,10 @@ import torch
 
 from cmacionize_torch import kernels
 from cmacionize_torch.kernels.hydro_step import hydro_step_cuda
-from cmacionize_torch.kernels.temperature import solve_temperature_cuda
+from cmacionize_torch.kernels.temperature import (
+    solve_temperature_cuda,
+    solve_temperature_device_cuda,
+)
 from cmacionize_torch.kernels.trace_packets import trace_packets_cuda
 from cmacionize_torch.kernels.trace_packets_spectral import trace_packets_spectral_cuda
 from cmacionize_torch.models.density_functions import density_function_from_params
@@ -468,6 +472,105 @@ def test_temperature_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         solve_temperature_cuda(T, dict(j, O_n=j["O_n"][:64]), h, nd, ABUND, **kwargs)
     with pytest.raises(ValueError, match="CUDA"):
         solve_temperature_cuda(T.cpu(), j, h, nd, ABUND, **kwargs)
+
+
+# --------------------------------- K4f (the f32 temperature balance)
+
+
+def _compare_f32(got, ref):
+    """K4f against its plain version, per cell: >= 99% of cells within 1e-4
+    relative in T and all within 5e-3 (chip_smoke.py's bounds), >= 99% with
+    the same sweep count, the state within 1e-3."""
+    both_nan = torch.isnan(got.T) & torch.isnan(ref.T)
+    rel = torch.where(both_nan, 0.0, (got.T - ref.T).abs() / ref.T.abs())
+    rel = torch.nan_to_num(rel, nan=float("inf"))
+    assert got.T.dtype == torch.float32
+    assert float((rel <= 1e-4).double().mean()) >= 0.99
+    assert float(rel.max()) <= 5e-3
+    assert float((got.sweeps == ref.sweeps).double().mean()) >= 0.99
+    for name in ("h0", "he0"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=1e-3,
+                                   atol=1e-4, equal_nan=True)
+    for name, value in ref.metals.items():
+        torch.testing.assert_close(got.metals[name], value, rtol=1e-3, atol=1e-4,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize("pahfac, crfac", [(1.0, 0.0), (0.0, 0.5)])
+def test_temperature_f32_kernel_matches_plain_version(cuda, pahfac, crfac):
+    """Random Lexington states (64 without gas), through
+    solve_temperature_device, which launches K4f on CUDA tensors."""
+    T, j, h, nd = _thermal_cells(11, 4096, cuda)
+    before = kernels.LAUNCHES["temperature_f32"]
+    got = temperature.solve_temperature_device(T, j, h, nd, ABUND, pahfac=pahfac, crfac=crfac)
+    assert kernels.LAUNCHES["temperature_f32"] == before + 1
+    ref = temperature.solve_temperature_device_reference(
+        T, j, h, nd, ABUND, pahfac=pahfac, crfac=crfac)
+    _compare_f32(got, ref)
+    assert bool(torch.isfinite(got.T).all())
+    assert bool((got.sweeps[:64] == 100).all())
+
+
+def test_temperature_f32_kernel_on_empty_and_cavity_cells(cuda):
+    """Cells without gas (nd = 0), without radiation (j = 0, h = 0), and
+    both, beside ordinary ones: the kernel follows the plain version's
+    arithmetic, NaN included, and never traps."""
+    T, j, h, nd = _thermal_cells(5, 1024, cuda)
+    no_light = slice(100, 300)
+    cavity = slice(200, 400)
+    for value in j.values():
+        value[no_light] = 0.0
+    h[0][no_light] = 0.0
+    h[1][no_light] = 0.0
+    nd[cavity] = 0.0
+    got = temperature.solve_temperature_device(T, j, h, nd, ABUND, pahfac=1.0)
+    ref = temperature.solve_temperature_device_reference(T, j, h, nd, ABUND, pahfac=1.0)
+    torch.cuda.synchronize()
+    _compare_f32(got, ref)
+    assert bool((got.h0[100:200] == 1.0).all()) and bool((got.he0[100:200] == 1.0).all())
+    assert bool((got.metals["O_n"][100:200] == 0.0).all())
+
+
+def test_temperature_f32_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    T, j, h, nd = _thermal_cells(2, 128, cuda)
+    kwargs = dict(pahfac=0.0, crfac=0.0, epsilon=1e-3, max_iterations=100,
+                  minimum_ionized_temperature=4000.0)
+    f32 = {k: v.float() for k, v in j.items()}
+    h32 = (h[0].float(), h[1].float())
+    with pytest.raises(ValueError, match="float32"):
+        solve_temperature_device_cuda(T, f32, h32, nd.float(), ABUND, **kwargs)
+    with pytest.raises(ValueError, match="CUDA"):
+        solve_temperature_device_cuda(T.float().cpu(), f32, h32, nd.float(), ABUND, **kwargs)
+
+
+def test_f32_backend_driver_on_card(cuda):
+    """The 16³ lexington-mini of tests/test_torch_multifreq_f32.py with the
+    f32 backend on the card: every solve launches K4f (and no K4), and the
+    run tracks the f64 backend's from the same seed within that test's
+    bands."""
+    geometry = GridGeometry((-5 * PC,) * 3, (10 * PC,) * 3, (16, 16, 16))
+    common = dict(
+        geometry=geometry, number_density=1e8, initial_temperature=8000.0,
+        source_position=(0.0, 0.0, 0.0), luminosity=4.26e49, spectrum_type="planck",
+        spectrum_temperature=40000.0, spectrum_frequency=3.3e15, n_photons=30000,
+        n_iterations=6, abundances=dict(ABUND), do_temperature=True, diffuse_field=False,
+        n_bins=32,
+    )
+    runs = {}
+    for backend in ("f64-host", "f32-device"):
+        sim = MultiFreqIonizationSimulation(
+            MultiFreqConfig(**common, temperature_backend=backend), device=cuda, seed=21)
+        kernels.LAUNCHES.clear()
+        xion, T = sim.run()
+        runs[backend] = ({k: v.cpu().numpy() for k, v in xion.items()}, T.cpu().numpy(),
+                         dict(kernels.LAUNCHES))
+    (xh, Th, lh), (xd, Td, ld) = runs["f64-host"], runs["f32-device"]
+    assert lh["temperature"] == 3 and lh.get("temperature_f32", 0) == 0
+    assert ld["temperature_f32"] == 3 and ld.get("temperature", 0) == 0
+    ion = xh["H_n"].ravel() < 0.5
+    rel = np.abs(Td.ravel()[ion] - Th.ravel()[ion]) / Th.ravel()[ion]
+    assert np.median(rel) < 5e-3 and np.quantile(rel, 0.95) < 3e-2
+    assert abs((xd["H_n"] < 0.5).sum() - ion.sum()) <= max(0.02 * ion.sum(), 5)
 
 
 # --------------------------------------------- the multi-frequency driver

@@ -64,8 +64,6 @@ def test_from_params_matches_jax(name):
 
 
 DEFERRED = {
-    "atmosphere": ("PhotonSourceSpectrum", "type", "WMBasic"),
-    "f32_backend": ("TemperatureCalculator", "backend", "f32-device"),
     "trackers": ("TrackerManager", "filename", "trackers.yml"),
     "parallel": ("Parallel", "number of devices", 4),
     "restart": ("RestartManager", "output folder", "restart"),
@@ -78,6 +76,85 @@ def test_from_params_raises_for_what_is_deferred(block, key, value):
     params._tree.setdefault(block, {})[key] = value
     with pytest.raises(NotImplementedError):
         MultiFreqConfig.from_params(params)
+
+
+@pytest.mark.parametrize("backend", ["f32-device", "f64-host", "gpu-magic"])
+def test_from_params_reads_the_temperature_backend(backend):
+    """The backend string is read as the JAX package reads it; only
+    "f32-device" selects the f32 solve (see test_unknown_backend_runs_f64)."""
+    params = ParameterFile(os.path.join(BENCH_DIR, "lexingtonHII20.param"))
+    params._tree.setdefault("TemperatureCalculator", {})["backend"] = backend
+    jparams = JaxParameterFile(os.path.join(BENCH_DIR, "lexingtonHII20.param"))
+    jparams._tree.setdefault("TemperatureCalculator", {})["backend"] = backend
+    got = MultiFreqConfig.from_params(params)
+    assert got.temperature_backend == backend
+    assert jmf.MultiFreqConfig.from_params(jparams).temperature_backend == backend
+
+
+def test_from_params_reads_a_tabulated_atmosphere(tmp_path):
+    """``PhotonSourceSpectrum: type: WMBasic`` on a synthetic table (the
+    format of tests/test_atmosphere_spectra.py): the same table as JAX's."""
+    from test_torch_atmosphere import write_wmbasic_fixture
+
+    write_wmbasic_fixture(tmp_path / "sed_40000_400_0020.dat")
+    trees = []
+    for reader in (ParameterFile, JaxParameterFile):
+        params = reader(os.path.join(BENCH_DIR, "lexingtonHII20.param"))
+        params._tree["PhotonSourceSpectrum"] = {
+            "type": "WMBasic", "data location": str(tmp_path), "temperature": "40000. K",
+            "surface gravity": "100. m s^-2"}
+        trees.append(params)
+    got = MultiFreqConfig.from_params(trees[0])
+    ref = jmf.MultiFreqConfig.from_params(trees[1])
+    assert got.spectrum_type == "wmbasic"
+    np.testing.assert_array_equal(got.spectrum_table[0], ref.spectrum_table[0])
+    np.testing.assert_allclose(got.spectrum_table[1], ref.spectrum_table[1], rtol=1e-12, atol=0)
+
+
+def _cell_state_inputs(n=512, seed=31):
+    rng = np.random.default_rng(seed)
+    jH = 10.0 ** rng.uniform(-13, -7, n)
+    j = {name: torch.tensor(jH * (1.0 if name == "H_n" else 0.3)) for name in ions.ION_NAMES}
+    h = (torch.tensor(jH * 4e-19), torch.tensor(jH * 2e-19))
+    nd = torch.tensor(np.where(np.arange(n) < 16, 0.0, 1e8))
+    return j, h, nd, torch.full((n,), 8000.0, dtype=torch.float64)
+
+
+def test_unknown_backend_runs_f64():
+    """As in the JAX package, any backend string but "f32-device" runs the
+    f64 solve: identical results to "f64-host"; "f32-device" runs the f32
+    solve and hands back f64 fields that track it."""
+    from cmacionize_torch.models.multifreq_simulation import solve_cell_state
+
+    j, h, nd, T = _cell_state_inputs()
+    abund = dict(ions.DEFAULT_ABUNDANCES)
+    ref_T, ref_x, ref_sweeps = solve_cell_state(j, h, nd, T, abund, True)
+    T2, x2, sweeps2 = solve_cell_state(j, h, nd, T, abund, True, backend="gpu-magic")
+    assert torch.equal(T2, ref_T) and torch.equal(sweeps2, ref_sweeps)
+    for name in ions.ION_NAMES:
+        assert torch.equal(x2[name], ref_x[name]), name
+    T3, x3, _ = solve_cell_state(j, h, nd, T, abund, True, backend="f32-device")
+    assert T3.dtype == torch.float64 and x3["O_n"].dtype == torch.float64
+    assert not torch.equal(T3, ref_T)
+    rel = ((T3 - ref_T).abs() / ref_T)[16:]
+    assert float(rel.median()) < 3e-3
+    assert bool((T3[:16] == 500.0).all()) and bool((x3["H_n"][:16] == 1.0).all())
+
+
+def test_fixed_alpha_ignores_the_backend():
+    """With FixedValue recombination rates the f32 backend is not taken
+    (cmacionize_tpu/models/multifreq_simulation.py:107): the f64 solve."""
+    from cmacionize_torch.models.multifreq_simulation import solve_cell_state
+
+    j, h, nd, T = _cell_state_inputs()
+    abund = dict(ions.DEFAULT_ABUNDANCES)
+    fixed = (("H_n", 2.7e-19), ("He_n", 4.3e-19))
+    ref = solve_cell_state(j, h, nd, T, abund, True, fixed_alpha=fixed)
+    got = solve_cell_state(j, h, nd, T, abund, True, fixed_alpha=fixed, backend="f32-device")
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2])
+    assert got[0].dtype == torch.float64
+    for name in ions.ION_NAMES:
+        assert torch.equal(got[1][name], ref[1][name]), name
 
 
 # ------------------------------------------------------- Lexington HII20

@@ -70,6 +70,7 @@ SCALAR_DOCS = {
     "empty_list": "a: []",
     "keys_with_spaces": "Box:\n  number of cells: [64, 64, 64]\n",
     "special_floats": "a: [.inf, -.inf]",
+    "block_sequence": "positions:\n  - ['0. pc', '1. pc']\n  - [2, 3]\nb:\n- x\n- 4.\n",
 }
 
 
@@ -81,9 +82,9 @@ def test_scalar_resolution_matches_pyyaml(text):
 @pytest.mark.parametrize(
     "text",
     ["- a\n- b", "a: &x 1", "a: |\n  text", "a: {b: 1}", "a: 010", "a: [[1], 2]",
-     "a:\n  b: 1\n c: 2", "a: 1\na: 2", "\ta: 1"],
+     "a:\n  b: 1\n c: 2", "a: 1\na: 2", "\ta: 1", "a:\n  - b: 1"],
     ids=["block_seq", "anchor", "literal", "flow_map", "octal", "nested_list",
-         "bad_indent", "duplicate", "tab"],
+         "bad_indent", "duplicate", "tab", "sequence_of_mappings"],
 )
 def test_unsupported_yaml_raises(text):
     with pytest.raises(ValueError):
@@ -169,11 +170,20 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.ops.peel_off
         import cmacionize_torch.kernels.peel_off
         import cmacionize_torch.kernels.peel_off_polarized
+        import cmacionize_torch.models.atmosphere_spectra
+        import cmacionize_torch.models.trackers
+        import cmacionize_torch.utils.diagnostics
         # the atomic tables are read by path, not through cmacionize_tpu.data
         import torch
         cmacionize_torch.data.load("verner_photo.npz")
         one = torch.ones(1, dtype=torch.float64)
         cmacionize_torch.ops.line_cooling.five_level_populations(8000.0 * one, 1e8 * one)
+        cmacionize_torch.ops.line_cooling.five_level_populations(
+            8000.0 * one.float(), 1e8 * one.float())
+        cmacionize_torch.ops.temperature.solve_temperature_device(
+            8000.0 * one, {name: 1e-8 * one for name in cmacionize_torch.models.ions.ION_NAMES},
+            (1e-26 * one, 1e-26 * one), 1e8 * one, {"He": 0.1, "C": 2.2e-4, "N": 4e-5,
+                                                    "O": 3.3e-4, "Ne": 5e-5, "S": 9e-6})
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "cmacionize_tpu"))
         assert not bad, bad
