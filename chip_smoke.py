@@ -8,7 +8,8 @@ Phases (any failed check raises, so the script exits non-zero):
 
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles K1 (``cmacionize_torch/csrc/trace_packets.cu``) with nvcc,
-   while the builds of K2-K7, K5, K5s, K8 and K8p run beside it (one nvcc per source,
+   while the builds of K2-K7, K5, K5s, K8, K8p and K9 (K9c and K9p, one
+   library) run beside it (one nvcc per source,
    all started together), and two spawned worker processes build the Voronoi
    grids of phases 14 and 19 and the AMR grids of phase 21 on the host;
 3. kernel parity: K1 against its plain PyTorch version on the card, on the
@@ -33,10 +34,11 @@ Phases (any failed check raises, so the script exits non-zero):
    state and the front radius R(t) at the ten outputs against the Spitzer /
    Hosokawa-Inutsuka band and the JAX package's trajectory; then K1 alone in
    this (opaque) regime;
-8. build: K2, K4 (with K4f), K6, K6s, K7, K5 (with K5d), K5s, K8 and K8p
+8. build: K2, K4 (with K4f), K6, K6s, K7, K5 (with K5d), K5s, K8, K8p and K9
    (``cmacionize_torch/csrc/{trace_packets_spectral,temperature,trace_voronoi,
    trace_voronoi_spectral,voronoi_flux,trace_octree,trace_octree_spectral,
-   peel_off,peel_off_polarized}.cu``), their seconds and ``ptxas -v`` reports;
+   peel_off,peel_off_polarized,compact}.cu``), their seconds and ``ptxas -v``
+   reports;
 9. K2 parity: the spectral march against its plain PyTorch version on the
    card, on a 64³ lexington-like state made with numpy from a fixed seed
    (χ_H, χ_He, 1e6 packets from the centre in Planck-sampled bins): flags,
@@ -135,7 +137,26 @@ Phases (any failed check raises, so the script exits non-zero):
     JAX seeds and |V| ≤ 1e-8 max I; a profiled run and a kept one;
 28. K8 parity on phase 26's emission and last-order peel-off inputs, K8p
     parity on phase 27's first and last orders: identical τ and pixels, the
-    images' relative L1; all timed.
+    images' relative L1; all timed;
+29. main path: ``benchmarks/stromgren.param`` at full size through
+    ShardedHOnlyIonizationSimulation(config, tiling=(2, 2, 2)): eight tiles,
+    every shard on the one card, so that all three exchange axes are used;
+    timed, with the K1, K9c and K9p launch counts, the supersteps, zero
+    overflow and truncation, the radius ratio and the ionized volume against
+    phase 4's;
+30. main path: ``benchmarks/starbench.param`` at full width, run to 0.3 of
+    its total time (615 of 2048 steps: the depth cut, see
+    SHARDED_STARBENCH_FRACTION), through
+    ShardedRHDSimulation.from_params(..., tiling=(4, 1, 1)).run():
+    timed, with the K1, K3, K9c and K9p launch counts, the supersteps per
+    step (one host read of the live count each), zero overflow and
+    truncation, the mass drift, R(t) at the three outputs reached against
+    phase 7's and the band; then one step under torch.profiler;
+31. K9p and K9c parity: on the sends (exits and pending lanes) and the
+    merges of every slab in the first superstep of one more phase-30 step,
+    and on every shard of phase 29's first exchange: identical lanes, bits
+    and counts; K9c and K9p timed at the starbench shapes, K9c beside a
+    stable argsort and a gather.
 
 Each kernel's record carries ``bound_ms``, the least time an H100 could take
 for the same work (bytes over the HBM rate or operations over the peak
@@ -182,6 +203,7 @@ from cmacionize_torch.models.grid import GridGeometry
 from cmacionize_torch.models.ionization_simulation import (
     HOnlyConfig,
     HOnlyIonizationSimulation,
+    ShardedHOnlyIonizationSimulation,
 )
 from cmacionize_torch.models.multifreq_simulation import (
     MultiFreqConfig,
@@ -189,6 +211,7 @@ from cmacionize_torch.models.multifreq_simulation import (
 )
 from cmacionize_torch.models.rhd_simulation import (
     RHDSimulation,
+    ShardedRHDSimulation,
     hosokawa_inutsuka_radius,
     spitzer_radius,
 )
@@ -200,6 +223,8 @@ from cmacionize_torch.ops import (
     temperature,
     traversal,
 )
+from cmacionize_torch.parallel import domain as parallel_domain
+from cmacionize_torch.parallel import domain3d
 from cmacionize_torch.utils.params import ParameterFile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -215,6 +240,7 @@ KERNEL_SOURCES = {
     "K6": "trace_voronoi", "K6s": "trace_voronoi_spectral", "K7": "voronoi_flux",
     "K5": "trace_octree", "K5s": "trace_octree_spectral",  # K5d is built with K5
     "K8": "peel_off", "K8p": "peel_off_polarized",
+    "K9": "compact",  # K9c and K9p
 }
 PC = 3.086e16
 MYR = 3.15576e13
@@ -362,6 +388,20 @@ MAX_POSITION_DIFF = 5e-4  # cells
 MAX_TALLY_REL_L1 = 1e-4
 # Strömgren 50%-crossing radius / analytic radius
 RADIUS_RATIO_RANGE = (0.98, 1.02)
+# the sharded drivers: stromgren.param on 2 x 2 x 2 tiles (all three exchange
+# axes), starbench.param on 4 x-slabs, every shard on the one card; their
+# ionized volume and R(t) against the single-device runs of phases 4 and 7
+SHARDED_STROMGREN_TILING = (2, 2, 2)
+SHARDED_STARBENCH_TILING = (4, 1, 1)
+MAX_SHARDED_DEVIATION = 0.05
+# The sharded starbench run stops at this fraction of the file's 0.141 Myr
+# (615 of 2048 steps, three of the ten outputs): on one card the four slabs'
+# exchanges are host bound (3-4 supersteps per MC iteration once the front
+# has left the source's window of three slabs, ~600 kernel launches and one
+# host read each).  On an H100 (this script) the full run took 809 s, and
+# the run to 0.4 of the time 239 s, which put the whole script at 621 s,
+# past half its time limit.
+SHARDED_STARBENCH_FRACTION = 0.3
 # K3 against its plain version: max |Δ| per conserved field relative to the
 # field's largest magnitude.  Both run the same f32 operations in the same
 # order (K3 is built with --fmad=false); the exact solver's powf may differ
@@ -502,8 +542,8 @@ def copy_solve(T_prev, j, h, nd, abundances, **kwargs):
 def roofline(label: str, n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
     """The JSON fields bound_ms / bound_by / library_ms of a kernel's work:
     the larger of bytes over the HBM rate and operations over the peak rate.
-    No single PyTorch call computes any of these kernels' functions, so
-    library_ms is null."""
+    library_ms is null: no single PyTorch call computes K1-K8p's functions
+    (K9c's record sets its own, a stable argsort and a gather)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -631,7 +671,7 @@ def main_path(config: HOnlyConfig) -> dict:
         RADIUS_RATIO_RANGE[0] <= ratio <= RADIUS_RATIO_RANGE[1],
         f"radius ratio {ratio} outside {RADIUS_RATIO_RANGE}",
     )
-    return launches
+    return launches, int((xH_host < 0.5).sum())
 
 
 def timed_build(name: str):
@@ -837,7 +877,7 @@ def starbench_main_path(device) -> dict:
         f"timing K1 in the starbench regime (final state, {shape}, {cfg.n_photons} packets): "
         f"K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms per march (CUDA events)"
     )
-    return launches
+    return launches, outputs
 
 
 # ------------------------------------------------------------- K2 and K4
@@ -2241,6 +2281,300 @@ def peel_off_polarized_parity(sim, captured) -> dict:
     return {"max_abs_err": worst, **record}
 
 
+# ------------------------------------------------ K9c, K9p: the sharded drivers
+
+
+def copy_args(*args, **kwargs):
+    """Positional tensors (and tuples of them) cloned, the rest as they are."""
+    def clone(a):
+        if torch.is_tensor(a):
+            return a.clone()
+        if isinstance(a, (tuple, list)) and a and torch.is_tensor(a[0]):
+            return type(a)(t.clone() for t in a)
+        return a
+    return tuple(clone(a) for a in args), dict(kwargs)
+
+
+def copy_exchange(mesh, fields, mask, target, axis, capacity):
+    return (mesh, [tuple(f.clone() for f in fs) for fs in fields],
+            [m.clone() for m in mask], [t.clone() for t in target], axis, capacity)
+
+
+def sharded_stromgren(config: HOnlyConfig, single_volume: int):
+    """Phase 29: stromgren.param through ShardedHOnlyIonizationSimulation on
+    (2, 2, 2) tiles, all eight shards on the card."""
+    sim = ShardedHOnlyIonizationSimulation(config, tiling=SHARDED_STROMGREN_TILING, seed=42)
+    with capturing(domain3d, "_exchange_axis", {0: "first"}, copy_exchange) as kept:
+        kernels.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xH = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: kernels.LAUNCHES[k] for k in ("trace_packets", "compact", "partition")}
+    xH_host = xH.cpu().numpy()
+    ratio = stromgren_radius_ratio(sim, xH_host)
+    volume = int((xH_host < 0.5).sum())
+    totals = sim.total_diagnostics
+    log(f"sharded stromgren: {config.geometry.shape} on {SHARDED_STROMGREN_TILING} tiles "
+        f"({sim.n_devices} shards on {torch.cuda.device_count()} card), {config.n_photons} "
+        f"packets x {config.n_iterations} iterations in {wall:.4f} s wall, cold; launches "
+        f"{launches}; supersteps {totals['supersteps']} "
+        f"({totals['supersteps'] / config.n_iterations:.2f} per iteration); escaped "
+        f"{totals['n_escaped']}, overflow {totals['buffer_overflow']}, truncated "
+        f"{totals['truncated_live']}; last iteration's packets traced per shard "
+        f"{sim.last_diagnostics['packets_traced'].reshape(-1).tolist()}")
+    log(f"sharded stromgren: 50%-radius / analytic {ratio:.5f}; ionized cells {volume} "
+        f"against the single-device run's {single_volume} "
+        f"({volume / single_volume - 1:+.5f})")
+    check(RADIUS_RATIO_RANGE[0] <= ratio <= RADIUS_RATIO_RANGE[1],
+          f"sharded radius ratio {ratio} outside {RADIUS_RATIO_RANGE}")
+    check(abs(volume / single_volume - 1.0) <= MAX_SHARDED_DEVIATION,
+          f"sharded ionized volume {volume} vs {single_volume}")
+    check(totals["buffer_overflow"] == 0 and totals["truncated_live"] == 0,
+          f"sharded stromgren: overflow / truncation {totals}")
+    check(bool(np.isfinite(xH_host).all()) and xH_host.shape == tuple(config.geometry.shape),
+          "sharded xH finite, of the grid's shape")
+    check(launches["compact"] > 0 and launches["partition"] > 0,
+          f"K9c / K9p launched on the sharded stromgren path: {launches}")
+    check("first" in kept, "an exchange of the sharded stromgren run was kept")
+    return launches, kept["first"]
+
+
+def sharded_starbench(device, single_outputs):
+    """Phase 30: starbench.param through ShardedRHDSimulation.from_params on
+    (4, 1, 1) slabs, all four shards on the card; the snapshot callback ends
+    the run at the output SHARDED_STARBENCH_FRACTION of the way."""
+    prev = os.getcwd()
+    os.chdir(BENCHMARKS)
+    try:
+        params = ParameterFile(STARBENCH_PARAM)
+        # warm-up: a throwaway driver takes two steps
+        ShardedRHDSimulation.from_params(params, tiling=SHARDED_STARBENCH_TILING,
+                                         seed=7).advance(2)
+        sim = ShardedRHDSimulation.from_params(params, tiling=SHARDED_STARBENCH_TILING, seed=42)
+    finally:
+        os.chdir(prev)
+    cfg = sim.config
+    n_outputs = round(10 * SHARDED_STARBENCH_FRACTION)
+    n_cells = sim.geometry.n_cells
+    mass0 = float(sim.state.rho.double().sum())
+    outputs = []
+
+    class Cut(Exception):
+        """Raised by the snapshot callback to end the run at the cut."""
+
+    def snapshot(s, index):
+        outputs.append((index, s.time, s.ionization_front_radius(), time.perf_counter() - t0))
+        if index == n_outputs:
+            raise Cut
+
+    kernels.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        sim.run(snapshot_callback=snapshot)
+    except Cut:
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    state, xH = sim.state, sim.neutral_fraction
+    n_steps = len(sim.supersteps)
+    launches = {k: kernels.LAUNCHES[k]
+                for k in ("trace_packets", "hydro_step", "compact", "partition")}
+    supersteps = np.asarray(sim.supersteps)
+    totals = sim.total_diagnostics
+    shards = sim.n_devices
+    log(f"sharded starbench: {cfg.geometry.shape} on {SHARDED_STARBENCH_TILING} slabs "
+        f"({shards} shards on {torch.cuda.device_count()} card), {cfg.nloop} x {cfg.n_photons} "
+        f"packets per step, {n_steps} steps to {sim.time / MYR:.4f} Myr (cut at output "
+        f"{n_outputs} of the file's {cfg.total_time / MYR:.4f} Myr) in {wall:.4f} s "
+        f"wall, warm ({wall / n_steps * 1e3:.4f} ms per step, {n_steps * n_cells / wall:.6g} "
+        f"cell-updates/s); launches {launches}")
+    log(f"sharded starbench: supersteps per step mean {supersteps.mean():.4f}, max "
+        f"{supersteps.max()}, total {supersteps.sum()} (each one host read of the live "
+        f"count); steps with supersteps {int((supersteps > 0).sum())}, from step "
+        f"{int(np.argmax(supersteps > 0)) + 1}; escaped {totals['n_escaped']}, overflow "
+        f"{totals['buffer_overflow']}, truncated {totals['truncated_live']}")
+    check(launches["hydro_step"] == shards * n_steps, f"K3 launches {launches}")
+    check(launches["trace_packets"] == shards * (cfg.nloop * n_steps + supersteps.sum()),
+          f"K1 launches {launches}: {shards} x ({cfg.nloop} x {n_steps} + {supersteps.sum()})")
+    check(launches["partition"] == shards * supersteps.sum(), f"K9p launches {launches}")
+    check(launches["compact"] == shards * (cfg.nloop * n_steps + supersteps.sum()),
+          f"K9c launches {launches}")
+    check(launches["partition"] > 0, "K9p launched on the sharded starbench path")
+    check(totals["buffer_overflow"] == 0 and totals["truncated_live"] == 0,
+          f"sharded starbench: overflow / truncation {totals}")
+    for name, f in zip(state._fields, state):
+        check(bool(torch.isfinite(f).all()), f"sharded {name} is finite")
+    drift = float(state.rho.double().sum()) / mass0 - 1.0
+    log(f"sharded starbench: mass drift {drift:.3e}")
+    check(abs(drift) <= MAX_MASS_DRIFT, f"sharded mass drift {drift}")
+    n_h = mass0 / n_cells / constants.PROTON_MASS
+    r_st = (3 * cfg.luminosity / (4 * np.pi * n_h**2 * cfg.recombination_rate)) ** (1 / 3)
+    log("  t (Myr)   R (pc)  R single  R/R_single  R/Rsp  wall (s)")
+    for (index, t, r, at), (_, _, r1) in zip(outputs, single_outputs):
+        log(f"  {t / MYR:7.4f}  {r / PC:7.3f}  {r1 / PC:8.3f}  {r / r1:10.4f}  "
+            f"{r / spitzer_radius(t, r_st):5.3f}  {at:8.3f}")
+    check([o[0] for o in outputs] == list(range(1, n_outputs + 1)), f"outputs {outputs}")
+    for (_, t, r, _), (_, t1, r1) in zip(outputs, single_outputs):
+        check(abs(t / t1 - 1.0) < 1e-9, f"output times {t} vs {t1}")
+        check(abs(r / r1 - 1.0) <= MAX_SHARDED_DEVIATION,
+              f"sharded R({t / MYR:.4f} Myr) = {r / PC:.4f} pc vs single {r1 / PC:.4f} pc")
+    t_end, r_end = outputs[-1][1], outputs[-1][2]
+    lo, hi = 0.85 * spitzer_radius(t_end, r_st), 1.1 * hosokawa_inutsuka_radius(t_end, r_st)
+    check(lo < r_end < hi, f"sharded R({t_end / MYR:.4f} Myr) = {r_end / PC:.3f} pc outside "
+                           f"({lo / PC:.3f}, {hi / PC:.3f}) pc")
+
+    kernels.LAUNCHES.clear()
+    profile_window(f"one sharded starbench step at t = {sim.time / MYR:.4f} Myr",
+                   lambda: sim.advance(1, log_every=10**9),
+                   {"K1": ("trace_packets_kernel",), "K3": ("muscl_",),
+                    "K9c": ("compact_count_kernel<1", "compact_scan_kernel<1",
+                            "compact_scatter_kernel<1"),
+                    "K9p": ("compact_count_kernel<2", "compact_scan_kernel<2",
+                            "compact_scatter_kernel<2")})
+    log(f"  the profiled step: {sim.supersteps[-1]} supersteps, launches {dict(kernels.LAUNCHES)}")
+    # one more step, whose first superstep's sends and merges (the four
+    # slabs' K9p and K9c inputs; the copy phase's four K9c calls come first)
+    # are kept for phase 31
+    keep = {i: i for i in range(shards)}
+    with capturing(parallel_domain, "partition", keep, copy_args) as sends, \
+            capturing(parallel_domain, "compact", {shards + i: i for i in range(shards)},
+                      copy_args) as merges:
+        sim.advance(1, log_every=10**9)
+    check(len(sends) == shards and len(merges) == shards,
+          f"kept {len(sends)} sends and {len(merges)} merges of the first superstep")
+    capacity = parallel_domain.default_capacity(cfg.n_photons)
+    check(all(args[1].numel() == 2 * cfg.n_photons for args, _ in sends.values())
+          and all(args[1].numel() == 2 * capacity for args, _ in merges.values()),
+          "the kept calls are the first superstep's sends (2W lanes) and merges")
+    return launches, sends, merges
+
+
+def exchange_bytes(n_fields: int, members, capacities) -> int:
+    """Each input byte that reaches an output read once: every lane's code
+    (one byte), and the fields of the lanes that land in some bucket (a
+    bucket's first ``capacity`` members, then its first capacity - members
+    non-members, as compact.cu reads them). Each output byte written once
+    (the fields, in_range, the two counts). ``members`` holds one bool
+    tensor per bucket."""
+    n = members[0].numel()
+    landed = torch.zeros(n, dtype=torch.bool, device=members[0].device)
+    lane = torch.arange(n, device=members[0].device)
+    for m, capacity in zip(members, capacities):
+        before = torch.cumsum(m, 0) - m.long()
+        landed |= torch.where(m, before < capacity, int(m.sum()) + lane - before < capacity)
+    return (n_fields * 4 * int(landed.sum()) + n
+            + sum(n_fields * 4 * c + c + 16 for c in capacities))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def compare_compactions(label, kernel_out, plain_out) -> None:
+    """Every lane, every bit, every count of a K9c or K9p result (a list of
+    (fields, in_range, overflow)) against its plain version's."""
+    for b, ((f, r, o), (fr, rr, orr)) in enumerate(zip(kernel_out, plain_out)):
+        lanes = [same_bits(x, y) for x, y in zip(f, fr)]
+        check(all(lanes), f"{label} bucket {b}: fields {lanes}")
+        check(torch.equal(r, rr), f"{label} bucket {b}: in_range")
+        check(int(o) == int(orr), f"{label} bucket {b}: overflow {int(o)} vs {int(orr)}")
+
+
+def argsort_gather(fields, mask, capacity):
+    """The same compaction as one composition of PyTorch calls (a stable
+    argsort and a gather), timed beside K9c as its library yardstick."""
+    idx = torch.argsort((~mask).to(torch.uint8), stable=True)[:min(capacity, mask.numel())]
+    return [f[idx] for f in fields]
+
+
+def exchange_parity(starbench_sends, starbench_merges, stromgren_exchange) -> tuple:
+    """Phase 31: K9p and K9c against their plain versions on the sharded
+    runs' own inputs, every lane and bit and count, and timed at the
+    starbench shapes (the slab that sent, and the one that received, the
+    most packets)."""
+    members = {}
+    for slab, ((fields, bucket, capacities, shifts), _) in sorted(starbench_sends.items()):
+        out = parallel_domain.partition(fields, bucket, capacities, shifts)
+        ref = parallel_domain.partition_reference(fields, bucket, capacities, shifts)
+        compare_compactions(f"K9p (sharded starbench, slab {slab})", out, ref)
+        members[slab] = [int((bucket == b).sum()) for b in (0, 1)]
+    log(f"K9p parity on the last sharded starbench step's first superstep, every slab: "
+        f"{bucket.numel()} lanes (exits and pending), buckets of {capacities}, members "
+        f"(left, right) per slab {members}: identical in every lane, bit and count")
+    slab = max(members, key=lambda k: sum(members[k]))
+    (fields, bucket, capacities, shifts), _ = starbench_sends[slab]
+    ms = time_cuda(lambda: parallel_domain.partition(fields, bucket, capacities, shifts), 50)
+    plain_ms = time_cuda(
+        lambda: parallel_domain.partition_reference(fields, bucket, capacities, shifts), 10)
+    p_bytes = exchange_bytes(len(fields), [bucket == 0, bucket == 1], capacities)
+    log(f"timing K9p on slab {slab}'s {bucket.numel()} lanes ({members[slab]} sent), buckets "
+        f"of {capacities}: K9p {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events)")
+    p_record = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                **roofline("K9p", p_bytes, 0.0, F32_OPS_PER_S)}
+
+    received = {}
+    for slab, ((mfields, mmask, mcap), _) in sorted(starbench_merges.items()):
+        out = [parallel_domain.compact(mfields, mmask, mcap)]
+        ref = [parallel_domain.compact_reference(mfields, mmask, mcap)]
+        compare_compactions(f"K9c (sharded starbench, slab {slab}, the merge)", out, ref)
+        received[slab] = int(mmask.sum())
+    log(f"K9c parity on that superstep's merges, every slab: {mmask.numel()} lanes, capacity "
+        f"{mcap}, received per slab {received}: identical in every lane, bit and count")
+    slab = max(received, key=received.get)
+    (mfields, mmask, mcap), _ = starbench_merges[slab]
+    ms = time_cuda(lambda: parallel_domain.compact(mfields, mmask, mcap), 50)
+    plain_ms = time_cuda(lambda: parallel_domain.compact_reference(mfields, mmask, mcap), 10)
+    library_ms = time_cuda(lambda: argsort_gather(mfields, mmask, mcap), 10)
+    log(f"timing K9c on slab {slab}'s merge ({mmask.numel()} lanes, {received[slab]} "
+        f"received, capacity {mcap}): K9c {ms:.4f} ms, plain {plain_ms:.4f} ms, stable "
+        f"argsort + gather {library_ms:.4f} ms (CUDA events)")
+    c_record = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                **roofline("K9c", exchange_bytes(len(mfields), [mmask], (mcap,)),
+                           0.0, F32_OPS_PER_S), "library_ms": library_ms}
+
+    # one x exchange of the sharded stromgren run, every shard
+    mesh, sfields, smask, starget, axis, capacity = stromgren_exchange
+    my = mesh.axis_index(axis)
+    lanes = 0
+    for i in range(mesh.size):
+        go_minus = smask[i] & (starget[i] < my[i])
+        go_plus = smask[i] & (starget[i] > my[i])
+        codes = parallel_domain.bucket_codes(go_minus, go_plus)
+        compare_compactions(f"K9p (sharded stromgren, shard {i})",
+                            parallel_domain.partition(sfields[i], codes, (capacity,) * 2),
+                            parallel_domain.partition_reference(sfields[i], codes,
+                                                                (capacity,) * 2))
+        lanes += int(go_minus.sum() + go_plus.sum())
+    kernel_result = domain3d._exchange_axis(mesh, sfields, smask, starget, axis, capacity)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(swapped(domain3d, "partition", parallel_domain.partition_reference))
+        stack.enter_context(swapped(domain3d, "compact", parallel_domain.compact_reference))
+        plain_result = domain3d._exchange_axis(mesh, sfields, smask, starget, axis, capacity)
+    for i in range(mesh.size):
+        compare_compactions(f"K9c (sharded stromgren exchange, shard {i})",
+                            [(kernel_result[0][i], kernel_result[1][i], kernel_result[2][i])],
+                            [(plain_result[0][i], plain_result[1][i], plain_result[2][i])])
+    log(f"K9p and K9c parity on the sharded stromgren run's first {axis} exchange: "
+        f"{mesh.size} shards of {smask[0].numel()} lanes, {lanes} packets sent, capacity "
+        f"{capacity}: identical in every lane, bit and count")
+    return c_record, p_record
+
+
+@contextlib.contextmanager
+def swapped(owner, name: str, replacement):
+    original = getattr(owner, name)
+    setattr(owner, name, replacement)
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
 def main() -> None:
     device = require_cuda()
     smi = subprocess.run(
@@ -2275,7 +2609,7 @@ def main() -> None:
             small = kernel_parity(config, device, 2**17)
             # the shapes the main path gives K1: 64^3 cells, 1e6 packets
             parity = kernel_parity(config, device, config.n_photons)
-            launches = main_path(config)
+            launches, stromgren_volume = main_path(config)
 
             report_build("K3", builds["K3"])
             star = starbench_simulation(device)
@@ -2284,9 +2618,9 @@ def main() -> None:
                 star.timeline().current_timestep,  # the main path's dt
             )
             del star
-            star_launches = starbench_main_path(device)
+            star_launches, star_outputs = starbench_main_path(device)
 
-            for label in ("K2", "K4", "K6", "K6s", "K7", "K5", "K5s", "K8", "K8p"):
+            for label in ("K2", "K4", "K6", "K6s", "K7", "K5", "K5s", "K8", "K8p", "K9"):
                 report_build(label, builds[label])
         spectral_record = spectral_parity(device)
         multifreq_launches = [lexington_archived(device)]
@@ -2341,6 +2675,12 @@ def main() -> None:
     peel_pol_record = peel_off_polarized_parity(dust_sim, pol_captured)
     del dust_sim, dust_captured, pol_captured
 
+    sharded_launches, stromgren_exchange = sharded_stromgren(config, stromgren_volume)
+    sbs_launches, starbench_sends, starbench_merges = sharded_starbench(device, star_outputs)
+    compact_record, partition_record = exchange_parity(
+        starbench_sends, starbench_merges, stromgren_exchange)
+    del stromgren_exchange, starbench_sends, starbench_merges
+
     def kernel(name, source, replaces, n_launches, record):
         return {"name": name, "route": "cuda", "source": f"cmacionize_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launches, **record}
@@ -2348,14 +2688,15 @@ def main() -> None:
     kernel_records = [
         kernel("trace_packets", "trace_packets.cu", "cmacionize_tpu/ops/traversal.py:115",
                launches + star_launches["trace_packets"] + dust_launches["trace_packets"]
-               + pol_launches["trace_packets"],
+               + pol_launches["trace_packets"] + sharded_launches["trace_packets"]
+               + sbs_launches["trace_packets"],
                {**parity, "max_abs_err": max(small["max_abs_err"], parity["max_abs_err"])}),
         kernel("trace_packets_spectral", "trace_packets_spectral.cu",
                "cmacionize_tpu/ops/traversal.py:503",
                sum(run.get("trace_packets_spectral", 0) for run in multifreq_launches),
                spectral_record),
         kernel("hydro_step", "hydro_step.cu", "cmacionize_tpu/ops/hydro.py:353",
-               star_launches["hydro_step"], hydro_record),
+               star_launches["hydro_step"] + sbs_launches["hydro_step"], hydro_record),
         kernel("temperature", "temperature.cu", "cmacionize_tpu/ops/temperature.py:283",
                sum(run["temperature"] for run in multifreq_launches),
                {**temperature_record, "max_abs_err": max(
@@ -2384,6 +2725,10 @@ def main() -> None:
         kernel("peel_off_polarized", "peel_off_polarized.cu",
                "cmacionize_tpu/ops/polarization.py:156", pol_launches["peel_off_polarized"],
                peel_pol_record),
+        kernel("compact", "compact.cu", "cmacionize_tpu/parallel/domain.py:37",
+               sharded_launches["compact"] + sbs_launches["compact"], compact_record),
+        kernel("partition", "compact.cu", "cmacionize_tpu/parallel/domain3d.py:62",
+               sharded_launches["partition"] + sbs_launches["partition"], partition_record),
     ]
     print(json.dumps({"kernels": kernel_records}), flush=True)
     print(

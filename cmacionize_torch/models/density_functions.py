@@ -8,7 +8,7 @@ port's own YAML-subset reader, not PyYAML; a file name is opened relative to
 the working directory, as in the JAX package.
 
 The other DensityFunction types of the JAX factory raise
-``NotImplementedError`` (ROADMAP.md, queue 1, item 5).
+``NotImplementedError`` (ROADMAP.md, queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from cmacionize_torch.models.grid import GridGeometry
 from cmacionize_torch.utils.params import parse_yaml_subset
 from cmacionize_torch.utils.units import parse_quantity
 
-NOT_PORTED = "not ported yet (ROADMAP.md, queue 1, item 5)"
+NOT_PORTED = "not ported yet (ROADMAP.md, queue 1, item 6)"
 
 
 @dataclasses.dataclass(frozen=True)

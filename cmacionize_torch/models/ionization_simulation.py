@@ -1,4 +1,5 @@
-"""Monte Carlo photoionization driver, hydrogen only (single GPU).
+"""Monte Carlo photoionization drivers, hydrogen only: one device, and the
+domain-decomposed ``ShardedHOnlyIonizationSimulation``.
 
 Port of the hydrogen-only monochromatic path of
 ``cmacionize_tpu/models/ionization_simulation.py`` (the Strömgren benchmark
@@ -9,8 +10,9 @@ balance in every cell.
 As in the JAX driver's fused loop (``h_only_run_fused``), an iteration reads
 nothing back to the host: the escaped counts stay on the device, one scalar
 tensor per iteration, and are read once after the loop, and only when a log
-will print them.  The driver runs in f32 on the device it is given; there is
-no default device.
+will print them.  The single-device driver runs in f32 on the device it is
+given; there is no default device.  The sharded one spreads its shards over
+the visible CUDA devices unless it is given devices.
 """
 
 from __future__ import annotations
@@ -24,7 +26,16 @@ import torch
 from cmacionize_torch.models import sources
 from cmacionize_torch.models.grid import GridGeometry
 from cmacionize_torch.ops import ionization, traversal
+from cmacionize_torch.parallel import domain, domain3d
+from cmacionize_torch.parallel.drivers import (
+    DIAGNOSTIC_COUNTS,
+    mesh_devices,
+    read_diagnostics,
+    shard_generators,
+)
 from cmacionize_torch.utils.logging import Log, NullLog
+
+RESTART_NOT_PORTED = "restart is not ported yet (ROADMAP.md, queue 1, item 3)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,3 +257,118 @@ class HOnlyIonizationSimulation:
             )
             ** (1.0 / 3.0)
         )
+
+
+class ShardedHOnlyIonizationSimulation:
+    """Domain-decomposed H-only driver: the grid tiled (sx, sy, sz) over a
+    :class:`~cmacionize_torch.parallel.mesh.LocalMesh`, photon packets
+    exchanged between the tiles.
+
+    Port of the JAX ``ShardedHOnlyIonizationSimulation`` over
+    ``parallel/domain3d.py:make_domain_mc_iteration_3d``.  ``tiling=None``
+    means (number of devices, 1, 1); ``device=None`` means the visible CUDA
+    devices (shard i on device i mod their number), and ``device="cpu"``
+    runs every shard on the CPU.  Each shard draws from its own generator,
+    so the run agrees with the single-device driver statistically.  The
+    fields ``neutral_fraction`` and ``jH`` are the global arrays, gathered
+    from the shards.  ``last_diagnostics`` holds the last iteration's
+    counters, ``total_diagnostics`` their sums over the driver's life.
+    Restart is not ported (ROADMAP.md, queue 1, item 3).
+    """
+
+    def __init__(self, config: HOnlyConfig, tiling=None, device=None,
+                 log: Optional[Log] = None, seed: int = 42):
+        geom = config.geometry
+        cell = geom.cell_size
+        if not np.allclose(cell, cell[0], rtol=1e-6):
+            raise NotImplementedError("cubic cells required")
+        devices = mesh_devices(device)
+        if tiling is None:
+            tiling = (len(devices), 1, 1)
+        self.tiling = tuple(int(t) for t in tiling)
+        self.mesh = domain3d.make_mesh_3d(self.tiling, devices)
+        self.n_devices = self.mesh.size
+        self.config = config
+        self.log = log or NullLog()
+        self.generators = shard_generators(seed, self.mesh.devices)
+        self.geometry = geom
+        self.dx = float(cell[0])
+        self._source_gpos = tuple(
+            float(g) for g in geom.position_to_grid_coords(config.source_position)
+        )
+        sigma_dx = config.cross_section * self.dx
+        jfac_scale = (
+            config.luminosity * config.cross_section * self.dx
+            / (config.n_photons * geom.cell_volume)
+        )
+        self._step = domain3d.make_domain_mc_iteration_3d(
+            self.mesh,
+            global_shape=geom.shape,
+            n_photons=config.n_photons,
+            sigma_dx=sigma_dx,
+            source_gpos=self._source_gpos,
+            jfac_scale=jfac_scale,
+            alpha=config.recombination_rate,
+        )
+        self._spec = domain3d.AXES
+        full = torch.full(geom.shape, config.number_density, dtype=torch.float32)
+        self._number_density = self.mesh.shard(full, self._spec)
+        full = torch.full(geom.shape, config.initial_neutral_fraction, dtype=torch.float32)
+        self._neutral_fraction = self.mesh.shard(full, self._spec)
+        self._jH = None
+        self.iteration = 0
+        self.last_diagnostics = None
+        self.total_diagnostics = dict.fromkeys(DIAGNOSTIC_COUNTS, 0)
+
+    @property
+    def neutral_fraction(self) -> torch.Tensor:
+        return self.mesh.unshard(self._neutral_fraction, self._spec)
+
+    @property
+    def number_density(self) -> torch.Tensor:
+        return self.mesh.unshard(self._number_density, self._spec)
+
+    @property
+    def jH(self) -> Optional[torch.Tensor]:
+        return None if self._jH is None else self.mesh.unshard(self._jH, self._spec)
+
+    def run(self, n_iterations: Optional[int] = None, restart_manager=None,
+            diagnostics=None):
+        """Run MC iterations until ``n_iterations`` (total, default the
+        config's) are done; returns the global neutral fraction.  Each
+        iteration's counters land in ``last_diagnostics``; a nonzero
+        overflow or truncation is logged as a warning."""
+        if restart_manager is not None:
+            raise NotImplementedError(f"ShardedHOnlyIonizationSimulation: {RESTART_NOT_PORTED}")
+        cfg = self.config
+        n_iterations = n_iterations or cfg.n_iterations
+        emit = domain.emit_from(self.generators)
+        while self.iteration < n_iterations:
+            self._neutral_fraction, self._jH, diag = self._step(
+                emit, self._neutral_fraction, self._number_density)
+            self.iteration += 1
+            self.last_diagnostics = read_diagnostics(diag, self.total_diagnostics, self.log)
+            self.last_diagnostics["packets_traced"] = (
+                self.last_diagnostics["packets_traced"].reshape(self.tiling))
+            traced = self.last_diagnostics["packets_traced"]
+            self.log.info(
+                f"iteration {self.iteration}/{n_iterations}: "
+                f"{self.last_diagnostics['n_escaped']} escaped; "
+                f"per-device traced skew max/mean = "
+                f"{traced.max() / max(traced.mean(), 1):.2f}"
+            )
+            if diagnostics is not None:
+                diagnostics.count("photons emitted", cfg.n_photons)
+                diagnostics.count("photons escaped", self.last_diagnostics["n_escaped"])
+                for d, n in enumerate(traced.reshape(-1)):
+                    diagnostics.count(f"packets traced[device {d}]", int(n))
+                diagnostics.end_iteration()
+        return self.neutral_fraction
+
+    def write_restart(self, manager) -> str:
+        raise NotImplementedError(f"ShardedHOnlyIonizationSimulation: {RESTART_NOT_PORTED}")
+
+    def load_restart(self, filename: str) -> None:
+        raise NotImplementedError(f"ShardedHOnlyIonizationSimulation: {RESTART_NOT_PORTED}")
+
+    stromgren_radius_analytic = HOnlyIonizationSimulation.stromgren_radius_analytic

@@ -15,7 +15,7 @@ for bit.  The optional physics of the JAX driver (potentials, self-gravity,
 cooling, masks, turbulence forcing, Bondi inflow, isothermal EOS,
 time-dependent sources, stellar feedback), restart, statistics, diagnostics
 and live output are not ported yet: switched on, they raise
-``NotImplementedError`` (ROADMAP.md, queue 1, item 5).
+``NotImplementedError`` (ROADMAP.md, queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -34,9 +34,20 @@ from cmacionize_torch.models.density_functions import (
     density_function_from_params,
 )
 from cmacionize_torch.models.grid import GridGeometry
-from cmacionize_torch.models.ionization_simulation import _h_only_iteration_body
+from cmacionize_torch.models.ionization_simulation import (
+    RESTART_NOT_PORTED,
+    _h_only_iteration_body,
+)
 from cmacionize_torch.ops import hydro, traversal
 from cmacionize_torch.ops.riemann import _div
+from cmacionize_torch.parallel import domain
+from cmacionize_torch.parallel.drivers import (
+    DIAGNOSTIC_COUNTS,
+    mesh_devices,
+    read_diagnostics,
+    shard_generators,
+)
+from cmacionize_torch.parallel.mesh import LocalMesh
 from cmacionize_torch.utils.logging import Log, NullLog
 from cmacionize_torch.utils.params import ParameterFile
 from cmacionize_torch.utils.timeline import TimeLine
@@ -182,6 +193,13 @@ class RHDSimulation:
         """Build the driver from a parameter file, as the JAX
         ``RHDSimulation.from_params`` parses it.  Optional physics that the
         port does not carry yet raises ``NotImplementedError``."""
+        config, initial = cls.config_from_params(params)
+        return cls(config, device, log=log, seed=seed, initial=initial)
+
+    @staticmethod
+    def config_from_params(params: ParameterFile):
+        """(RHDConfig, initial DensityFields or None) of a parameter file:
+        the parsing half of :meth:`from_params`."""
         geom = GridGeometry.from_params(params)
         total_time = params.get_physical_value(
             "RadiationHydrodynamicsSimulation:total time", "time", "0.141 Myr"
@@ -305,7 +323,7 @@ class RHDSimulation:
             radiation_time=radiation_time,
             cfl=cfl,
         )
-        return cls(config, device, log=log, seed=seed, initial=initial)
+        return config, initial
 
     # ------------------------------------------------------------------ core
 
@@ -392,13 +410,24 @@ class RHDSimulation:
         if dt is None:
             dt = self.config.timestep
         for step in range(n_steps):
-            self.state, self.neutral_fraction = self._step(
-                self.state, self.neutral_fraction, dt
-            )
+            self._advance_steps(1, dt)
             self.time += dt
             if (step + 1) % log_every == 0 or step == n_steps - 1:
                 self._log_state(f"step {step + 1}/{n_steps}")
         return self.state, self.neutral_fraction
+
+    def _advance_steps(self, n_steps: int, dt, do_radiation: bool = True) -> None:
+        """``n_steps`` steps at ``dt`` on the driver's state (no clock)."""
+        for _ in range(n_steps):
+            self.state, self.neutral_fraction = self._step(
+                self.state, self.neutral_fraction, dt, do_radiation=do_radiation
+            )
+
+    def _cfl_timestep(self) -> float:
+        """The CFL-limited timestep of the current state (one host read)."""
+        cfg = self.config
+        return float(hydro.cfl_timestep(
+            self.state, (self.dx,) * 3, cfl=cfg.cfl, gamma=cfg.gamma))
 
     def _timestep_bounds(self):
         """(minimum, maximum) timestep of :meth:`run`; the fixed-dt fallback
@@ -437,8 +466,7 @@ class RHDSimulation:
 
         step_num = 0
         while not timeline.finished:
-            requested = float(hydro.cfl_timestep(
-                self.state, (self.dx,) * 3, cfl=cfg.cfl, gamma=cfg.gamma))
+            requested = self._cfl_timestep()
             dt = timeline.set_timestep(min(requested, dt_max))
             if dt > requested * 1.01:
                 self.log.warning(
@@ -454,18 +482,13 @@ class RHDSimulation:
             )
             if radtime < 0.0:
                 n_block = min(CFL_BLOCK_STEPS, n_to_snap, n_to_end)
-                for _ in range(n_block):
-                    self.state, self.neutral_fraction = self._step(
-                        self.state, self.neutral_fraction, dt
-                    )
+                self._advance_steps(n_block, dt)
             else:
                 n_block = 1
                 rad_due = self.time >= self._lastrad * radtime
                 if rad_due and radtime > 0.0:
                     self._lastrad += 1
-                self.state, self.neutral_fraction = self._step(
-                    self.state, self.neutral_fraction, dt, do_radiation=rad_due
-                )
+                self._advance_steps(1, dt, do_radiation=rad_due)
             for _ in range(n_block):
                 timeline.advance()
             # host time follows the tick timeline exactly
@@ -500,6 +523,124 @@ class RHDSimulation:
         if corner:
             v_ion *= 8.0
         return (3.0 * v_ion / (4.0 * np.pi)) ** (1.0 / 3.0)
+
+
+class ShardedRHDSimulation(RHDSimulation):
+    """Domain-decomposed RHD driver: the grid cut into x-slabs over a
+    :class:`~cmacionize_torch.parallel.mesh.LocalMesh`, each step the slab
+    MC exchange, the two-temperature coupling and the halo-exchange hydro
+    step (``parallel/domain.py:make_domain_rhd_step``).
+
+    Port of the JAX ``ShardedRHDSimulation``.  ``tiling=None`` means (number
+    of devices, 1, 1), and only (N, 1, 1) tilings are taken; ``device=None``
+    means the visible CUDA devices, ``device="cpu"`` puts every shard on the
+    CPU.  Each shard draws from its own generator, so the run agrees with
+    the single-device driver statistically.  ``state`` and
+    ``neutral_fraction`` are the global arrays, gathered from and cut back
+    into the shards when read or set.  It carries what its parent carries;
+    restart raises ``NotImplementedError`` (ROADMAP.md, queue 1, item 3).
+    ``supersteps`` records each step's supersteps, ``last_diagnostics`` the
+    counters of the last block of steps, ``total_diagnostics`` their sums.
+    """
+
+    SPEC = ("x",)
+
+    def __init__(self, config: RHDConfig, tiling=None, device=None,
+                 log: Optional[Log] = None, seed: int = 42, *, initial=None):
+        devices = mesh_devices(device)
+        if tiling is None:
+            tiling = (len(devices), 1, 1)
+        tiling = tuple(int(t) for t in tiling)
+        if tiling[1] != 1 or tiling[2] != 1:
+            raise NotImplementedError(
+                "the sharded RHD driver shards x-slabs; use tiling [N, 1, 1]")
+        self.tiling = tiling
+        self.n_devices = tiling[0]
+        self.mesh = LocalMesh((tiling[0],), self.SPEC, devices)
+        super().__init__(config, self.mesh.devices[0], log=log, seed=seed, initial=initial)
+        self.generators = shard_generators(seed, self.mesh.devices)
+        cfg = config
+        factory = dict(
+            global_shape=self.geometry.shape,
+            boundaries=cfg.boundaries,
+            cell_size=(self.dx,) * 3,
+            gamma=cfg.gamma,
+            n_photons=cfg.n_photons,
+            sigma_dx=cfg.cross_section * self.dx,
+            source_gpos=self._source_gpos,
+            jfac_scale=(cfg.luminosity * cfg.cross_section * self.dx
+                        / (cfg.n_photons * self.geometry.cell_volume)),
+            alpha=cfg.recombination_rate,
+            coupling=dict(
+                ionised_temperature=cfg.ionised_temperature,
+                neutral_temperature=cfg.neutral_temperature,
+                shock_temperature=cfg.shock_temperature,
+                radiative_heating=cfg.radiative_heating,
+                radiative_cooling=cfg.radiative_cooling,
+            ),
+            riemann_solver=cfg.riemann_solver,
+        )
+        self._rhd_step = domain.make_domain_rhd_step(self.mesh, nloop=cfg.nloop, **factory)
+        # the radiation-gated variant (radiation_time cadence): nloop = 0
+        self._rhd_step_norad = domain.make_domain_rhd_step(self.mesh, nloop=0, **factory)
+        self._cfl_fn = domain.domain_cfl_timestep(
+            self.mesh, cell_size=(self.dx,) * 3, gamma=cfg.gamma, cfl=cfg.cfl)
+        self._emit = domain.emit_from(self.generators)
+        self.supersteps = []
+        self.last_diagnostics = None
+        self.total_diagnostics = dict.fromkeys(DIAGNOSTIC_COUNTS, 0)
+
+    # the global view of the sharded state
+    @property
+    def state(self) -> hydro.HydroState:
+        return hydro.HydroState(*(
+            self.mesh.unshard([u[f] for u in self._u], self.SPEC) for f in range(5)))
+
+    @state.setter
+    def state(self, u: hydro.HydroState) -> None:
+        parts = [self.mesh.shard(f, self.SPEC) for f in u]
+        self._u = [hydro.HydroState(*fields) for fields in zip(*parts)]
+
+    @property
+    def neutral_fraction(self) -> torch.Tensor:
+        return self.mesh.unshard(self._xh, self.SPEC)
+
+    @neutral_fraction.setter
+    def neutral_fraction(self, xh: torch.Tensor) -> None:
+        self._xh = self.mesh.shard(xh, self.SPEC)
+
+    @classmethod
+    def from_params(cls, params: ParameterFile, tiling=None, device=None, log=None,
+                    seed: int = 42) -> "ShardedRHDSimulation":
+        """Parse the file as :meth:`RHDSimulation.from_params` does, then
+        shard the driver, its initial state included."""
+        config, initial = cls.config_from_params(params)
+        return cls(config, tiling=tiling, device=device, log=log, seed=seed,
+                   initial=initial)
+
+    def _advance_steps(self, n_steps: int, dt, do_radiation: bool = True) -> None:
+        step = self._rhd_step if do_radiation else self._rhd_step_norad
+        total = None
+        for _ in range(n_steps):
+            self._u, self._xh, diag = step(self._emit, self._u, self._xh, dt)
+            self.supersteps.append(diag["supersteps"])
+            total = diag if total is None else {k: total[k] + diag[k] for k in diag}
+        if total is not None:
+            self._check_diag(total)
+
+    def _cfl_timestep(self) -> float:
+        return float(self._cfl_fn(self._u))
+
+    def _check_diag(self, diag) -> None:
+        """Keep a block's counters in ``last_diagnostics``, add them into
+        ``total_diagnostics`` and log a nonzero overflow or truncation."""
+        self.last_diagnostics = read_diagnostics(diag, self.total_diagnostics, self.log)
+
+    def write_restart(self, manager) -> str:
+        raise NotImplementedError(f"ShardedRHDSimulation: {RESTART_NOT_PORTED}")
+
+    def load_restart(self, filename: str) -> None:
+        raise NotImplementedError(f"ShardedRHDSimulation: {RESTART_NOT_PORTED}")
 
 
 def spitzer_radius(t, stromgren_radius, sound_speed_ionized=12.85e3):

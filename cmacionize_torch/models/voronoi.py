@@ -60,7 +60,7 @@ __all__ = [
 ]
 
 RESTART_NOT_PORTED = "restart is not ported yet (ROADMAP.md, queue 1, item 3)"
-MESH_NOT_PORTED = "photon data parallelism (mesh=) is not ported yet (ROADMAP.md, queue 1, item 10)"
+MESH_NOT_PORTED = "photon data parallelism (mesh=) is not ported yet (ROADMAP.md, queue 1, item 7)"
 
 
 # ---------------------------------------------------------------------------

@@ -1181,3 +1181,116 @@ def test_dust_drivers_on_card(cuda, monkeypatch):
     assert float(out["I"].sum()) > 0
     assert float(out["V"].abs().max()) <= 1e-8 * float(out["I"].max())
     assert float(out["Q"].sum()) < 0  # polarized parallel to the edge-on disc
+
+
+# ------------------------------------------------- K9c, K9p and the sharded drivers
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n, capacity", [
+    (0, 10), (5, 0), (1000, 300), (1000, 1000), (3000, 4097),
+    (1_062_500, 1_000_000),  # the slab merge at 1e6 packets
+])
+@pytest.mark.parametrize("share", [0.0, 0.02, 0.5, 1.0])
+def test_compact_kernel_equals_plain_version(cuda, n, capacity, share):
+    """K9c against compact_reference: every lane, every bit, every count."""
+    from cmacionize_torch.parallel import domain
+
+    rng = np.random.default_rng(n + capacity)
+    fields = tuple(torch.tensor(rng.standard_normal(n).astype(np.float32), device=cuda)
+                   for _ in range(8))
+    mask = torch.tensor(rng.uniform(size=n) < share, device=cuda)
+    kernels.LAUNCHES.clear()
+    out, in_range, over = domain.compact(fields, mask, capacity)
+    assert kernels.LAUNCHES["compact"] == 1
+    ref, ref_range, ref_over = domain.compact_reference(fields, mask, capacity)
+    assert all(_same_bits(a, b) for a, b in zip(out, ref))
+    assert torch.equal(in_range, ref_range) and int(over) == int(ref_over)
+
+
+@pytest.mark.parametrize("n, capacities", [
+    (1000, (300, 700)), (4000, (5000, 17)), (2_000_000, (531_250, 531_250)),
+])
+def test_partition_kernel_equals_plain_version(cuda, n, capacities):
+    """K9p against partition_reference, with and without the frame shift."""
+    from cmacionize_torch.parallel import domain
+
+    rng = np.random.default_rng(n)
+    fields = tuple(torch.tensor(rng.standard_normal(n).astype(np.float32), device=cuda)
+                   for _ in range(8))
+    codes = rng.choice([-1, 0, 1], size=n, p=[0.9, 0.05, 0.05]).astype(np.int8)
+    bucket = torch.tensor(codes, device=cuda)
+    for shifts in ((16.0, -16.0), (None, None)):
+        kernels.LAUNCHES.clear()
+        out = domain.partition(fields, bucket, capacities, shifts)
+        assert kernels.LAUNCHES["partition"] == 1
+        ref = domain.partition_reference(fields, bucket, capacities, shifts)
+        for (f, r, o), (fr, rr, orr) in zip(out, ref):
+            assert all(_same_bits(a, b) for a, b in zip(f, fr))
+            assert torch.equal(r, rr) and int(o) == int(orr)
+
+
+def test_compact_kernels_refuse_what_they_do_not_take(cuda):
+    from cmacionize_torch.kernels.compact import compact_cuda, partition_cuda
+
+    f = torch.zeros(10, device=cuda)
+    with pytest.raises(ValueError, match="bool"):
+        compact_cuda((f,), torch.zeros(10, dtype=torch.int8, device=cuda), 4)
+    with pytest.raises(ValueError, match="float32"):
+        compact_cuda((f.double(),), torch.zeros(10, dtype=torch.bool, device=cuda), 4)
+    with pytest.raises(ValueError, match="fields"):
+        compact_cuda((f,) * 9, torch.zeros(10, dtype=torch.bool, device=cuda), 4)
+    with pytest.raises(ValueError, match="two"):
+        partition_cuda((f,), torch.zeros(10, dtype=torch.int8, device=cuda), (4,))
+
+
+def test_sharded_honly_driver_on_card(cuda):
+    """(2, 2, 2) tiles on the card: K1, K9p and K9c launched, no plain
+    version; the ionized volume within 15% of the single-device run."""
+    geometry = GridGeometry((-5 * 3.086e16,) * 3, (10 * 3.086e16,) * 3, (16, 16, 16))
+    config = HOnlyConfig(
+        geometry=geometry, number_density=1e8, temperature=8000.0,
+        source_position=(0.0, 0.0, 0.0), luminosity=4.26e49, cross_section=6.3e-22,
+        recombination_rate=4e-19, n_photons=16384, n_iterations=5)
+    from cmacionize_torch.models.ionization_simulation import ShardedHOnlyIonizationSimulation
+
+    kernels.LAUNCHES.clear()
+    sharded = ShardedHOnlyIonizationSimulation(config, tiling=(2, 2, 2), seed=3)
+    xh = sharded.run().cpu().numpy()
+    assert all(d.type == "cuda" for d in sharded.mesh.devices)
+    assert kernels.LAUNCHES["compact"] > 0 and kernels.LAUNCHES["partition"] > 0
+    assert kernels.LAUNCHES["trace_packets"] >= 8 * 5
+    assert sharded.last_diagnostics["buffer_overflow"] == 0
+    assert sharded.last_diagnostics["truncated_live"] == 0
+    single = HOnlyIonizationSimulation(config, device=cuda, seed=3).run().cpu().numpy()
+    assert (xh < 0.5).sum() == pytest.approx((single < 0.5).sum(), rel=0.15)
+
+
+def test_sharded_rhd_driver_on_card(cuda):
+    """(4, 1, 1) slabs on the card: K1, K3 and the exchange kernels; the front
+    within 10% and the mass within 1e-4 of the single-device run."""
+    from cmacionize_torch.models.rhd_simulation import RHDConfig, ShardedRHDSimulation
+
+    pc, total = 3.086e16, 0.05 * 3.15576e13
+    config = RHDConfig(
+        geometry=GridGeometry((-1.256 * pc,) * 3, (2.512 * pc,) * 3, (16, 16, 16)),
+        gamma=1.0001, timestep=total / 64.0, total_time=total, luminosity=1e49,
+        source_position=(0.0, 0.0, 0.0), cross_section=6.3e-22, recombination_rate=2.7e-19,
+        n_photons=8192, nloop=2, background_density=3.113e9, background_temperature=100.0)
+    kernels.LAUNCHES.clear()
+    sharded = ShardedRHDSimulation(config, tiling=(4, 1, 1), seed=5)
+    sharded.advance(24, log_every=10**9)
+    assert kernels.LAUNCHES["hydro_step"] == 4 * 24
+    assert kernels.LAUNCHES["compact"] > 0
+    assert sharded.last_diagnostics["buffer_overflow"] == 0
+    single = RHDSimulation(config, device=cuda, seed=5)
+    single.advance(24, log_every=10**9)
+    assert sharded.ionization_front_radius() == pytest.approx(
+        single.ionization_front_radius(), rel=0.1)
+    assert float(sharded.state.rho.double().sum()) == pytest.approx(
+        float(single.state.rho.double().sum()), rel=1e-4)

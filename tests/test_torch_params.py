@@ -173,6 +173,11 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.models.atmosphere_spectra
         import cmacionize_torch.models.trackers
         import cmacionize_torch.utils.diagnostics
+        import cmacionize_torch.parallel.mesh
+        import cmacionize_torch.parallel.domain
+        import cmacionize_torch.parallel.domain3d
+        import cmacionize_torch.parallel.drivers
+        import cmacionize_torch.kernels.compact
         # the atomic tables are read by path, not through cmacionize_tpu.data
         import torch
         cmacionize_torch.data.load("verner_photo.npz")
