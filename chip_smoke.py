@@ -8,10 +8,11 @@ Phases (any failed check raises, so the script exits non-zero):
 
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles K1 (``cmacionize_torch/csrc/trace_packets.cu``) with nvcc,
-   while the builds of K2-K7, K5, K5s, K8, K8p and K9 (K9c and K9p, one
-   library) run beside it (one nvcc per source,
-   all started together), and two spawned worker processes build the Voronoi
-   grids of phases 14 and 19 and the AMR grids of phase 21 on the host;
+   while the builds of K2-K7, K5, K5s, K8, K8p, K9 (K9c and K9p, one
+   library), K10 and K11 (K11 and K11r, one library) run beside it (one nvcc
+   per source, all started together), and two spawned worker processes build
+   the Voronoi grids of phases 14 and 19 and the AMR grids of phase 21 on the
+   host;
 3. kernel parity: K1 against its plain PyTorch version on the card, on the
    same inputs made with numpy from a fixed seed (a 64³ Strömgren-like
    opacity with an ionized cone; 2^17 packets from the centre, then the
@@ -34,11 +35,11 @@ Phases (any failed check raises, so the script exits non-zero):
    state and the front radius R(t) at the ten outputs against the Spitzer /
    Hosokawa-Inutsuka band and the JAX package's trajectory; then K1 alone in
    this (opaque) regime;
-8. build: K2, K4 (with K4f), K6, K6s, K7, K5 (with K5d), K5s, K8, K8p and K9
-   (``cmacionize_torch/csrc/{trace_packets_spectral,temperature,trace_voronoi,
-   trace_voronoi_spectral,voronoi_flux,trace_octree,trace_octree_spectral,
-   peel_off,peel_off_polarized,compact}.cu``), their seconds and ``ptxas -v``
-   reports;
+8. build: K2, K4 (with K4f), K6, K6s, K7, K5 (with K5d), K5s, K8, K8p, K9,
+   K10 and K11 (``cmacionize_torch/csrc/{trace_packets_spectral,temperature,
+   trace_voronoi,trace_voronoi_spectral,voronoi_flux,trace_octree,
+   trace_octree_spectral,peel_off,peel_off_polarized,compact,
+   trace_packets_cone,gather}.cu``), their seconds and ``ptxas -v`` reports;
 9. K2 parity: the spectral march against its plain PyTorch version on the
    card, on a 64³ lexington-like state made with numpy from a fixed seed
    (χ_H, χ_He, 1e6 packets from the centre in Planck-sampled bins): flags,
@@ -156,7 +157,29 @@ Phases (any failed check raises, so the script exits non-zero):
     merges of every slab in the first superstep of one more phase-30 step,
     and on every shard of phase 29's first exchange: identical lanes, bits
     and counts; K9c and K9p timed at the starbench shapes, K9c beside a
-    stable argsort and a gather.
+    stable argsort and a gather;
+32. main path: the cone-marched Strömgren path at full width:
+    ``benchmarks/stromgren.param``'s 64³ geometry, gas, source, σ and α
+    (HOnlyConfig, as in phase 4), 20 iterations of 2^20 stratified packets
+    (``tools.experimental_emission_octa.emit_point_source_stratified`` →
+    ``pack_packets`` → K10 → the lanes still at state 0 through K1 → the
+    tally scaled as ``_h_only_iteration_body`` scales it → the H balance),
+    written here as the JAX package has no such driver option; warm, timed,
+    with the K10 and K1 launch counts, the stragglers per iteration, the
+    radius ratio and the ionized cells against phase 4's; then 2 iterations
+    under torch.profiler;
+33. K10 parity on a fully neutral χ (x = 1: the absorption branch in every
+    chunk) and on phase 32's final χ, on every lane of a fresh 2^20
+    stratified batch: states, positions, tally against the plain version
+    on the card, and K10 + the K1 finish against K1 alone (tally, absorbed
+    counts); K10 timed beside K1 on the same packets, K1 on those packets
+    in a random order (the same work without the direction coherence) and
+    the plain version;
+34. the scatter/gather microbenchmark (``cmacionize_torch.tools.
+    microbench_scatter.main()``) at the tool's sizes (2^20 indices, 64³
+    table), its launch counts of K11 and K11r; then K11 and K11r against
+    their plain versions (identical) and timed beside ``tbl[idx]`` and
+    ``tbl2[rows, lanes]``.
 
 Each kernel's record carries ``bound_ms``, the least time an H100 could take
 for the same work (bytes over the HBM rate or operations over the peak
@@ -184,6 +207,7 @@ import torch
 from cmacionize_torch import kernels
 from cmacionize_torch.device import describe, require_cuda
 from cmacionize_torch.kernels import build
+from cmacionize_torch.kernels import gather as gather_ops
 from cmacionize_torch.kernels.peel_off import peel_off_cuda
 from cmacionize_torch.kernels.peel_off_polarized import peel_off_polarized_cuda
 from cmacionize_torch import constants
@@ -218,6 +242,7 @@ from cmacionize_torch.models.rhd_simulation import (
 from cmacionize_torch.ops import (
     amr_traversal,
     hydro,
+    ionization,
     peel_off,
     recombination,
     temperature,
@@ -225,6 +250,9 @@ from cmacionize_torch.ops import (
 )
 from cmacionize_torch.parallel import domain as parallel_domain
 from cmacionize_torch.parallel import domain3d
+from cmacionize_torch.tools import experimental_cone_kernel as cone
+from cmacionize_torch.tools import experimental_emission_octa as octa
+from cmacionize_torch.tools import microbench_scatter
 from cmacionize_torch.utils.params import ParameterFile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -241,6 +269,7 @@ KERNEL_SOURCES = {
     "K5": "trace_octree", "K5s": "trace_octree_spectral",  # K5d is built with K5
     "K8": "peel_off", "K8p": "peel_off_polarized",
     "K9": "compact",  # K9c and K9p
+    "K10": "trace_packets_cone", "K11": "gather",  # K11 and K11r
 }
 PC = 3.086e16
 MYR = 3.15576e13
@@ -402,6 +431,19 @@ MAX_SHARDED_DEVIATION = 0.05
 # the run to 0.4 of the time 239 s, which put the whole script at 621 s,
 # past half its time limit.
 SHARDED_STARBENCH_FRACTION = 0.3
+# the cone Strömgren path: the packet count nearest stromgren.param's 1e6
+# that lane_table takes (n/8 = 2 * 256^2) and K10's chunks divide, so that
+# octant boundaries fall on chunk boundaries and every chunk is sign-pure
+CONE_PHOTONS = 1 << 20
+CONE_PROFILED_ITERATIONS = 2
+MAX_CONE_VOLUME_DEVIATION = 0.02  # ionized cells against phase 4's
+# K10 parity on every lane of a 2^20 stratified batch.  K10 sums a lane's optical depth cell by cell in travel order, the plain
+# version over the slab and by prefix scans: tau_left differs at f32
+# round-off, which can flip a lane whose tau_left lies at the slab's total;
+# K10 against K1 alone: two algorithms that split a path at other points
+MAX_CONE_POSITION_DIFF = 1e-4  # cells, where the states agree
+MAX_CONE_TALLY_REL_L1 = 1e-5
+MAX_CONE_ABSORBED_FRACTION = 1e-4
 # K3 against its plain version: max |Δ| per conserved field relative to the
 # field's largest magnitude.  Both run the same f32 operations in the same
 # order (K3 is built with --fmad=false); the exact solver's powf may differ
@@ -542,8 +584,9 @@ def copy_solve(T_prev, j, h, nd, abundances, **kwargs):
 def roofline(label: str, n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
     """The JSON fields bound_ms / bound_by / library_ms of a kernel's work:
     the larger of bytes over the HBM rate and operations over the peak rate.
-    library_ms is null: no single PyTorch call computes K1-K8p's functions
-    (K9c's record sets its own, a stable argsort and a gather)."""
+    library_ms is null: no single PyTorch call computes K1-K8p's or K10's
+    functions (K9c's record sets its own, a stable argsort and a gather, and
+    K11's and K11r's theirs, ``tbl[idx]`` and ``tbl2[rows, lanes]``)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1595,7 +1638,11 @@ def profile_window(label: str, run, groups: dict) -> None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    averages = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # the device's own events (kernels, copies, sets) only: a torch op's
+    # CPU-side event carries its kernels' time too and would count it twice
+    averages = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
     device_us = {e.key: e.self_device_time_total for e in averages}
     busy = sum(device_us.values()) * 1e-6
     if busy <= 0.0:
@@ -2565,6 +2612,230 @@ def exchange_parity(starbench_sends, starbench_merges, stromgren_exchange) -> tu
     return c_record, p_record
 
 
+# ------------------------------------------- K10, K11, K11r (phases 32-34)
+
+
+def finish_with_k1(chi, tally, pf, pi, shape):
+    """K1 on the lanes a cone march left at state 0, from their position,
+    direction, τ_left and weight, into ``tally`` (in place): (flat tally,
+    absorbed packets, stragglers), the counts on the device."""
+    left = pi[:, 3] == 0
+    stragglers = traversal.make_packets(
+        pf[:, :3], pf[:, 3:6], pf[:, 6].contiguous(), pf[:, 7].contiguous(),
+        shape)._replace(active=left)
+    tally, finished = traversal.trace_packets(chi.reshape(-1), stragglers, tally.reshape(-1),
+                                              shape=shape)
+    return tally, (pi[:, 3] == 1).sum() + (finished.absorbed & left).sum(), left.sum()
+
+
+def cone_iteration(sim: HOnlyIonizationSimulation, generator, x):
+    """One iteration of the cone Strömgren path from neutral fraction ``x``:
+    stratified emission → pack → K10 → the lanes still at state 0 through
+    K1 from their position, direction, τ_left and weight → the tally scaled
+    as ``_h_only_iteration_body`` scales it (n_photons = CONE_PHOTONS) → the
+    H balance.  Returns (new x, stragglers, escaped), the counts on the
+    device."""
+    cfg, shape = sim.config, sim.geometry.shape
+    chi = sim.number_density * x * (cfg.cross_section * sim.dx)
+    pf, pi = cone.pack_packets(*octa.emit_point_source_stratified(
+        generator, CONE_PHOTONS, sim._source_gpos, sim.device), shape)
+    tally, pf, pi = cone.trace_packets_cone(chi, pf, pi, shape=shape)
+    tally, absorbed, left = finish_with_k1(chi, tally, pf, pi, shape)
+    jfac_scale = (cfg.luminosity * cfg.cross_section * sim.dx
+                  / (CONE_PHOTONS * sim.geometry.cell_volume))
+    jH = tally.reshape(shape) * jfac_scale
+    new_x = ionization.hydrogen_neutral_fraction(jH, sim.number_density, cfg.recombination_rate)
+    return new_x, left, CONE_PHOTONS - absorbed
+
+
+def cone_stromgren(config: HOnlyConfig, device, single_volume: int):
+    """Phase 32: stromgren.param's geometry, gas, source, σ and α with
+    CONE_PHOTONS stratified packets per iteration through K10 and the K1
+    finish, 20 iterations, warm."""
+    sim = HOnlyIonizationSimulation(config, device=device)
+    initial = sim.neutral_fraction.clone()
+    generator = torch.Generator(device=device)
+    generator.manual_seed(42)
+
+    def run(x, n):
+        counts = []
+        for _ in range(n):
+            x, left, escaped = cone_iteration(sim, generator, x)
+            counts.append((left, escaped))
+        return x, counts
+
+    run(initial, 2)  # warm-up
+    kernels.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, counts = run(initial, config.n_iterations)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in ("trace_packets_cone", "trace_packets")}
+    stragglers = [int(c[0]) for c in counts]
+    escaped = [int(c[1]) for c in counts]
+    xH = x.cpu().numpy()
+    ratio = stromgren_radius_ratio(sim, xH)
+    volume = int((xH < 0.5).sum())
+    n_packets = CONE_PHOTONS * config.n_iterations
+    log(f"cone stromgren: {config.geometry.shape}, {CONE_PHOTONS} stratified packets x "
+        f"{config.n_iterations} iterations in {wall:.4f} s wall, warm "
+        f"({n_packets / wall:.6g} packets/s); launches {launches}")
+    log(f"cone stromgren: stragglers finished by K1 per iteration {stragglers}; escaped per "
+        f"iteration {escaped}")
+    log(f"cone stromgren: 50%-radius / analytic {ratio:.5f}; ionized cells {volume} against "
+        f"phase 4's {single_volume} ({volume / single_volume - 1:+.5f})")
+    check(launches["trace_packets_cone"] == config.n_iterations
+          and launches["trace_packets"] == config.n_iterations,
+          f"K10 and K1 launched once per iteration: {launches}")
+    check(bool(np.isfinite(xH).all()) and xH.shape == tuple(config.geometry.shape),
+          "cone xH finite, of the grid's shape")
+    check(bool(((xH > 0) & (xH <= 1)).all()), "cone xH in (0, 1]")
+    check(RADIUS_RATIO_RANGE[0] <= ratio <= RADIUS_RATIO_RANGE[1],
+          f"cone radius ratio {ratio} outside {RADIUS_RATIO_RANGE}")
+    check(abs(volume / single_volume - 1.0) <= MAX_CONE_VOLUME_DEVIATION,
+          f"cone ionized cells {volume} vs {single_volume}")
+    # the main path's driver (phase 4 ran it cold), warm against the cone wall
+    driver = HOnlyIonizationSimulation(config, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    driver.run()
+    torch.cuda.synchronize()
+    driver_wall = time.perf_counter() - t0
+    driver_packets = config.n_photons * config.n_iterations
+    log(f"cone stromgren: the main path's driver (K1, {config.n_photons} packets x "
+        f"{config.n_iterations} iterations) in {driver_wall:.4f} s wall, warm "
+        f"({driver_packets / driver_wall:.6g} packets/s); cone / driver per packet "
+        f"{(wall / n_packets) / (driver_wall / driver_packets):.4f}")
+    profile_window(f"{CONE_PROFILED_ITERATIONS} more cone stromgren iterations",
+                   lambda: run(x, CONE_PROFILED_ITERATIONS),
+                   {"K10": ("trace_packets_cone_kernel",), "K1": ("trace_packets_kernel",)})
+    return sim, x, launches
+
+
+def cone_parity(sim: HOnlyIonizationSimulation, final_x, device) -> dict:
+    """Phase 33: K10 against its plain version, and K10 + the K1 finish
+    against K1 alone, on a fully neutral χ and phase 32's final χ, on every
+    lane of a 2^20 stratified batch; K10 timed beside the plain version, K1
+    on the same packets and K1 on them in a random order."""
+    cfg, shape = sim.config, sim.geometry.shape
+    ncell = int(np.prod(shape))
+    generator = torch.Generator(device=device)
+    generator.manual_seed(PARITY_SEED)
+    packets = octa.emit_point_source_stratified(generator, CONE_PHOTONS, sim._source_gpos,
+                                                device)
+    pf, pi = cone.pack_packets(*packets, shape)
+    n = pf.shape[0]
+    k1_packets = traversal.make_packets(*packets, shape)
+    # the same packets in a random order: each warp's lanes point anywhere
+    order = torch.randperm(n, generator=generator, device=device)
+    k1_shuffled = traversal.make_packets(*(p[order] for p in packets), shape)
+    sigma_dx = cfg.cross_section * sim.dx
+    fields = {"fully neutral (x = 1)": sim.number_density * sigma_dx,
+              "phase 32's final": sim.number_density * final_x * sigma_dx}
+    record = {"max_abs_err": 0.0}
+    for label, chi in fields.items():
+        chi = chi.contiguous()
+        tally_k, pf_k, pi_k = cone.trace_packets_cone(chi, pf, pi, shape=shape)
+        (tally_r, pf_r, pi_r), plain_ms = timed_call(
+            lambda: cone.trace_packets_cone_reference(chi, pf, pi, shape=shape))
+        state_mismatch = int((pi_k[:, 3] != pi_r[:, 3]).sum())
+        same = pi_k[:, 3] == pi_r[:, 3]
+        pos_diff = float((pf_k[same, :3] - pf_r[same, :3]).abs().max())
+        cell_mismatch = int((pi_k[same, :3] != pi_r[same, :3]).any(dim=1).sum())
+        tally_abs = (tally_k - tally_r).abs()
+        rel_l1 = float(tally_abs.sum() / tally_r.abs().sum())
+        states = torch.bincount(pi_r[:, 3], minlength=3).tolist()
+        log(f"K10 parity ({label} chi, every one of {n} lanes): plain states (active, absorbed, escaped) {states}; state "
+            f"mismatches {state_mismatch}, cell mismatches where the states agree "
+            f"{cell_mismatch}, max |position diff| {pos_diff:.3e} cells, tally rel L1 "
+            f"{rel_l1:.3e}; plain {plain_ms:.4f} ms (one call, CUDA events)")
+        check(state_mismatch <= MAX_FLAG_MISMATCH_FRACTION * n,
+              f"K10 state mismatches {state_mismatch} of {n}")
+        check(pos_diff <= MAX_CONE_POSITION_DIFF, f"K10 position diff {pos_diff}")
+        check(rel_l1 <= MAX_CONE_TALLY_REL_L1, f"K10 tally rel L1 {rel_l1}")
+        record["max_abs_err"] = max(record["max_abs_err"], float(tally_abs.max()))
+
+        # the estimator: K10 + the K1 finish against K1 alone
+        tally_c, absorbed_c, _ = finish_with_k1(chi, tally_k.clone(), pf_k, pi_k, shape)
+        absorbed_c = int(absorbed_c)
+        tally_1, out_1 = traversal.trace_packets(chi.reshape(-1), k1_packets,
+                                                 torch.zeros(ncell, device=device), shape=shape)
+        absorbed_1 = int(out_1.absorbed.sum())
+        est_l1 = float((tally_c - tally_1).abs().sum() / tally_1.abs().sum())
+        log(f"K10 + K1 finish against K1 alone ({label} chi, {n} packets): tally rel L1 "
+            f"{est_l1:.3e}, absorbed {absorbed_c} against {absorbed_1}")
+        check(est_l1 <= MAX_CONE_TALLY_REL_L1, f"cone estimator rel L1 {est_l1}")
+        check(abs(absorbed_c - absorbed_1) <= MAX_CONE_ABSORBED_FRACTION * n,
+              f"cone absorbed {absorbed_c} vs K1 {absorbed_1}")
+
+        # times on the same 2^20 lanes
+        ms = time_cuda(lambda: cone.trace_packets_cone(chi, pf, pi, shape=shape), 20)
+        scratch = torch.zeros(ncell, device=device)
+        k1_ms = time_cuda(lambda: traversal.trace_packets(chi.reshape(-1), k1_packets, scratch,
+                                                          shape=shape), 20)
+        k1_shuffled_ms = time_cuda(lambda: traversal.trace_packets(
+            chi.reshape(-1), k1_shuffled, scratch, shape=shape), 20)
+        stats = {}
+        traversal.trace_packets_reference(chi.reshape(-1), k1_packets, scratch.clone(),
+                                          shape=shape, stats=stats)
+        steps = int(stats["packet_steps"])
+        log(f"timing at {shape[0]}^3 / {n} stratified packets ({label} chi): K10 "
+            f"{ms:.4f} ms, K1 on the same packets {k1_ms:.4f} ms (K10 / K1 = "
+            f"{ms / k1_ms:.4f}), K1 on them in a random order {k1_shuffled_ms:.4f} ms "
+            f"(shuffled / stratified = {k1_shuffled_ms / k1_ms:.4f}); plain cone march "
+            f"{plain_ms:.4f} ms (CUDA events, incl. the packet-state copies)")
+        # chi read, tally read and written; 64 B in and 64 B out per lane;
+        # K1's operations per packet-cell crossing of these packets
+        bound = roofline(f"K10 ({label} chi; {steps} packet-cell crossings)",
+                         12 * ncell + 128 * CONE_PHOTONS, OPS_PER_K1_STEP * steps,
+                         F32_OPS_PER_S)
+        record.update({"ms": ms, "plain_ms": plain_ms, **bound})  # the final chi's stay
+    return record
+
+
+def gather_phase(device) -> tuple:
+    """Phase 34: the microbenchmark on the card at the tool's sizes, then
+    K11 and K11r against their plain versions and timed beside their
+    one-call PyTorch counterparts."""
+    kernels.LAUNCHES.clear()
+    microbench_scatter.main(device=device)
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in ("gather", "gather2d")}
+    log(f"microbenchmark: launches {launches}")
+    check(launches["gather"] > 0 and launches["gather2d"] > 0,
+          f"K11 and K11r launched by the microbenchmark: {launches}")
+
+    rng = np.random.default_rng(PARITY_SEED)
+    n, n_cell, width = 1 << 20, 64**3, microbench_scatter.LANES
+    idx_np = rng.integers(0, n_cell, n).astype(np.int32)
+    idx_np[:2] = (0, n_cell - 1)  # the table's first and last entries
+    idx = torch.tensor(idx_np, device=device)
+    tbl = torch.tensor(rng.normal(size=n_cell).astype(np.float32), device=device)
+    tbl2 = tbl.reshape(-1, width)
+    rows, lanes = idx // width, idx % width
+    records = []
+    for label, fn, plain, library, args, index_bytes in (
+        ("K11", gather_ops.gather, gather_ops.gather_reference, lambda t, i: t[i],
+         (tbl, idx), 4),
+        ("K11r", gather_ops.gather2d, gather_ops.gather2d_reference,
+         lambda t, r, l: t[r, l], (tbl2, rows, lanes), 8),
+    ):
+        out, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"{label} differs from its plain version")
+        ms = time_cuda(lambda: fn(*args), 50)
+        plain_ms = time_cuda(lambda: plain(*args), 50)
+        library_ms = time_cuda(lambda: library(*args), 50)
+        log(f"{label} parity on {n} random indices (the table's first and last entries "
+            f"among them): identical; timing {label} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"the one PyTorch call {library_ms:.4f} ms (CUDA events)")
+        bound = roofline(label, (index_bytes + 4) * n + 4 * n_cell, 0.0, F32_OPS_PER_S)
+        records.append({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound,
+                        "library_ms": library_ms})
+    return launches, records
+
+
 @contextlib.contextmanager
 def swapped(owner, name: str, replacement):
     original = getattr(owner, name)
@@ -2620,7 +2891,8 @@ def main() -> None:
             del star
             star_launches, star_outputs = starbench_main_path(device)
 
-            for label in ("K2", "K4", "K6", "K6s", "K7", "K5", "K5s", "K8", "K8p", "K9"):
+            for label in ("K2", "K4", "K6", "K6s", "K7", "K5", "K5s", "K8", "K8p", "K9",
+                          "K10", "K11"):
                 report_build(label, builds[label])
         spectral_record = spectral_parity(device)
         multifreq_launches = [lexington_archived(device)]
@@ -2681,6 +2953,11 @@ def main() -> None:
         starbench_sends, starbench_merges, stromgren_exchange)
     del stromgren_exchange, starbench_sends, starbench_merges
 
+    cone_sim, cone_x, cone_launches = cone_stromgren(config, device, stromgren_volume)
+    cone_record = cone_parity(cone_sim, cone_x, device)
+    del cone_sim, cone_x
+    gather_launches, (gather_record, gather2d_record) = gather_phase(device)
+
     def kernel(name, source, replaces, n_launches, record):
         return {"name": name, "route": "cuda", "source": f"cmacionize_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launches, **record}
@@ -2689,7 +2966,7 @@ def main() -> None:
         kernel("trace_packets", "trace_packets.cu", "cmacionize_tpu/ops/traversal.py:115",
                launches + star_launches["trace_packets"] + dust_launches["trace_packets"]
                + pol_launches["trace_packets"] + sharded_launches["trace_packets"]
-               + sbs_launches["trace_packets"],
+               + sbs_launches["trace_packets"] + cone_launches["trace_packets"],
                {**parity, "max_abs_err": max(small["max_abs_err"], parity["max_abs_err"])}),
         kernel("trace_packets_spectral", "trace_packets_spectral.cu",
                "cmacionize_tpu/ops/traversal.py:503",
@@ -2729,6 +3006,13 @@ def main() -> None:
                sharded_launches["compact"] + sbs_launches["compact"], compact_record),
         kernel("partition", "compact.cu", "cmacionize_tpu/parallel/domain3d.py:62",
                sharded_launches["partition"] + sbs_launches["partition"], partition_record),
+        kernel("trace_packets_cone", "trace_packets_cone.cu",
+               "tools/experimental_cone_kernel.py:305", cone_launches["trace_packets_cone"],
+               cone_record),
+        kernel("gather", "gather.cu", "tools/microbench_scatter.py:99",
+               gather_launches["gather"], gather_record),
+        kernel("gather2d", "gather.cu", "tools/microbench_scatter.py:138",
+               gather_launches["gather2d"], gather2d_record),
     ]
     print(json.dumps({"kernels": kernel_records}), flush=True)
     print(

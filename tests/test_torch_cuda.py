@@ -1,13 +1,14 @@
-"""The CUDA kernels (K1-K7, K4f, K5, K5s, K5d, K8, K8p) and the port's drivers
-on the card (marked ``cuda``).
+"""The CUDA kernels (K1-K7, K4f, K5, K5s, K5d, K8, K8p, K9c, K9p, K10, K11,
+K11r) and the port's drivers on the card (marked ``cuda``).
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip where CUDA is
 missing; the plain versions they compare against are tested against the JAX
 package in test_torch_traversal.py, test_torch_hydro.py,
 test_torch_spectral.py, test_torch_temperature.py, test_torch_temperature_f32.py,
-test_torch_voronoi*.py, test_torch_amr.py, test_torch_dust.py and
-test_torch_polarization.py.  The file imports no JAX, so that it runs where
-JAX is not installed:
+test_torch_voronoi*.py, test_torch_amr.py, test_torch_dust.py,
+test_torch_polarization.py, test_torch_domain.py, test_torch_cone.py and
+test_torch_microbench_scatter.py (against the JAX tools).  The file imports
+no JAX, so that it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
@@ -1294,3 +1295,104 @@ def test_sharded_rhd_driver_on_card(cuda):
         single.ionization_front_radius(), rel=0.1)
     assert float(sharded.state.rho.double().sum()) == pytest.approx(
         float(single.state.rho.double().sum()), rel=1e-4)
+
+
+# -- K10, K11, K11r ----------------------------------------------------------
+
+
+def _cone_compare(out_k, out_r, n, max_state_mismatch=1):
+    """K10 against its plain version: state mismatches within 1e-5 of the
+    lanes (at least one lane: the two sum a slab's optical depth in other
+    orders), positions within 1e-4 cells and cells equal where the states
+    agree, tally rel L1 <= 1e-5."""
+    (tally_k, pf_k, pi_k), (tally_r, pf_r, pi_r) = out_k, out_r
+    same = pi_k[:, 3] == pi_r[:, 3]
+    assert int((~same).sum()) <= max(max_state_mismatch, 1e-5 * n)
+    assert float((pf_k[same, :3] - pf_r[same, :3]).abs().max()) <= 1e-4
+    assert torch.equal(pi_k[same, :3], pi_r[same, :3])
+    assert torch.equal(pf_k[:, 3:6], pf_r[:, 3:6]) and torch.equal(pf_k[:, 7], pf_r[:, 7])
+    rel_l1 = float((tally_k - tally_r).abs().sum() / tally_r.abs().sum())
+    assert rel_l1 <= 1e-5, rel_l1
+
+
+def test_cone_kernel_equals_plain_version_on_stratified_lanes(cuda):
+    from cmacionize_torch.tools import experimental_cone_kernel as cone
+    from cmacionize_torch.tools import experimental_emission_octa as octa
+
+    shape, n = (32, 32, 32), 2**14
+    rng = np.random.default_rng(21)
+    chi = torch.tensor(rng.uniform(0.0, 0.3, shape).astype(np.float32), device=cuda)
+    generator = torch.Generator(device=cuda).manual_seed(21)
+    pf, pi = cone.pack_packets(*octa.emit_point_source_stratified(
+        generator, n, (16.0, 16.0, 16.0), cuda), shape)
+    kernels.LAUNCHES.clear()
+    out_k = cone.trace_packets_cone(chi, pf, pi, shape=shape)
+    assert kernels.LAUNCHES["trace_packets_cone"] == 1
+    out_r = cone.trace_packets_cone_reference(chi, pf, pi, shape=shape)
+    torch.cuda.synchronize()
+    states = torch.bincount(out_r[2][:, 3], minlength=3)
+    assert states[0] == 0 and states[1] > 0 and states[2] > 0
+    _cone_compare(out_k, out_r, n)
+
+
+def test_cone_kernel_equals_plain_version_on_incoherent_lanes(cuda):
+    from cmacionize_torch.tools import experimental_cone_kernel as cone
+
+    shape, n = (32, 24, 20), 2**14
+    rng = np.random.default_rng(22)
+    chi = torch.tensor(rng.uniform(0.0, 0.3, shape).astype(np.float32), device=cuda)
+    pos = rng.uniform(0.0, 1.0, (n, 3)) * np.asarray(shape)
+    v = rng.normal(size=(n, 3))
+    d = v / np.linalg.norm(v, axis=1, keepdims=True)
+    tau = -np.log(rng.uniform(1e-10, 1.0, n))
+    pf, pi = cone.pack_packets(*(torch.tensor(np.asarray(a, np.float32), device=cuda)
+                                 for a in (pos, d, tau, np.ones(n))), shape)
+    in_flight = []
+    for max_phases in (4, 128):
+        out_k = cone.trace_packets_cone(chi, pf, pi, shape=shape, max_phases=max_phases)
+        out_r = cone.trace_packets_cone_reference(chi, pf, pi, shape=shape,
+                                                  max_phases=max_phases)
+        torch.cuda.synchronize()
+        in_flight.append(int((out_r[2][:, 3] == 0).sum()))
+        _cone_compare(out_k, out_r, n)
+    # mixed signs in a chunk march with more phases: some lanes stay in
+    # flight after 4, fewer after 128
+    assert in_flight[0] > in_flight[1]
+    assert torch.equal(pi[:, 3], torch.zeros_like(pi[:, 3]))  # the inputs are untouched
+
+
+def test_cone_kernel_refuses_what_it_does_not_take(cuda):
+    from cmacionize_torch.kernels.trace_packets_cone import trace_packets_cone_cuda
+
+    shape = (8, 8, 8)
+    chi = torch.zeros(shape, device=cuda)
+    pf = torch.zeros((512, 8), device=cuda)
+    pi = torch.zeros((512, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="slab=8, chunk=512"):
+        trace_packets_cone_cuda(chi, chi.clone(), pf, pi, shape=shape, slab=4, chunk=512,
+                                max_phases=8)
+    with pytest.raises(ValueError, match="pi must be"):
+        trace_packets_cone_cuda(chi, chi.clone(), pf, pi.float(), shape=shape, slab=8,
+                                chunk=512, max_phases=8)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 2**20 + 3])
+def test_gather_kernels_equal_plain_versions(cuda, n):
+    from cmacionize_torch.kernels import gather
+
+    rng = np.random.default_rng(n)
+    n_cell = 64**3
+    idx = rng.integers(0, n_cell, n).astype(np.int32)
+    idx[0] = n_cell - 1
+    idx[-1] = 0
+    idx = torch.tensor(idx, device=cuda)
+    tbl = torch.tensor(rng.normal(size=n_cell).astype(np.float32), device=cuda)
+    tbl2 = tbl.reshape(-1, 128)
+    kernels.LAUNCHES.clear()
+    assert torch.equal(gather.gather(tbl, idx), gather.gather_reference(tbl, idx))
+    rows, lanes = idx // 128, idx % 128
+    assert torch.equal(gather.gather2d(tbl2, rows, lanes),
+                       gather.gather2d_reference(tbl2, rows, lanes))
+    assert kernels.LAUNCHES["gather"] == 1 and kernels.LAUNCHES["gather2d"] == 1
+    with pytest.raises(ValueError, match="idx must be"):
+        gather.gather(tbl, idx.long())

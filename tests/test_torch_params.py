@@ -178,6 +178,11 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.parallel.domain3d
         import cmacionize_torch.parallel.drivers
         import cmacionize_torch.kernels.compact
+        import cmacionize_torch.tools.experimental_emission_octa
+        import cmacionize_torch.tools.experimental_cone_kernel
+        import cmacionize_torch.tools.microbench_scatter
+        import cmacionize_torch.kernels.trace_packets_cone
+        import cmacionize_torch.kernels.gather
         # the atomic tables are read by path, not through cmacionize_tpu.data
         import torch
         cmacionize_torch.data.load("verner_photo.npz")
