@@ -9,8 +9,9 @@ Phases (any failed check raises, so the script exits non-zero):
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles K1 (``cmacionize_torch/csrc/trace_packets.cu``) with nvcc,
    while the builds of K2-K7, K5, K5s, K8, K8p, K9 (K9c and K9p, one
-   library), K10 and K11 (K11 and K11r, one library) run beside it (one nvcc
-   per source, all started together), and two spawned worker processes build
+   library), K10, K11 (K11 and K11r, one library) and K12 (K12t, K12r, K12s
+   and K12a, one library) run beside it (one nvcc per source, all started
+   together), and two spawned worker processes build
    the Voronoi grids of phases 14 and 19 and the AMR grids of phase 21 on the
    host;
 3. kernel parity: K1 against its plain PyTorch version on the card, on the
@@ -36,10 +37,11 @@ Phases (any failed check raises, so the script exits non-zero):
    Hosokawa-Inutsuka band and the JAX package's trajectory; then K1 alone in
    this (opaque) regime;
 8. build: K2, K4 (with K4f), K6, K6s, K7, K5 (with K5d), K5s, K8, K8p, K9,
-   K10 and K11 (``cmacionize_torch/csrc/{trace_packets_spectral,temperature,
-   trace_voronoi,trace_voronoi_spectral,voronoi_flux,trace_octree,
-   trace_octree_spectral,peel_off,peel_off_polarized,compact,
-   trace_packets_cone,gather}.cu``), their seconds and ``ptxas -v`` reports;
+   K10, K11 and K12 (``cmacionize_torch/csrc/{trace_packets_spectral,
+   temperature,trace_voronoi,trace_voronoi_spectral,voronoi_flux,
+   trace_octree,trace_octree_spectral,peel_off,peel_off_polarized,compact,
+   trace_packets_cone,gather,probe_gather}.cu``), their seconds and
+   ``ptxas -v`` reports;
 9. K2 parity: the spectral march against its plain PyTorch version on the
    card, on a 64³ lexington-like state made with numpy from a fixed seed
    (χ_H, χ_He, 1e6 packets from the centre in Planck-sampled bins): flags,
@@ -179,7 +181,16 @@ Phases (any failed check raises, so the script exits non-zero):
     microbench_scatter.main()``) at the tool's sizes (2^20 indices, 64³
     table), its launch counts of K11 and K11r; then K11 and K11r against
     their plain versions (identical) and timed beside ``tbl[idx]`` and
-    ``tbl2[rows, lanes]``.
+    ``tbl2[rows, lanes]``;
+35. the dynamic-indexing probes (``cmacionize_torch.tools.
+    probe_pallas_gather.main()``) at the tool's sizes (8192 lookups, 1024
+    for the sublane gather; the baselines at 2^20), their launch counts of
+    K12t, K12r, K11r (the flat 2D gather), K12s and K12a, and the sort keys
+    formed on the card against the host's; then each of the five kernels
+    against its plain version on the probe's inputs, on seeded inputs at
+    the probe's shapes and at 2^20 lookups (identical; K12a with duplicates
+    and random weights within rel L1 1e-6), and timed at the probe's shapes
+    beside its plain version and its one PyTorch call.
 
 Each kernel's record carries ``bound_ms``, the least time an H100 could take
 for the same work (bytes over the HBM rate or operations over the peak
@@ -208,6 +219,7 @@ from cmacionize_torch import kernels
 from cmacionize_torch.device import describe, require_cuda
 from cmacionize_torch.kernels import build
 from cmacionize_torch.kernels import gather as gather_ops
+from cmacionize_torch.kernels import probe_gather
 from cmacionize_torch.kernels.peel_off import peel_off_cuda
 from cmacionize_torch.kernels.peel_off_polarized import peel_off_polarized_cuda
 from cmacionize_torch import constants
@@ -253,6 +265,7 @@ from cmacionize_torch.parallel import domain3d
 from cmacionize_torch.tools import experimental_cone_kernel as cone
 from cmacionize_torch.tools import experimental_emission_octa as octa
 from cmacionize_torch.tools import microbench_scatter
+from cmacionize_torch.tools import probe_pallas_gather
 from cmacionize_torch.utils.params import ParameterFile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -270,6 +283,7 @@ KERNEL_SOURCES = {
     "K8": "peel_off", "K8p": "peel_off_polarized",
     "K9": "compact",  # K9c and K9p
     "K10": "trace_packets_cone", "K11": "gather",  # K11 and K11r
+    "K12": "probe_gather",  # K12t, K12r, K12s and K12a
 }
 PC = 3.086e16
 MYR = 3.15576e13
@@ -437,11 +451,17 @@ SHARDED_STARBENCH_FRACTION = 0.3
 CONE_PHOTONS = 1 << 20
 CONE_PROFILED_ITERATIONS = 2
 MAX_CONE_VOLUME_DEVIATION = 0.02  # ionized cells against phase 4's
-# K10 parity on every lane of a 2^20 stratified batch.  K10 sums a lane's optical depth cell by cell in travel order, the plain
-# version over the slab and by prefix scans: tau_left differs at f32
-# round-off, which can flip a lane whose tau_left lies at the slab's total;
-# K10 against K1 alone: two algorithms that split a path at other points
+# K10 parity on every lane of a 2^20 stratified batch.  K10 sums a lane's
+# optical depth cell by cell in travel order, the plain version over the slab
+# and by prefix scans: tau_left differs at f32 round-off, which can flip a
+# lane whose tau_left lies at the slab's total.  Where it lies between the
+# plain version's two totals, the plain version (as the Pallas kernel) absorbs
+# the lane in no cell, at the point where it entered the slab ("unplaced"),
+# and K10 absorbs it further along its ray: such lanes are held to that and
+# counted with the state flips.  K10 against K1 alone: two algorithms that
+# split a path at other points
 MAX_CONE_POSITION_DIFF = 1e-4  # cells, where the states agree
+SLAB_DIAGONAL = 8 * 3**0.5  # cells: the farthest K10 may absorb a lane the plain version left
 MAX_CONE_TALLY_REL_L1 = 1e-5
 MAX_CONE_ABSORBED_FRACTION = 1e-4
 # K3 against its plain version: max |Δ| per conserved field relative to the
@@ -586,7 +606,13 @@ def roofline(label: str, n_bytes: float, n_ops: float, ops_per_s: float) -> dict
     the larger of bytes over the HBM rate and operations over the peak rate.
     library_ms is null: no single PyTorch call computes K1-K8p's or K10's
     functions (K9c's record sets its own, a stable argsort and a gather, and
-    K11's and K11r's theirs, ``tbl[idx]`` and ``tbl2[rows, lanes]``)."""
+    the gathers K11-K12a theirs, the one PyTorch call of each function).
+
+    A gather's bytes are its indices and its output once each, and of its
+    table the distinct 32-byte sectors that this run's lookups touch
+    (:func:`sector_bytes`): the whole table where they touch all of it (K12r
+    at the probe's shapes: (7t) mod 4096 over 8192 rows), one sector per
+    lookup where they touch a small part (K12t, K12s)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2737,22 +2763,38 @@ def cone_parity(sim: HOnlyIonizationSimulation, final_x, device) -> dict:
     for label, chi in fields.items():
         chi = chi.contiguous()
         tally_k, pf_k, pi_k = cone.trace_packets_cone(chi, pf, pi, shape=shape)
+        stats = {}
         (tally_r, pf_r, pi_r), plain_ms = timed_call(
-            lambda: cone.trace_packets_cone_reference(chi, pf, pi, shape=shape))
+            lambda: cone.trace_packets_cone_reference(chi, pf, pi, shape=shape, stats=stats))
+        unplaced = stats["unplaced"]
         state_mismatch = int((pi_k[:, 3] != pi_r[:, 3]).sum())
-        same = pi_k[:, 3] == pi_r[:, 3]
+        same = (pi_k[:, 3] == pi_r[:, 3]) & ~unplaced
         pos_diff = float((pf_k[same, :3] - pf_r[same, :3]).abs().max())
         cell_mismatch = int((pi_k[same, :3] != pi_r[same, :3]).any(dim=1).sum())
+        # the plain version leaves a lane whose tau_left lies between its slab
+        # sum and its prefix scans where it entered the slab; K10 must absorb
+        # it further along its ray, within the slab's diagonal
+        ahead = unplaced & (pi_k[:, 3] == 1)
+        step = pf_k[ahead, :3] - pf_r[ahead, :3]
+        along = (step * pf_r[ahead, 3:6]).sum(dim=1)
+        off_ray = float((step - along[:, None] * pf_r[ahead, 3:6]).abs().max()) if len(along) else 0.0
+        n_unplaced = int(unplaced.sum())
         tally_abs = (tally_k - tally_r).abs()
         rel_l1 = float(tally_abs.sum() / tally_r.abs().sum())
         states = torch.bincount(pi_r[:, 3], minlength=3).tolist()
         log(f"K10 parity ({label} chi, every one of {n} lanes): plain states (active, absorbed, escaped) {states}; state "
-            f"mismatches {state_mismatch}, cell mismatches where the states agree "
-            f"{cell_mismatch}, max |position diff| {pos_diff:.3e} cells, tally rel L1 "
+            f"mismatches {state_mismatch}, lanes the plain version absorbed where they entered "
+            f"the slab {n_unplaced} (K10 absorbed {len(along)} of them further along, "
+            f"{[round(float(a), 4) for a in along[:8]]} cells), cell mismatches where the states "
+            f"agree {cell_mismatch}, max |position diff| {pos_diff:.3e} cells, tally rel L1 "
             f"{rel_l1:.3e}; plain {plain_ms:.4f} ms (one call, CUDA events)")
-        check(state_mismatch <= MAX_FLAG_MISMATCH_FRACTION * n,
-              f"K10 state mismatches {state_mismatch} of {n}")
+        check(state_mismatch + n_unplaced <= MAX_FLAG_MISMATCH_FRACTION * n,
+              f"K10 state mismatches {state_mismatch} and unplaced lanes {n_unplaced} of {n}")
         check(pos_diff <= MAX_CONE_POSITION_DIFF, f"K10 position diff {pos_diff}")
+        check(bool(((along >= -MAX_CONE_POSITION_DIFF)
+                    & (along <= SLAB_DIAGONAL + MAX_CONE_POSITION_DIFF)).all())
+              and off_ray <= MAX_CONE_POSITION_DIFF,
+              f"K10 on the unplaced lanes: along {along.tolist()}, off the ray {off_ray}")
         check(rel_l1 <= MAX_CONE_TALLY_REL_L1, f"K10 tally rel L1 {rel_l1}")
         record["max_abs_err"] = max(record["max_abs_err"], float(tally_abs.max()))
 
@@ -2836,6 +2878,168 @@ def gather_phase(device) -> tuple:
     return launches, records
 
 
+def sector_bytes(offsets: torch.Tensor) -> int:
+    """Bytes of the distinct 32-byte sectors that hold the f32 elements at the
+    flat ``offsets`` of one table."""
+    return 32 * int(torch.unique(offsets.reshape(-1).long() // 8).numel())
+
+
+# The probes of phase 35 (tools/probe_pallas_gather.py): the record's name,
+# its ``b_*`` function and the def line of the Pallas kernel each replaces
+PROBE_KERNELS = (
+    ("K12t", "take_along_lanes", probe_pallas_gather.b_taa_lanes, 59),
+    ("K12r", "row_gather", probe_pallas_gather.b_row_gather, 81),
+    ("K11r", "flat_gather_2d", probe_pallas_gather.b_flat_gather_2d, 104),
+    ("K12s", "sublane_gather", probe_pallas_gather.b_sublane_gather, 128),
+    ("K12a", "scatter_add", probe_pallas_gather.b_scatter_add, 155),
+)
+PROBE_LOOKUPS = 1 << 20  # the larger parity size: many waves of blocks
+MAX_SCATTER_ADD_REL_L1 = 1e-6  # K12a with duplicates and random f32 weights
+
+
+def probe_plain(label: str):
+    """The plain version of a probe kernel, on its ``b_*`` function's arguments."""
+    return {
+        "K12t": probe_gather.take_along_lanes_reference,
+        "K12r": probe_gather.row_gather_reference,
+        "K11r": lambda tab, hi, lo: gather_ops.gather2d_reference(
+            tab, hi.reshape(-1), lo.reshape(-1)).reshape(hi.shape),
+        "K12s": probe_gather.sublane_gather_reference,
+        "K12a": lambda idx, val: probe_gather.scatter_add_reference(
+            idx, val, (probe_pallas_gather.SCATTER_N // 128, 128)),
+    }[label]
+
+
+def probe_inputs(label: str, rng, n: int, device, weights: str = "integer") -> tuple:
+    """Seeded arguments of a probe kernel with ``n`` lookups into the
+    probe's table (K12t: ``n`` rows of 128), the table's first and last
+    entries among them; K12a's indices have duplicates, its weights are
+    small integers (sums exact in any order) or uniform in [0, 1)."""
+    def table(rows, width):
+        return torch.tensor(rng.standard_normal((rows, width), dtype=np.float32), device=device)
+
+    def lookups(hi, shape):
+        idx = rng.integers(0, hi, n)
+        idx[0], idx[-1] = 0, hi - 1
+        return torch.tensor(idx.astype(np.int32).reshape(shape), device=device)
+
+    if label == "K12t":
+        return table(n, 128), lookups(128, (n, 1))
+    if label == "K12r":
+        return table(4096, 64), lookups(4096, (n,))
+    if label == "K11r":
+        flat = lookups(2048 * 128, (n // 128, 128))
+        return table(2048, 128), flat // 128, flat % 128
+    if label == "K12s":
+        return table(2048, 128), lookups(2048, (n // 128, 128))
+    idx = lookups(probe_pallas_gather.SCATTER_N, (n // 128, 128))
+    if weights == "integer":
+        val = rng.integers(-3, 4, idx.shape).astype(np.float32)
+    else:
+        val = rng.uniform(0.0, 1.0, idx.shape).astype(np.float32)
+    return idx, torch.tensor(val, device=device)
+
+
+def probe_library(label: str, args: tuple):
+    """The one PyTorch call of a probe kernel's function, with its int64
+    index copies made here, outside the timed window."""
+    if label == "K12t":
+        blk, idx = args
+        idx64 = idx.long()
+        return lambda: torch.take_along_dim(blk, idx64, 1)
+    if label == "K12r":
+        tab, idx = args
+        return lambda: tab[idx]
+    if label == "K11r":
+        tab, hi, lo = args
+        return lambda: tab[hi, lo]
+    if label == "K12s":
+        tab, idx = args
+        idx64 = idx.long()
+        return lambda: torch.gather(tab, 0, idx64)
+    idx, val = args
+    idx64, flat_val = idx.reshape(-1).long(), val.reshape(-1)
+    return lambda: torch.zeros(probe_pallas_gather.SCATTER_N, device=val.device).index_put_(
+        (idx64,), flat_val, accumulate=True)
+
+
+def probe_bytes(label: str, args: tuple) -> int:
+    """The bytes a probe kernel must move on ``args`` (see :func:`roofline`)."""
+    if label == "K12t":
+        blk, idx = args
+        rows = torch.arange(idx.shape[0], device=idx.device)
+        return 4 * idx.numel() * 2 + sector_bytes(rows * blk.shape[1] + idx[:, 0])
+    if label == "K12r":
+        tab, idx = args
+        width = tab.shape[1]
+        offsets = idx[:, None].long() * width + torch.arange(width, device=idx.device)
+        return 4 * idx.numel() + 4 * idx.numel() * width + sector_bytes(offsets)
+    if label == "K11r":
+        tab, hi, lo = args
+        return 8 * hi.numel() + 4 * hi.numel() + sector_bytes(hi.long() * tab.shape[1] + lo)
+    if label == "K12s":
+        tab, idx = args
+        lanes = torch.arange(tab.shape[1], device=idx.device)
+        return 4 * idx.numel() * 2 + sector_bytes(idx.long() * tab.shape[1] + lanes)
+    idx, val = args
+    return 4 * idx.numel() + 4 * val.numel() + 4 * probe_pallas_gather.SCATTER_N
+
+
+def probe_phase(device) -> tuple:
+    """Phase 35: the dynamic-indexing probes (``probe_pallas_gather.main()``)
+    on the card at the tool's sizes, their launch counts of K12t, K12r, K11r,
+    K12s and K12a; then each kernel against its plain version on the
+    probe's inputs, on seeded inputs at the probe's shapes and at 2^20
+    lookups (gathers and integer-weight K12a identical, random-weight K12a
+    within rel L1 1e-6), and timed at the probe's shapes beside its plain
+    version and its one PyTorch call."""
+    kernels.LAUNCHES.clear()
+    probe_pallas_gather.main(device=device)
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in (
+        "take_along_lanes", "row_gather", "gather2d", "sublane_gather", "scatter_add")}
+    log(f"probe_pallas_gather: launches {launches}")
+    check(all(n > 0 for n in launches.values()),
+          f"K12t, K12r, K11r, K12s and K12a launched by the probes: {launches}")
+    keys = probe_pallas_gather.sort_keys(probe_pallas_gather.P, device)
+    check(torch.equal(keys.cpu(), probe_pallas_gather.sort_keys(probe_pallas_gather.P, "cpu")),
+          "the sort keys wrap in int32 on the card as on the host")
+
+    rng = np.random.default_rng(PARITY_SEED)
+    records = {}
+    for label, name, make, _ in PROBE_KERNELS:
+        fn, args = make(device)
+        plain = probe_plain(label)
+        n_probe = args[-1].numel() if label != "K12a" else args[0].numel()
+        cases = {"the probe's": args,
+                 f"seeded, {n_probe} lookups": probe_inputs(label, rng, n_probe, device),
+                 f"seeded, {PROBE_LOOKUPS} lookups": probe_inputs(
+                     label, rng, PROBE_LOOKUPS, device)}
+        for case, case_args in cases.items():
+            out, ref = fn(*case_args), plain(*case_args)
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"{label} differs from its plain version ({case} inputs)")
+        summary = f"identical on the probe's and seeded inputs at {n_probe} and {PROBE_LOOKUPS}"
+        if label == "K12a":
+            for n in (n_probe, PROBE_LOOKUPS):
+                case_args = probe_inputs(label, rng, n, device, weights="random")
+                out, ref = fn(*case_args), plain(*case_args)
+                rel_l1 = float((out - ref).abs().sum() / ref.abs().sum())
+                check(rel_l1 <= MAX_SCATTER_ADD_REL_L1,
+                      f"K12a rel L1 {rel_l1} with random weights at {n} lookups")
+                summary += f"; random weights at {n}: rel L1 {rel_l1:.3e}"
+        ms = time_cuda(lambda: fn(*args), 50)
+        plain_ms = time_cuda(lambda: plain(*args), 50)
+        library_ms = time_cuda(probe_library(label, args), 50)
+        log(f"{label} ({name}) parity: {summary}; timing {label} {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, the one PyTorch call {library_ms:.4f} ms (CUDA events)")
+        bound = roofline(f"{label} at the probe's shapes", probe_bytes(label, args), 0.0,
+                         F32_OPS_PER_S)
+        records[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound,
+                         "library_ms": library_ms}
+    return launches, records
+
+
 @contextlib.contextmanager
 def swapped(owner, name: str, replacement):
     original = getattr(owner, name)
@@ -2892,7 +3096,7 @@ def main() -> None:
             star_launches, star_outputs = starbench_main_path(device)
 
             for label in ("K2", "K4", "K6", "K6s", "K7", "K5", "K5s", "K8", "K8p", "K9",
-                          "K10", "K11"):
+                          "K10", "K11", "K12"):
                 report_build(label, builds[label])
         spectral_record = spectral_parity(device)
         multifreq_launches = [lexington_archived(device)]
@@ -2957,6 +3161,7 @@ def main() -> None:
     cone_record = cone_parity(cone_sim, cone_x, device)
     del cone_sim, cone_x
     gather_launches, (gather_record, gather2d_record) = gather_phase(device)
+    probe_launches, probe_records = probe_phase(device)
 
     def kernel(name, source, replaces, n_launches, record):
         return {"name": name, "route": "cuda", "source": f"cmacionize_torch/csrc/{source}",
@@ -3013,6 +3218,10 @@ def main() -> None:
                gather_launches["gather"], gather_record),
         kernel("gather2d", "gather.cu", "tools/microbench_scatter.py:138",
                gather_launches["gather2d"], gather2d_record),
+        *(kernel(name, "gather.cu" if label == "K11r" else "probe_gather.cu",
+                 f"tools/probe_pallas_gather.py:{line}",
+                 probe_launches["gather2d" if label == "K11r" else name], probe_records[name])
+          for label, name, _, line in PROBE_KERNELS),
     ]
     print(json.dumps({"kernels": kernel_records}), flush=True)
     print(

@@ -32,8 +32,10 @@ def gather2d_reference(tbl2: torch.Tensor, rows: torch.Tensor, lanes: torch.Tens
     return tbl2[rows, lanes]
 
 
-def _function(name: str, n_pointers: int, n_ints: int):
-    fn = getattr(load_library(NAME), name)
+def _function(name: str, n_pointers: int, n_ints: int, library: str = NAME):
+    """``name`` of the library of ``csrc/<library>.cu``, typed: pointers,
+    then ints, then the stream."""
+    fn = getattr(load_library(library), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int

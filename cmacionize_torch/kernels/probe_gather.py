@@ -1,0 +1,120 @@
+"""K12t, K12r, K12s and K12a, the dynamic-indexing probes
+(``csrc/probe_gather.cu``), with their plain versions.
+
+:func:`take_along_lanes` (``out[t, 0] = blk[t, idx[t, 0]]``),
+:func:`row_gather` (``out[t, :] = tab[idx[t], :]``), :func:`sublane_gather`
+(``out[s, l] = tab[idx[s, l], l]``) and :func:`scatter_add` (``out = 0``, then
+``out.flat[idx.flat] += val.flat``) dispatch on the device: CPU tensors run
+their ``*_reference``, CUDA tensors launch the kernel, which counts its
+launches in ``kernels.LAUNCHES`` under the wrapper's name.  There is no
+fallback between the two.  The wrappers check devices, dtypes, shapes and
+contiguity; they do not check the indices (that would read them back to the
+host), so they must lie in the table, as for :mod:`kernels.gather`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cmacionize_torch.kernels import LAUNCHES
+from cmacionize_torch.kernels.gather import _check, _function, _launch
+
+NAME = "probe_gather"
+
+
+def take_along_lanes_reference(blk: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12t: ``take_along_dim`` on dim 1."""
+    return torch.take_along_dim(blk, idx.long(), 1)
+
+
+def row_gather_reference(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12r: ``tab[idx]`` of a 2D table."""
+    return tab[idx]
+
+
+def sublane_gather_reference(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12s: ``gather`` on dim 0."""
+    return torch.gather(tab, 0, idx.long())
+
+
+def scatter_add_reference(idx: torch.Tensor, val: torch.Tensor, out_shape) -> torch.Tensor:
+    """Plain version of K12a: zeros of ``out_shape`` with ``val`` added at the
+    flat indices ``idx``, duplicates accumulated."""
+    out = torch.zeros(out_shape, dtype=torch.float32, device=val.device)
+    out.view(-1).index_put_((idx.reshape(-1).long(),), val.reshape(-1), accumulate=True)
+    return out
+
+
+def _fits_int32(label, *sizes):
+    if max(sizes) >= 2**31:
+        raise ValueError(f"{label}: sizes must fit int32")
+
+
+def take_along_lanes(blk: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[t, 0] = blk[t, idx[t, 0]]``: blk f32 [T, W], idx int32 [T, 1] →
+    f32 [T, 1]."""
+    if blk.device.type == "cpu":
+        return take_along_lanes_reference(blk, idx)
+    _check("take_along_lanes", (("blk", blk, torch.float32, 2), ("idx", idx, torch.int32, 2)),
+           blk.device)
+    if idx.shape != (blk.shape[0], 1):
+        raise ValueError(f"take_along_lanes: idx must be [{blk.shape[0]}, 1]; got "
+                         f"{list(idx.shape)}")
+    _fits_int32("take_along_lanes", blk.numel())
+    out = torch.empty(idx.shape, dtype=torch.float32, device=blk.device)
+    _launch("take_along_lanes", _function("cmi_take_along_lanes", 3, 2, NAME), blk, idx, out,
+            blk.shape[0], blk.shape[1])
+    LAUNCHES["take_along_lanes"] += 1
+    return out
+
+
+def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[t, :] = tab[idx[t], :]``: tab f32 [R, W], idx int32 [T] → f32
+    [T, W]."""
+    if tab.device.type == "cpu":
+        return row_gather_reference(tab, idx)
+    _check("row_gather", (("tab", tab, torch.float32, 2), ("idx", idx, torch.int32, 1)),
+           tab.device)
+    _fits_int32("row_gather", tab.numel(), idx.numel() * tab.shape[1])
+    out = torch.empty((idx.shape[0], tab.shape[1]), dtype=torch.float32, device=tab.device)
+    _launch("row_gather", _function("cmi_row_gather", 3, 2, NAME), tab, idx, out, idx.shape[0],
+            tab.shape[1])
+    LAUNCHES["row_gather"] += 1
+    return out
+
+
+def sublane_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[s, l] = tab[idx[s, l], l]``: tab f32 [R, L], idx int32 [S, L] →
+    f32 [S, L]."""
+    if tab.device.type == "cpu":
+        return sublane_gather_reference(tab, idx)
+    _check("sublane_gather", (("tab", tab, torch.float32, 2), ("idx", idx, torch.int32, 2)),
+           tab.device)
+    if idx.shape[1] != tab.shape[1]:
+        raise ValueError(f"sublane_gather: idx must have the table's {tab.shape[1]} lanes; "
+                         f"got {idx.shape[1]}")
+    _fits_int32("sublane_gather", tab.numel(), idx.numel())
+    out = torch.empty(idx.shape, dtype=torch.float32, device=tab.device)
+    _launch("sublane_gather", _function("cmi_sublane_gather", 3, 2, NAME), tab, idx, out,
+            idx.numel(), tab.shape[1])
+    LAUNCHES["sublane_gather"] += 1
+    return out
+
+
+def scatter_add(idx: torch.Tensor, val: torch.Tensor, out_shape) -> torch.Tensor:
+    """Zeros of ``out_shape`` (f32) with ``out.flat[idx.flat] += val.flat``:
+    idx int32 and val f32 of one shape; duplicates accumulate (on the card
+    by atomics, in no fixed order)."""
+    if val.device.type == "cpu":
+        return scatter_add_reference(idx, val, out_shape)
+    _check("scatter_add", (("idx", idx, torch.int32, val.dim()), ("val", val, torch.float32,
+                                                                  val.dim())), val.device)
+    if idx.shape != val.shape:
+        raise ValueError(f"scatter_add: idx and val must have one shape; got "
+                         f"{list(idx.shape)} and {list(val.shape)}")
+    out = torch.empty(out_shape, dtype=torch.float32, device=val.device)
+    _fits_int32("scatter_add", idx.numel(), out.numel())
+    _launch("scatter_add", _function("cmi_scatter_add", 3, 2, NAME), idx, val, out, idx.numel(),
+            out.numel())
+    LAUNCHES["scatter_add"] += 1
+    return out

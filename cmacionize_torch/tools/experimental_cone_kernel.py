@@ -74,9 +74,11 @@ def _expand(v, S, axis):
     return v.reshape(view).expand(G, C, S, S, S).reshape(G, C, S * S * S)
 
 
-def _march_group(chi_flat, tally_flat, pf, pi, shape, S, max_phases):
+def _march_group(chi_flat, tally_flat, pf, pi, shape, S, max_phases, unplaced=None):
     """March G chunks ([G, C, 8] packet blocks) side by side, phase for
-    phase as the Pallas kernel marches each one; returns the new blocks."""
+    phase as the Pallas kernel marches each one; returns the new blocks.
+    ``unplaced``, a [G, C] bool tensor if given, is or-ed with the lanes
+    absorbed in a phase where no single slab cell holds their tau_left."""
     nx, ny, nz = shape
     G, C = pf.shape[:2]
     S3 = S * S * S
@@ -177,6 +179,8 @@ def _march_group(chi_flat, tally_flat, pf, pi, shape, S, max_phases):
         # the chunk's branch: the Pallas kernel's lax.cond on any_abs
         D = torch.where(any_abs[:, None, None], ell * frac * wm, ell * wm)
         t_abs = torch.where(any_abs[:, None], t_abs, 0.0)
+        if unplaced is not None:
+            unplaced |= absorbed_now & (hit.sum(dim=2) != 1)
 
         dep = torch.sum(D, dim=1)  # [G, S³]
         tally_flat.index_add_(0, flat[live].reshape(-1), dep[live].reshape(-1))
@@ -218,11 +222,21 @@ def trace_packets_cone_reference(
     slab: int = 8,
     chunk: int = 512,
     max_phases: int = 128,
+    stats=None,
 ):
     """Plain PyTorch cone march: the Pallas kernel's arithmetic, phase for
     phase, on ``_GROUP`` chunks at a time (in chunk order, as the TPU's
     sequential grid takes them).  Returns (tally3d, pf_out, pi_out) like
     :func:`trace_packets_cone`; the inputs are not modified.
+
+    The Pallas kernel decides absorption by the slab's optical-depth sum
+    (``tau < tau_tot``) and places it by the prefix scans (the cell with
+    ``cum_entry <= tau < cum``).  The two totals differ at f32 round-off; a
+    lane whose tau_left lies between them is absorbed with no cell hit, at
+    ``t_abs = 0``, i.e. where it entered the slab.  With ``stats``,
+    ``stats["unplaced"]`` receives a [P] bool tensor of the lanes absorbed
+    so (or with more than one cell hit), whose positions K10, which sums in
+    travel order and absorbs only in a cell, does not share.
     """
     _check(pf, shape, slab, chunk)
     P = pf.shape[0]
@@ -231,10 +245,15 @@ def trace_packets_cone_reference(
     tally_flat = tally.view(-1)
     pf_b = pf.reshape(P // chunk, chunk, 8)
     pi_b = pi.reshape(P // chunk, chunk, 8)
+    unplaced = None
+    if stats is not None:
+        unplaced = torch.zeros((P // chunk, chunk), dtype=torch.bool, device=chi3d.device)
+        stats["unplaced"] = unplaced.view(P)
     pf_out, pi_out = [], []
     for start in range(0, P // chunk, _GROUP):
-        f, i = _march_group(chi_flat, tally_flat, pf_b[start:start + _GROUP],
-                            pi_b[start:start + _GROUP], shape, slab, max_phases)
+        group = slice(start, start + _GROUP)
+        f, i = _march_group(chi_flat, tally_flat, pf_b[group], pi_b[group], shape, slab,
+                            max_phases, None if unplaced is None else unplaced[group])
         pf_out.append(f)
         pi_out.append(i)
     return tally, torch.cat(pf_out).reshape(P, 8), torch.cat(pi_out).reshape(P, 8)

@@ -189,6 +189,52 @@ def test_cone_matches_jax_transparent_and_opaque(chi_value, state):
     assert (out_t[2][:, 3] == state).all()
 
 
+def _prefix_total(a):
+    """The last cell of the Pallas kernel's prefix scan along + travel
+    (shifts 1, 2, 4) of eight f32 values."""
+    a = np.asarray(a, np.float32)
+    for shift in (1, 2, 4):
+        a = np.concatenate([a[:shift], a[shift:] + a[:-shift]])
+    return a[-1]
+
+
+def _row_lanes(seed):
+    """An 8³ grid and 512 lanes along +x from x = 0, eight in each of its 64
+    rows, each with tau_left the prefix scan's total of its row."""
+    chi = np.random.default_rng(seed).uniform(0.0, 1.0, (8, 8, 8)).astype(np.float32)
+    row = np.arange(512) % 64
+    y, z = row // 8, row % 8
+    pos = np.stack([np.zeros(512), y + 0.5, z + 0.5], axis=1).astype(np.float32)
+    d = np.tile(np.float32([1.0, 0.0, 0.0]), (512, 1))
+    tau = np.array([_prefix_total(chi[:, j, k]) for j, k in zip(y, z)], np.float32)
+    return chi, (pos, d, tau, np.ones(512, np.float32))
+
+
+def test_unplaced_absorptions_are_the_pallas_kernels():
+    # tau_left at the prefix scans' total lies past every cell's interval:
+    # where the slab's sum rounds above it, the lane is absorbed in no cell,
+    # where it entered the slab, by the Pallas kernel and the plain version
+    # alike, and stats["unplaced"] marks exactly those lanes
+    chi, packets = _row_lanes(5)
+    out_j, out_t = _both(chi, packets, (8, 8, 8))
+    _assert_cone_close(out_j, out_t)
+    pf, pi = cone.pack_packets(*(torch.tensor(a) for a in packets), (8, 8, 8))
+    stats = {}
+    _, pf_r, pi_r = cone.trace_packets_cone_reference(torch.tensor(chi), pf, pi,
+                                                      shape=(8, 8, 8), stats=stats)
+    unplaced = stats["unplaced"]
+    absorbed = pi_r[:, 3] == 1
+    assert 0 < int(unplaced.sum()) < 512
+    assert torch.equal(unplaced, absorbed)
+    assert torch.equal(pf_r[unplaced, :3], pf[unplaced, :3])
+    assert (out_j[1][out_j[2][:, 3] == 1, 0] == 0.0).all()
+    assert (pi_r[~absorbed, 3] == 2).all()
+    # stats leave the march as it was
+    assert all(torch.equal(a, b) for a, b in zip(
+        (pf_r, pi_r), cone.trace_packets_cone_reference(torch.tensor(chi), pf, pi,
+                                                        shape=(8, 8, 8))[1:]))
+
+
 @pytest.mark.parametrize("case", ["stratified", "incoherent"])
 def test_cone_then_k1_matches_k1_alone(case):
     if case == "stratified":

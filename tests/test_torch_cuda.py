@@ -1,13 +1,15 @@
 """The CUDA kernels (K1-K7, K4f, K5, K5s, K5d, K8, K8p, K9c, K9p, K10, K11,
-K11r) and the port's drivers on the card (marked ``cuda``).
+K11r, K12t, K12r, K12s, K12a) and the port's drivers on the card (marked
+``cuda``).
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip where CUDA is
 missing; the plain versions they compare against are tested against the JAX
 package in test_torch_traversal.py, test_torch_hydro.py,
 test_torch_spectral.py, test_torch_temperature.py, test_torch_temperature_f32.py,
 test_torch_voronoi*.py, test_torch_amr.py, test_torch_dust.py,
-test_torch_polarization.py, test_torch_domain.py, test_torch_cone.py and
-test_torch_microbench_scatter.py (against the JAX tools).  The file imports
+test_torch_polarization.py, test_torch_domain.py, test_torch_cone.py,
+test_torch_microbench_scatter.py and test_torch_probe_pallas_gather.py
+(against the JAX tools).  The file imports
 no JAX, so that it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
@@ -1297,7 +1299,7 @@ def test_sharded_rhd_driver_on_card(cuda):
         float(single.state.rho.double().sum()), rel=1e-4)
 
 
-# -- K10, K11, K11r ----------------------------------------------------------
+# -- K10, K11, K11r, K12t, K12r, K12s, K12a ----------------------------------------------------------
 
 
 def _cone_compare(out_k, out_r, n, max_state_mismatch=1):
@@ -1361,6 +1363,52 @@ def test_cone_kernel_equals_plain_version_on_incoherent_lanes(cuda):
     assert torch.equal(pi[:, 3], torch.zeros_like(pi[:, 3]))  # the inputs are untouched
 
 
+def test_cone_kernel_places_what_the_plain_version_leaves_unplaced(cuda):
+    # 512 lanes along +x from x = 0 through an 8³ grid, eight in each row,
+    # tau_left the plain version's prefix-scan total of the row.  Where its
+    # slab sum rounds above that, the plain version (on the CPU here, so that
+    # the sum's order is fixed) absorbs the lane where it entered; K10 sums
+    # the row in travel order and absorbs the lane in the row's last cell
+    # where that sum rounds above tau_left, else lets it escape at x = 8
+    from cmacionize_torch.tools import experimental_cone_kernel as cone
+
+    shape = (8, 8, 8)
+    chi = np.random.default_rng(5).uniform(0.0, 1.0, shape).astype(np.float32)
+    row = np.arange(512) % 64
+    y, z = row // 8, row % 8
+    tau = []
+    for j, k in zip(y, z):
+        a = chi[:, j, k]
+        for shift in (1, 2, 4):
+            a = np.concatenate([a[:shift], a[shift:] + a[:-shift]])
+        tau.append(a[-1])
+    tau = np.asarray(tau, np.float32)
+    travel_sum = np.cumsum(chi[:, y, z], axis=0, dtype=np.float32)[-1]
+    k10_absorbs = torch.tensor(tau < travel_sum)
+    packets = (np.stack([np.zeros(512), y + 0.5, z + 0.5], axis=1), np.tile([1.0, 0, 0], (512, 1)),
+               tau, np.ones(512))
+    pf, pi = cone.pack_packets(*(torch.tensor(np.asarray(a, np.float32)) for a in packets), shape)
+    stats = {}
+    tally_r, pf_r, pi_r = cone.trace_packets_cone_reference(torch.tensor(chi), pf, pi,
+                                                            shape=shape, stats=stats)
+    kernels.LAUNCHES.clear()
+    tally_k, pf_k, pi_k = (a.cpu() for a in cone.trace_packets_cone(
+        torch.tensor(chi, device=cuda), pf.to(cuda), pi.to(cuda), shape=shape))
+    assert kernels.LAUNCHES["trace_packets_cone"] == 1
+    unplaced = stats["unplaced"]
+    assert int((unplaced & k10_absorbs).sum()) > 0 and int((~k10_absorbs).sum()) > 0
+    assert (pi_r[unplaced, 3] == 1).all() and (pf_r[unplaced, 0] == 0.0).all()
+    assert torch.equal(pi_k[:, 3], torch.where(k10_absorbs, 1, 2).to(torch.int32))
+    x = pf_k[:, 0]
+    assert ((x[k10_absorbs] > 7.0) & (x[k10_absorbs] <= 8.0)).all()
+    assert (x[~k10_absorbs] == 8.0).all()
+    assert torch.equal(pf_k[:, 1:3], pf_r[:, 1:3])
+    placed = (pi_k[:, 3] == pi_r[:, 3]) & ~unplaced
+    assert float((pf_k[placed, :3] - pf_r[placed, :3]).abs().max()) <= 1e-4
+    rel_l1 = float((tally_k - tally_r).abs().sum() / tally_r.abs().sum())
+    assert rel_l1 <= 1e-5, rel_l1
+
+
 def test_cone_kernel_refuses_what_it_does_not_take(cuda):
     from cmacionize_torch.kernels.trace_packets_cone import trace_packets_cone_cuda
 
@@ -1396,3 +1444,103 @@ def test_gather_kernels_equal_plain_versions(cuda, n):
     assert kernels.LAUNCHES["gather"] == 1 and kernels.LAUNCHES["gather2d"] == 1
     with pytest.raises(ValueError, match="idx must be"):
         gather.gather(tbl, idx.long())
+
+
+def _probe_lookups(rng, n, hi, shape, cuda):
+    """``n`` random indices below ``hi`` with the first and last entries of
+    the table among them, int32 on the card."""
+    idx = rng.integers(0, hi, n)
+    idx[0], idx[-1] = hi - 1, 0
+    return torch.tensor(idx.astype(np.int32).reshape(shape), device=cuda)
+
+
+@pytest.mark.parametrize("n", [8192, 2**20])
+def test_probe_gather_kernels_equal_plain_versions(cuda, n):
+    from cmacionize_torch.kernels import probe_gather as pg
+
+    rng = np.random.default_rng(n + 1)
+
+    def table(rows, width):
+        return torch.tensor(rng.normal(size=(rows, width)).astype(np.float32), device=cuda)
+
+    blk = table(n, 128)
+    lanes = _probe_lookups(rng, n, 128, (n, 1), cuda)
+    tab_rows = table(4096, 64)
+    rows = _probe_lookups(rng, n, 4096, (n,), cuda)
+    tab = table(2048, 128)
+    sub = _probe_lookups(rng, n, 2048, (n // 128, 128), cuda)
+    flat = torch.tensor(rng.permutation(2048 * 128)[:min(n, 2048 * 128)].astype(np.int32),
+                        device=cuda)
+    val = torch.tensor(rng.normal(size=flat.shape).astype(np.float32), device=cuda)
+    kernels.LAUNCHES.clear()
+    assert torch.equal(pg.take_along_lanes(blk, lanes), pg.take_along_lanes_reference(blk, lanes))
+    assert torch.equal(pg.row_gather(tab_rows, rows), pg.row_gather_reference(tab_rows, rows))
+    assert torch.equal(pg.sublane_gather(tab, sub), pg.sublane_gather_reference(tab, sub))
+    # distinct indices: no two atomics meet
+    assert torch.equal(pg.scatter_add(flat, val, (2048, 128)),
+                       pg.scatter_add_reference(flat, val, (2048, 128)))
+    assert {k: kernels.LAUNCHES[k] for k in (
+        "take_along_lanes", "row_gather", "sublane_gather", "scatter_add")} == {
+        "take_along_lanes": 1, "row_gather": 1, "sublane_gather": 1, "scatter_add": 1}
+
+
+def test_scatter_add_kernel_with_duplicates(cuda):
+    from cmacionize_torch.kernels import probe_gather as pg
+
+    rng = np.random.default_rng(5)
+    idx = _probe_lookups(rng, 2**20, 65536, (2**12, 256), cuda)  # ~16 lookups per index
+    weights = torch.tensor(rng.integers(-3, 4, idx.shape).astype(np.float32), device=cuda)
+    out = pg.scatter_add(idx, weights, (2048, 128))
+    assert torch.equal(out, pg.scatter_add_reference(idx, weights, (2048, 128)))
+    assert float(out.view(-1)[65536:].abs().max()) == 0.0  # zeroed past the indices
+    weights = torch.tensor(rng.uniform(0.0, 1.0, idx.shape).astype(np.float32), device=cuda)
+    out = pg.scatter_add(idx, weights, (2048, 128))
+    ref = pg.scatter_add_reference(idx, weights, (2048, 128))
+    assert float((out - ref).abs().sum() / ref.abs().sum()) <= 1e-6
+
+
+def test_flat_gather_2d_launches_k11r(cuda):
+    from cmacionize_torch.tools import probe_pallas_gather as tool
+
+    fn, args = tool.b_flat_gather_2d(cuda)
+    kernels.LAUNCHES.clear()
+    out = fn(*args)
+    assert kernels.LAUNCHES["gather2d"] == 1
+    tab, hi, lo = args
+    assert out.shape == hi.shape and torch.equal(out, tab[hi.long(), lo.long()])
+
+
+def test_probe_gather_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from cmacionize_torch.kernels import probe_gather as pg
+
+    tab = torch.zeros((2048, 128), device=cuda)
+    idx = torch.zeros((8, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="idx must be"):
+        pg.sublane_gather(tab, idx.long())
+    with pytest.raises(ValueError, match="tab must be"):
+        pg.sublane_gather(tab.double(), idx)
+    with pytest.raises(ValueError, match="idx must be"):
+        pg.sublane_gather(tab, idx.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        pg.sublane_gather(tab, idx.t().contiguous().t())
+    with pytest.raises(ValueError, match="contiguous"):
+        pg.take_along_lanes(tab[:, ::2], idx[:, :1].repeat(256, 1))
+    with pytest.raises(ValueError, match="idx must be"):
+        pg.take_along_lanes(tab, idx[:, :2].contiguous())
+    with pytest.raises(ValueError, match="idx must be"):
+        pg.row_gather(tab, idx)
+    with pytest.raises(ValueError, match="val must be"):
+        pg.scatter_add(idx, idx, (2048, 128))
+    with pytest.raises(ValueError, match="one shape"):
+        pg.scatter_add(idx, tab[:4], (2048, 128))
+
+
+def test_probe_tool_on_card(cuda, capsys):
+    from cmacionize_torch.tools import probe_pallas_gather as tool
+
+    kernels.LAUNCHES.clear()
+    seconds = tool.main(device=cuda)
+    assert list(seconds) == [name for name, _ in tool.PROBES]
+    assert all(kernels.LAUNCHES[k] > 0 for k in (
+        "take_along_lanes", "row_gather", "gather2d", "sublane_gather", "scatter_add"))
+    assert capsys.readouterr().out.count("correct=True") == 5

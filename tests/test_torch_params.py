@@ -183,6 +183,8 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.tools.microbench_scatter
         import cmacionize_torch.kernels.trace_packets_cone
         import cmacionize_torch.kernels.gather
+        import cmacionize_torch.kernels.probe_gather
+        import cmacionize_torch.tools.probe_pallas_gather
         # the atomic tables are read by path, not through cmacionize_tpu.data
         import torch
         cmacionize_torch.data.load("verner_photo.npz")
