@@ -9,9 +9,10 @@ Phases (any failed check raises, so the script exits non-zero):
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles K1 (``cmacionize_torch/csrc/trace_packets.cu``) with nvcc,
    while the builds of K2-K7, K5, K5s, K8, K8p, K9 (K9c and K9p, one
-   library), K10, K11 (K11 and K11r, one library) and K12 (K12t, K12r, K12s
-   and K12a, one library) run beside it (one nvcc per source, all started
-   together), and two spawned worker processes build
+   library), K10, K11 (K11 and K11r, one library), K12 (K12t, K12r, K12s
+   and K12a, one library), K13 (K13h, K13e, K13w and K13f, one library) and
+   K14 (K14a, K14b and K14c, one library) run beside it (one nvcc per source,
+   all started together), and two spawned worker processes build
    the Voronoi grids of phases 14 and 19 and the AMR grids of phase 21 on the
    host;
 3. kernel parity: K1 against its plain PyTorch version on the card, on the
@@ -37,11 +38,11 @@ Phases (any failed check raises, so the script exits non-zero):
    Hosokawa-Inutsuka band and the JAX package's trajectory; then K1 alone in
    this (opaque) regime;
 8. build: K2, K4 (with K4f), K6, K6s, K7, K5 (with K5d), K5s, K8, K8p, K9,
-   K10, K11 and K12 (``cmacionize_torch/csrc/{trace_packets_spectral,
+   K10, K11, K12, K13 and K14 (``cmacionize_torch/csrc/{trace_packets_spectral,
    temperature,trace_voronoi,trace_voronoi_spectral,voronoi_flux,
    trace_octree,trace_octree_spectral,peel_off,peel_off_polarized,compact,
-   trace_packets_cone,gather,probe_gather}.cu``), their seconds and
-   ``ptxas -v`` reports;
+   trace_packets_cone,gather,probe_gather,probe_deposit,probe_cohort}.cu``),
+   their seconds and ``ptxas -v`` reports;
 9. K2 parity: the spectral march against its plain PyTorch version on the
    card, on a 64³ lexington-like state made with numpy from a fixed seed
    (χ_H, χ_He, 1e6 packets from the centre in Planck-sampled bins): flags,
@@ -190,7 +191,26 @@ Phases (any failed check raises, so the script exits non-zero):
     against its plain version on the probe's inputs, on seeded inputs at
     the probe's shapes and at 2^20 lookups (identical; K12a with duplicates
     and random weights within rel L1 1e-6), and timed at the probe's shapes
-    beside its plain version and its one PyTorch call.
+    beside its plain version and its one PyTorch call;
+36. the deposit and DDA-step probes (``cmacionize_torch.tools.
+    probe_deposit.main()`` and ``probe_deposit2.main()``) at the tools' sizes
+    (1024 packets or lanes, 7808 steps), their launch counts of K13h (the
+    shifted histogram of D2-D8b), K13e (E), K13w (W2) and K13f (D12); then
+    each kernel against its plain version on the tools' inputs, on seeded
+    ones at the tools' shapes (K13h also at 300 steps) and on a larger seeded
+    case (K13h 2^16 packets x 7808 steps, K13e and K13w 2^20 lanes): K13h
+    identical with integer weights and within rel 1e-5 per cell with random
+    ones, the others identical in every lane and bit; each timed beside its
+    plain version (K13h also beside ``torch.bincount`` on the expanded
+    cells), K13e and K13w with their latency floors;
+37. the cohort mechanics probes (``cmacionize_torch.tools.
+    probe_cohort_kernel.main()``) at the tool's sizes, their launch counts
+    of K14a (run_a), K14b (run_b), K14c (run_c) and K13h (run_d); then K14a,
+    K14b and K14c against their plain versions on the tool's inputs, seeded
+    ones at its shapes and a larger seeded case (2^20 counts, 4096 rows,
+    15616 items): identical, K14c's scalar within 1e-6 of Σ|x·y| and the
+    same bits on a second run; each timed beside its plain version, K14c
+    also beside ``pk.clone()``.
 
 Each kernel's record carries ``bound_ms``, the least time an H100 could take
 for the same work (bytes over the HBM rate or operations over the peak
@@ -219,6 +239,8 @@ from cmacionize_torch import kernels
 from cmacionize_torch.device import describe, require_cuda
 from cmacionize_torch.kernels import build
 from cmacionize_torch.kernels import gather as gather_ops
+from cmacionize_torch.kernels import probe_cohort as probe_cohort_ops
+from cmacionize_torch.kernels import probe_deposit as probe_deposit_ops
 from cmacionize_torch.kernels import probe_gather
 from cmacionize_torch.kernels.peel_off import peel_off_cuda
 from cmacionize_torch.kernels.peel_off_polarized import peel_off_polarized_cuda
@@ -265,6 +287,7 @@ from cmacionize_torch.parallel import domain3d
 from cmacionize_torch.tools import experimental_cone_kernel as cone
 from cmacionize_torch.tools import experimental_emission_octa as octa
 from cmacionize_torch.tools import microbench_scatter
+from cmacionize_torch.tools import probe_cohort_kernel, probe_deposit, probe_deposit2
 from cmacionize_torch.tools import probe_pallas_gather
 from cmacionize_torch.utils.params import ParameterFile
 
@@ -284,6 +307,8 @@ KERNEL_SOURCES = {
     "K9": "compact",  # K9c and K9p
     "K10": "trace_packets_cone", "K11": "gather",  # K11 and K11r
     "K12": "probe_gather",  # K12t, K12r, K12s and K12a
+    "K13": "probe_deposit",  # K13h, K13e, K13w and K13f
+    "K14": "probe_cohort",  # K14a, K14b and K14c
 }
 PC = 3.086e16
 MYR = 3.15576e13
@@ -1392,10 +1417,12 @@ def timed_voronoi_grid(box, n_generators: int, seed: int, num_lloyd: int):
 
 
 def report_grid(label: str, future):
+    t0 = time.perf_counter()
     grid, seconds = future.result()
     log(f"grid: {label}: {grid.n_cells} cells, K = {grid.max_faces} faces per row (mean "
         f"{float((grid.neighbors != -2).sum(1).mean()):.2f} real), built on the host in "
-        f"{seconds:.2f} s (set-up)")
+        f"{seconds:.2f} s (set-up); the main process waited {time.perf_counter() - t0:.2f} s "
+        f"for it")
     return grid
 
 
@@ -1829,13 +1856,16 @@ def timed_amr_grid(geometry, scheme, density: float):
 
 
 def report_amr_grid(label: str, future, n_leaves: int):
+    t0 = time.perf_counter()
     grid, t_build, t_octree = future.result()
+    waited = time.perf_counter() - t0
     root, children = grid.octree()
     per_level = np.bincount(grid.levels, minlength=grid.max_level + 1).tolist()
     log(f"grid: {label}: {grid.n_cells} leaves, per level {per_level}; {children.shape[0]} "
         f"internal nodes ({children.nbytes / 1e6:.1f} MB of children rows); finest lattice "
         f"{grid.fine_shape}; owner is None: {grid.owner is None}; built on the host in "
-        f"{t_build:.2f} s, octree tables {t_octree:.2f} s (set-up, in a worker process)")
+        f"{t_build:.2f} s, octree tables {t_octree:.2f} s (set-up, in a worker process); "
+        f"the main process waited {waited:.2f} s for it")
     check(grid.n_cells == n_leaves, f"{label}: {grid.n_cells} leaves != {n_leaves}")
     check(grid.owner is None, f"{label} has a dense owner map: not the octree path")
     return grid
@@ -3040,6 +3070,290 @@ def probe_phase(device) -> tuple:
     return launches, records
 
 
+# The deposit and DDA-step probes of phase 36 (tools/probe_deposit.py,
+# probe_deposit2.py) and the cohort mechanics probes of phase 37
+# (tools/probe_cohort_kernel.py): the larger seeded cases, and the operations
+# per unit of work, counted from csrc/probe_deposit.cu and probe_cohort.cu
+DEPOSIT_PACKETS = 1 << 16  # K13h's larger case, at the tools' 7808 steps
+DDA_LANES = 1 << 20  # K13e's and K13w's larger case
+GATHER_ROWS = 4096  # K14b's larger case
+MAX_HISTOGRAM_REL_ERR = 1e-5  # K13h with random f32 weights, per cell
+MAX_STREAM_SUM_REL_ERR = 1e-6  # K14c's scalar, of sum |x y|
+OPS_PER_DEPOSIT = 3  # the cell (an addition and a mask) and the f32 addition
+# K13e per lane step: 3 x (floor, 2 additions, a division, abs), 2 minima, the
+# chi product and max, tau_cell, the test, tau / chi, the select, 3 FMAs (6),
+# the tau select and subtraction
+OPS_PER_K13E_STEP = 31
+# K13w per lane step: 2 minima, the chi product and max, the length and
+# tau_cell, the test, 2 equalities and the branch, one addition, the tau
+# select and subtraction
+OPS_PER_K13W_STEP = 13
+OPS_PER_GATHER_STEP = 3  # K14b: the lane (an addition and a mask), the f32 addition
+# The dependent chain of one step, in cycles, from the source: ~4 cycles for
+# each dependent FP32 instruction, ~30 for an IEEE division (a reciprocal
+# estimate and its Newton and correction steps).  K13e: floor, +1, -p, the
+# division, 2 minima (abs as operand modifiers), tau_cell, the test, the
+# select, the FMA; K13w: 2 minima, the equality, the addition and the
+# select of tmx; K14b: the f32 addition (the lane's shared-memory load does
+# not wait on the sum)
+CHAIN_CYCLES = {"K13e": 8 * 4 + 30, "K13w": 5 * 4, "K14b": 4}
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi``), in Hz."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def latency_floor(label: str, steps: int, ms: float) -> str:
+    """The least time of ``steps`` dependent steps of ``label``'s chain at the
+    card's maximum clock, and the cycles per step that ``ms`` implies."""
+    clock = sm_clock_hz()
+    floor_ms = steps * CHAIN_CYCLES[label] / clock * 1e3
+    return (f"latency floor {floor_ms:.6f} ms ({steps} steps x {CHAIN_CYCLES[label]} cycles at "
+            f"{clock / 1e6:.0f} MHz); measured {ms * 1e-3 * clock / steps:.1f} cycles per step")
+
+
+def seeded_lanes(rng, n: int, device):
+    """K13e's and K13w's directions: a in [0.05, 0.95], b in [-0.6, 0.6], a
+    few b = 0 (K13e's 1e-12 branch), some lanes past the unit circle (its
+    dz = 0 branch)."""
+    a = rng.uniform(0.05, 0.95, n).astype(np.float32)
+    b = rng.uniform(-0.6, 0.6, n).astype(np.float32)
+    b[:4] = 0.0
+    return torch.tensor(a, device=device), torch.tensor(b, device=device)
+
+
+def histogram_inputs(rng, n: int, device, weights: str):
+    """K13h's packets: random lanes in [0, 127] (both ends among them),
+    integer weights in [-3, 3] or uniform [0, 1) ones."""
+    lidx = rng.integers(0, 128, n)
+    lidx[:2] = (0, 127)
+    dep = rng.integers(-3, 4, n) if weights == "integer" else rng.uniform(0.0, 1.0, n)
+    return (torch.tensor(dep.astype(np.float32), device=device),
+            torch.tensor(lidx.astype(np.int32), device=device))
+
+
+def deposit_phase(device) -> tuple:
+    """Phase 36: ``probe_deposit.main()`` and ``probe_deposit2.main()`` on the
+    card at the tools' sizes, their launch counts of K13h, K13e, K13w and
+    K13f; then each kernel against its plain version on the tools' inputs,
+    seeded ones at the tools' shapes and a larger seeded case (K13h: 2^16
+    packets x 7808 steps; K13e, K13w: 2^20 lanes): K13h identical with
+    integer weights and within rel 1e-5 per cell with random ones (also at
+    300 steps), the others identical; each timed at the tools' shapes beside
+    its plain version (K13e and K13w from their parity calls) and, for K13h,
+    ``torch.bincount`` on the expanded cells."""
+    t_phase = time.perf_counter()
+    kernels.LAUNCHES.clear()
+    probe_deposit.main(device=device)
+    probe_deposit2.main(device=device)
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in (
+        "shifted_histogram", "dda_math", "dda_incremental", "fill_first")}
+    log(f"probe_deposit, probe_deposit2: launches {launches}")
+    check(all(n > 0 for n in launches.values()),
+          f"K13h, K13e, K13w and K13f launched by the tools: {launches}")
+    rng = np.random.default_rng(PARITY_SEED)
+    nstep = probe_deposit.NSTEP
+    records = {}
+
+    # K13h
+    dep, lidx = probe_deposit.sublane_inputs(device)
+    dep_m, lidx_m = probe_deposit.march_inputs(device)
+    cases = {"the tools' [1024, 1]": (dep, lidx, nstep, "integer"),
+             "the tools' [8, 128]": (dep_m, lidx_m, nstep, "integer"),
+             "seeded, 1024 packets": (*histogram_inputs(rng, 1024, device, "integer"), nstep,
+                                      "integer"),
+             "seeded, 1024 packets, 300 steps": (
+                 *histogram_inputs(rng, 1024, device, "random"), 300, "random"),
+             "seeded, 1024 packets, 300 steps, integer": (
+                 *histogram_inputs(rng, 1024, device, "integer"), 300, "integer"),
+             f"seeded, {DEPOSIT_PACKETS} packets": (
+                 *histogram_inputs(rng, DEPOSIT_PACKETS, device, "random"), nstep, "random")}
+    worst = worst_abs = 0.0
+    for case, (d, l, steps, weights) in cases.items():
+        out = probe_deposit_ops.shifted_histogram(d, l, steps)
+        ref = probe_deposit_ops.shifted_histogram_reference(d, l, steps)
+        torch.cuda.synchronize()
+        worst_abs = max(worst_abs, float((out - ref).abs().max()))
+        if weights == "integer":
+            check(torch.equal(out, ref), f"K13h differs from its plain version ({case})")
+        else:
+            err = float(((out.double() - ref.double()).abs() / ref.double().abs()).max())
+            check(err <= MAX_HISTOGRAM_REL_ERR, f"K13h rel err {err} ({case})")
+            worst = max(worst, err)
+            log(f"K13h {case}: per-cell rel err {err:.3e}")
+    ms = time_cuda(lambda: probe_deposit_ops.shifted_histogram(dep, lidx, nstep), 50)
+    plain_ms = time_cuda(lambda: probe_deposit_ops.shifted_histogram_reference(dep, lidx, nstep),
+                         5)
+    cells = ((lidx.reshape(1, -1).long() + torch.arange(nstep, device=device)[:, None])
+             % 128).reshape(-1)
+    weights = dep.reshape(1, -1).expand(nstep, -1).reshape(-1).contiguous()
+    library_ms = time_cuda(lambda: torch.bincount(cells, weights, minlength=128), 20)
+    del cells, weights
+    log(f"K13h (shifted_histogram) parity: identical with integer weights, worst rel err "
+        f"{worst:.3e} with random ones; timing K13h {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.bincount on the {nstep * dep.numel()} expanded cells {library_ms:.4f} ms "
+        f"(CUDA events, 1024 packets x {nstep} steps)")
+    bound = roofline("K13h at the tools' shapes", 8 * dep.numel() + 4 * 128,
+                     OPS_PER_DEPOSIT * dep.numel() * nstep, F32_OPS_PER_S)
+    records["shifted_histogram"] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                                    **bound, "library_ms": library_ms}
+
+    # K13e and K13w: one thread per lane, identical
+    for label, name, fn, plain, tool_inputs, ops in (
+        ("K13e", "dda_math", probe_deposit_ops.dda_math, probe_deposit_ops.dda_math_reference,
+         probe_deposit.e_inputs(device), OPS_PER_K13E_STEP),
+        ("K13w", "dda_incremental", probe_deposit_ops.dda_incremental,
+         probe_deposit_ops.dda_incremental_reference, probe_deposit2.w2_inputs(device),
+         OPS_PER_K13W_STEP),
+    ):
+        a, b = tool_inputs
+        ref, plain_ms = timed_call(lambda: plain(a, b, nstep))
+        check(torch.equal(fn(a, b, nstep), ref),
+              f"{label} differs from its plain version (the tools' inputs)")
+        # the seeded lanes at the tools' shape and the larger case: the plain
+        # version steps both in one call (lanes do not interact)
+        seeded, large = seeded_lanes(rng, 1024, device), seeded_lanes(rng, DDA_LANES, device)
+        ref = plain(*(torch.cat(pair) for pair in zip(seeded, large)), nstep)
+        out_seeded = fn(*(t.reshape(8, 128) for t in seeded), nstep)
+        check(torch.equal(out_seeded.reshape(-1), ref[:1024]),
+              f"{label} differs from its plain version (seeded, 1024 lanes)")
+        check(torch.equal(fn(*large, nstep), ref[1024:]),
+              f"{label} differs from its plain version (seeded, {DDA_LANES} lanes)")
+        del ref, seeded, large
+        ms = time_cuda(lambda: fn(a, b, nstep), 20)
+        log(f"{label} ({name}) parity: identical on the tools', seeded and {DDA_LANES}-lane "
+            f"inputs; timing {label} {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, "
+            f"1024 lanes x {nstep} steps); {latency_floor(label, nstep, ms)}")
+        bound = roofline(f"{label} at the tools' shapes", 12 * a.numel(),
+                         ops * a.numel() * nstep, F32_OPS_PER_S)
+        records[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound,
+                         "library_ms": None}
+
+    # K13f: the first value's bits in every cell
+    seeded = torch.tensor(rng.standard_normal((8, 128), dtype=np.float32), device=device)
+    negative = seeded.clone()
+    negative[0, 0] = -0.0
+    for case, d in {"the tools'": dep_m, "seeded": seeded, "seeded, -0.0 first": negative,
+                    "seeded, 2^20": torch.tensor(rng.standard_normal(1 << 20, dtype=np.float32),
+                                                 device=device)}.items():
+        out, ref = probe_deposit_ops.fill_first(d), probe_deposit_ops.fill_first_reference(d)
+        torch.cuda.synchronize()
+        check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+              f"K13f differs from its plain version ({case})")
+    ms = time_cuda(lambda: probe_deposit_ops.fill_first(dep_m), 50)
+    plain_ms = time_cuda(lambda: probe_deposit_ops.fill_first_reference(dep_m), 50)
+    log(f"K13f (fill_first) parity: identical bits (-0.0 included); timing K13f {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms (CUDA events)")
+    records["fill_first"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                             **roofline("K13f", 4 + 4 * 128, 0.0, F32_OPS_PER_S)}
+    log(f"phase 36 took {time.perf_counter() - t_phase:.2f} s")
+    return launches, records
+
+
+def cohort_phase(device) -> tuple:
+    """Phase 37: ``probe_cohort_kernel.main()`` on the card at the tool's
+    sizes, its launch counts of K14a, K14b, K14c and K13h (run_d); then K14a,
+    K14b and K14c against their plain versions on the tool's inputs, seeded
+    ones at the tool's shapes and a larger seeded case (K14a: 2^20 counts;
+    K14b: 4096 rows; K14c: twice the tool's 7808 items): K14a and K14b
+    identical, K14c's array identical and its scalar within 1e-6 of Σ|x·y|,
+    and the same bits on a second run; each timed beside its plain version
+    and, for K14c, ``pk.clone()``."""
+    t_phase = time.perf_counter()
+    kernels.LAUNCHES.clear()
+    probe_cohort_kernel.main(device=device)
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in (
+        "count_positive", "lane_gather_loop", "stream_rows", "shifted_histogram")}
+    log(f"probe_cohort_kernel: launches {launches}")
+    check(all(n > 0 for n in launches.values()),
+          f"K14a, K14b, K14c and K13h launched by the tool: {launches}")
+    rng = np.random.default_rng(PARITY_SEED + 1)
+    records = {}
+
+    def counts(n):
+        return torch.tensor(rng.integers(-3, 4, n).astype(np.int32), device=device)
+
+    (skip,), (run,) = probe_cohort_kernel.skip_inputs(device), probe_cohort_kernel.run_inputs(
+        device)
+    for case, cnt in {"all-skip": skip, "all-run": run, "seeded, 2048": counts(2048),
+                      "seeded, 2^20": counts(1 << 20)}.items():
+        out = probe_cohort_ops.count_positive(cnt)
+        ref = probe_cohort_ops.count_positive_reference(cnt)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"K14a differs from its plain version ({case})")
+    ms = time_cuda(lambda: probe_cohort_ops.count_positive(run), 50)
+    plain_ms = time_cuda(lambda: probe_cohort_ops.count_positive_reference(run), 50)
+    log(f"K14a (count_positive) parity: identical; timing K14a {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms (CUDA events, 2048 counts)")
+    records["count_positive"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **roofline(
+        "K14a", 4 * run.numel() + 4 * 1024, run.numel(), F32_OPS_PER_S)}
+
+    def gather_inputs(rows):
+        return (torch.tensor(rng.standard_normal((rows, 128), dtype=np.float32), device=device),
+                torch.tensor(rng.integers(-200, 300, (rows, 128)).astype(np.int32),
+                             device=device))
+
+    tab, idx = probe_cohort_kernel.b_inputs(device)
+    steps = probe_cohort_kernel.GATHER_STEPS
+    for case, args in {"the tool's": (tab, idx), "seeded, 8 rows": gather_inputs(8),
+                       f"seeded, {GATHER_ROWS} rows": gather_inputs(GATHER_ROWS)}.items():
+        out = probe_cohort_ops.lane_gather_loop(*args, steps)
+        ref = probe_cohort_ops.lane_gather_loop_reference(*args, steps)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"K14b differs from its plain version ({case})")
+    ms = time_cuda(lambda: probe_cohort_ops.lane_gather_loop(tab, idx, steps), 50)
+    plain_ms = time_cuda(lambda: probe_cohort_ops.lane_gather_loop_reference(tab, idx, steps), 3)
+    log(f"K14b (lane_gather_loop) parity: identical on the tool's and seeded inputs at 8 and "
+        f"{GATHER_ROWS} rows; timing K14b {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, "
+        f"8 rows x {steps} steps); {latency_floor('K14b', steps, ms)}")
+    records["lane_gather_loop"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                   **roofline("K14b at the tool's shapes", 12 * tab.numel(),
+                                              OPS_PER_GATHER_STEP * tab.numel() * steps,
+                                              F32_OPS_PER_S)}
+
+    (pk,) = probe_cohort_kernel.c_inputs(device)
+    items = pk.shape[0]
+    worst = 0.0
+    for case, p in {"the tool's": pk,
+                    "seeded": torch.tensor(rng.standard_normal((items, 16, 128), np.float32),
+                                           device=device),
+                    f"seeded, {2 * items} items": torch.tensor(
+                        rng.standard_normal((2 * items, 16, 128), np.float32), device=device)
+                    }.items():
+        out, s = probe_cohort_ops.stream_rows(p)
+        out_r, s_r = probe_cohort_ops.stream_rows_reference(p)
+        out2, s2 = probe_cohort_ops.stream_rows(p)
+        torch.cuda.synchronize()
+        magnitude = float((p[:, 0].double() * p[:, 1].double()).abs().sum())
+        err = abs(float(s) - float(s_r))
+        check(torch.equal(out, out_r), f"K14c's array differs from its plain version ({case})")
+        check(err <= MAX_STREAM_SUM_REL_ERR * magnitude,
+              f"K14c's sum {float(s)} against {float(s_r)} ({case})")
+        check(torch.equal(out2, out) and torch.equal(s2.view(torch.int32), s.view(torch.int32)),
+              f"K14c repeats itself bit for bit ({case})")
+        worst = max(worst, err)
+        log(f"K14c {case}: array identical, sum {float(s)!r} against {float(s_r)!r} "
+            f"({err / magnitude:.3e} of sum |x y|), a second run identical")
+        del p, out, out_r, out2
+    ms = time_cuda(lambda: probe_cohort_ops.stream_rows(pk), 20)
+    plain_ms = time_cuda(lambda: probe_cohort_ops.stream_rows_reference(pk), 20)
+    library_ms = time_cuda(lambda: pk.clone(), 20)
+    log(f"K14c (stream_rows) timing: K14c {ms:.4f} ms, plain {plain_ms:.4f} ms, pk.clone() "
+        f"{library_ms:.4f} ms (CUDA events, {pk.numel() * 4} bytes in and out)")
+    records["stream_rows"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                              **roofline("K14c at the tool's shapes", 2 * 4 * pk.numel(),
+                                         3 * items * 128, F32_OPS_PER_S),
+                              "library_ms": library_ms}
+    log(f"phase 37 took {time.perf_counter() - t_phase:.2f} s")
+    return launches, records
+
+
 @contextlib.contextmanager
 def swapped(owner, name: str, replacement):
     original = getattr(owner, name)
@@ -3096,7 +3410,7 @@ def main() -> None:
             star_launches, star_outputs = starbench_main_path(device)
 
             for label in ("K2", "K4", "K6", "K6s", "K7", "K5", "K5s", "K8", "K8p", "K9",
-                          "K10", "K11", "K12"):
+                          "K10", "K11", "K12", "K13", "K14"):
                 report_build(label, builds[label])
         spectral_record = spectral_parity(device)
         multifreq_launches = [lexington_archived(device)]
@@ -3162,6 +3476,8 @@ def main() -> None:
     del cone_sim, cone_x
     gather_launches, (gather_record, gather2d_record) = gather_phase(device)
     probe_launches, probe_records = probe_phase(device)
+    deposit_launches, deposit_records = deposit_phase(device)
+    cohort_launches, cohort_records = cohort_phase(device)
 
     def kernel(name, source, replaces, n_launches, record):
         return {"name": name, "route": "cuda", "source": f"cmacionize_torch/csrc/{source}",
@@ -3222,6 +3538,21 @@ def main() -> None:
                  f"tools/probe_pallas_gather.py:{line}",
                  probe_launches["gather2d" if label == "K11r" else name], probe_records[name])
           for label, name, _, line in PROBE_KERNELS),
+        kernel("shifted_histogram", "probe_deposit.cu", "tools/probe_deposit.py:34",
+               deposit_launches["shifted_histogram"] + cohort_launches["shifted_histogram"],
+               deposit_records["shifted_histogram"]),
+        kernel("dda_math", "probe_deposit.cu", "tools/probe_deposit.py:173",
+               deposit_launches["dda_math"], deposit_records["dda_math"]),
+        kernel("dda_incremental", "probe_deposit.cu", "tools/probe_deposit2.py:30",
+               deposit_launches["dda_incremental"], deposit_records["dda_incremental"]),
+        kernel("fill_first", "probe_deposit.cu", "tools/probe_deposit2.py:30",
+               deposit_launches["fill_first"], deposit_records["fill_first"]),
+        kernel("count_positive", "probe_cohort.cu", "tools/probe_cohort_kernel.py:50",
+               cohort_launches["count_positive"], cohort_records["count_positive"]),
+        kernel("lane_gather_loop", "probe_cohort.cu", "tools/probe_cohort_kernel.py:80",
+               cohort_launches["lane_gather_loop"], cohort_records["lane_gather_loop"]),
+        kernel("stream_rows", "probe_cohort.cu", "tools/probe_cohort_kernel.py:120",
+               cohort_launches["stream_rows"], cohort_records["stream_rows"]),
     ]
     print(json.dumps({"kernels": kernel_records}), flush=True)
     print(

@@ -43,10 +43,13 @@ def _function(name: str, n_pointers: int, n_ints: int, library: str = NAME):
 
 
 def _check(label, tensors, device):
+    """Each (name, tensor, dtype, dim) lies on ``device`` with that dtype, that
+    number of dimensions (any where dim is None) and contiguous."""
     for name, t, dtype, dim in tensors:
-        if t.device != device or t.dtype != dtype or t.dim() != dim:
+        if t.device != device or t.dtype != dtype or dim not in (None, t.dim()):
+            shape = "" if dim is None else f"{dim}D "
             raise ValueError(
-                f"{label}: {name} must be a {dim}D {dtype} tensor on {device}; "
+                f"{label}: {name} must be a {shape}{dtype} tensor on {device}; "
                 f"got {t.dim()}D {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{label}: {name} must be contiguous")

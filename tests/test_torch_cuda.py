@@ -1,6 +1,6 @@
 """The CUDA kernels (K1-K7, K4f, K5, K5s, K5d, K8, K8p, K9c, K9p, K10, K11,
-K11r, K12t, K12r, K12s, K12a) and the port's drivers on the card (marked
-``cuda``).
+K11r, K12t, K12r, K12s, K12a, K13h, K13e, K13w, K13f, K14a, K14b, K14c) and
+the port's drivers on the card (marked ``cuda``).
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip where CUDA is
 missing; the plain versions they compare against are tested against the JAX
@@ -8,8 +8,9 @@ package in test_torch_traversal.py, test_torch_hydro.py,
 test_torch_spectral.py, test_torch_temperature.py, test_torch_temperature_f32.py,
 test_torch_voronoi*.py, test_torch_amr.py, test_torch_dust.py,
 test_torch_polarization.py, test_torch_domain.py, test_torch_cone.py,
-test_torch_microbench_scatter.py and test_torch_probe_pallas_gather.py
-(against the JAX tools).  The file imports
+test_torch_microbench_scatter.py, test_torch_probe_pallas_gather.py,
+test_torch_probe_deposit.py and test_torch_probe_cohort_kernel.py (against
+the JAX tools).  The file imports
 no JAX, so that it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
@@ -1544,3 +1545,147 @@ def test_probe_tool_on_card(cuda, capsys):
     assert all(kernels.LAUNCHES[k] > 0 for k in (
         "take_along_lanes", "row_gather", "gather2d", "sublane_gather", "scatter_add"))
     assert capsys.readouterr().out.count("correct=True") == 5
+
+
+# -- K13h, K13e, K13w, K13f, K14a, K14b, K14c ----------------------------------------------------------
+
+
+def _seeded_lanes(rng, n, cuda):
+    """Directions for the DDA probes: a in [0.05, 0.95], b in [-0.6, 0.6]
+    with a few b = 0 (K13e's 1e-12 branch) and lanes past the unit circle
+    (its dz = 0 branch)."""
+    a = rng.uniform(0.05, 0.95, n).astype(np.float32)
+    b = rng.uniform(-0.6, 0.6, n).astype(np.float32)
+    b[:4] = 0.0
+    return torch.tensor(a, device=cuda), torch.tensor(b, device=cuda)
+
+
+@pytest.mark.parametrize("nstep", [0, 1, 300, 7808])
+@pytest.mark.parametrize("weights", ["integer", "random"])
+def test_shifted_histogram_kernel_equals_plain_version(cuda, nstep, weights):
+    from cmacionize_torch.kernels import probe_deposit as pd
+
+    rng = np.random.default_rng(nstep)
+    n = 4099  # not a multiple of the block
+    lidx = rng.integers(0, 128, n)
+    lidx[:2] = (0, 127)
+    dep = rng.integers(-3, 4, n) if weights == "integer" else rng.uniform(0.0, 1.0, n)
+    dep = torch.tensor(dep.astype(np.float32), device=cuda)
+    lidx = torch.tensor(lidx.astype(np.int32), device=cuda)
+    kernels.LAUNCHES.clear()
+    out = pd.shifted_histogram(dep, lidx, nstep)
+    ref = pd.shifted_histogram_reference(dep, lidx, nstep)
+    assert kernels.LAUNCHES["shifted_histogram"] == 1 and out.shape == (128,)
+    if weights == "integer" or nstep == 0:
+        assert torch.equal(out, ref)
+    else:
+        assert float(((out - ref).abs() / ref.abs()).max()) <= 1e-5
+    if nstep == 0:
+        assert float(out.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n", [1024, 2**16 + 5])
+def test_dda_kernels_equal_plain_versions(cuda, n):
+    from cmacionize_torch.kernels import probe_deposit as pd
+    from cmacionize_torch.tools import probe_deposit as tool
+
+    nstep = 7808 if n == 1024 else 300
+    cases = [_seeded_lanes(np.random.default_rng(n), n, cuda)]
+    if n == 1024:
+        a, b = tool.e_inputs(cuda)
+        cases.append((a.reshape(-1).contiguous(), b.reshape(-1).contiguous()))
+    kernels.LAUNCHES.clear()
+    for a, b in cases:
+        assert torch.equal(pd.dda_math(a, b, nstep), pd.dda_math_reference(a, b, nstep))
+        assert torch.equal(pd.dda_incremental(a, b, nstep),
+                           pd.dda_incremental_reference(a, b, nstep))
+    assert kernels.LAUNCHES["dda_math"] == kernels.LAUNCHES["dda_incremental"] == len(cases)
+
+
+def test_fill_first_kernel_copies_the_first_bits(cuda):
+    from cmacionize_torch.kernels import probe_deposit as pd
+
+    dep = torch.tensor(np.random.default_rng(3).normal(size=(8, 128)).astype(np.float32),
+                       device=cuda)
+    for first in (1.5, -0.0, float("inf")):
+        dep[0, 0] = first
+        out, ref = pd.fill_first(dep), pd.fill_first_reference(dep)
+        assert out.shape == (1, 128)
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        assert torch.equal(out.view(torch.int32), dep[:1, :1].view(torch.int32).expand(1, 128))
+
+
+@pytest.mark.parametrize("n", [0, 2048, 100_003])
+def test_count_positive_kernel_equals_plain_version(cuda, n):
+    from cmacionize_torch.kernels import probe_cohort as pc
+
+    cnt = torch.tensor(np.random.default_rng(n).integers(-3, 4, n).astype(np.int32),
+                       device=cuda)
+    out = pc.count_positive(cnt)
+    assert out.shape == (8, 128) and torch.equal(out, pc.count_positive_reference(cnt))
+
+
+@pytest.mark.parametrize("rows", [8, 4096])
+def test_lane_gather_loop_kernel_equals_plain_version(cuda, rows):
+    from cmacionize_torch.kernels import probe_cohort as pc
+
+    rng = np.random.default_rng(rows)
+    tab = torch.tensor(rng.normal(size=(rows, 128)).astype(np.float32), device=cuda)
+    idx = torch.tensor(rng.integers(-200, 300, (rows, 128)).astype(np.int32), device=cuda)
+    assert torch.equal(pc.lane_gather_loop(tab, idx), pc.lane_gather_loop_reference(tab, idx))
+
+
+@pytest.mark.parametrize("items", [8, 7808, 7811])
+def test_stream_rows_kernel_equals_plain_version_and_repeats_itself(cuda, items):
+    from cmacionize_torch.kernels import probe_cohort as pc
+
+    pk = torch.tensor(np.random.default_rng(items).standard_normal((items, 16, 128),
+                                                                    np.float32), device=cuda)
+    out, s = pc.stream_rows(pk)
+    out_r, s_r = pc.stream_rows_reference(pk)
+    assert torch.equal(out, out_r) and s.shape == (1, 1)
+    magnitude = float((pk[:, 0].double() * pk[:, 1].double()).abs().sum())
+    assert abs(float(s) - float(s_r)) <= 1e-6 * magnitude
+    out2, s2 = pc.stream_rows(pk)
+    assert torch.equal(out2, out) and torch.equal(s2.view(torch.int32), s.view(torch.int32))
+
+
+def test_probe_deposit_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from cmacionize_torch.kernels import probe_cohort as pc
+    from cmacionize_torch.kernels import probe_deposit as pd
+
+    dep = torch.ones((8, 128), device=cuda)
+    lidx = torch.zeros((8, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="lidx must be"):
+        pd.shifted_histogram(dep, lidx.long(), 10)
+    with pytest.raises(ValueError, match="one shape"):
+        pd.shifted_histogram(dep, lidx[:4], 10)
+    with pytest.raises(ValueError, match="nstep"):
+        pd.shifted_histogram(dep, lidx, -1)
+    with pytest.raises(ValueError, match="contiguous"):
+        pd.dda_math(dep.t(), dep.t(), 10)
+    with pytest.raises(ValueError, match="b must be"):
+        pd.dda_incremental(dep, dep.double(), 10)
+    with pytest.raises(ValueError, match="empty"):
+        pd.fill_first(dep[:0])
+    with pytest.raises(ValueError, match="cnt must be"):
+        pc.count_positive(lidx)
+    with pytest.raises(ValueError, match=r"\[R, 128\]"):
+        pc.lane_gather_loop(dep[:, :64].contiguous(), lidx[:, :64].contiguous())
+    with pytest.raises(ValueError, match="16-byte"):
+        pc.stream_rows(torch.ones(2 * 16 * 128 + 1, device=cuda)[1:].view(2, 16, 128))
+    with pytest.raises(ValueError, match=r"\[N, 16, 128\]"):
+        pc.stream_rows(torch.ones((2, 8, 128), device=cuda))
+
+
+def test_probe_deposit_and_cohort_tools_on_card(cuda, capsys):
+    from cmacionize_torch.tools import probe_cohort_kernel, probe_deposit, probe_deposit2
+
+    kernels.LAUNCHES.clear()
+    for tool in (probe_deposit, probe_deposit2, probe_cohort_kernel):
+        times = tool.main(device=cuda)
+        assert list(times) == [name for name, *_ in tool.BODIES]
+    assert all(kernels.LAUNCHES[k] > 0 for k in (
+        "shifted_histogram", "dda_math", "dda_incremental", "fill_first", "count_positive",
+        "lane_gather_loop", "stream_rows"))
+    assert capsys.readouterr().out.count("(CUDA events)") == 16

@@ -185,6 +185,11 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.kernels.gather
         import cmacionize_torch.kernels.probe_gather
         import cmacionize_torch.tools.probe_pallas_gather
+        import cmacionize_torch.kernels.probe_deposit
+        import cmacionize_torch.kernels.probe_cohort
+        import cmacionize_torch.tools.probe_deposit
+        import cmacionize_torch.tools.probe_deposit2
+        import cmacionize_torch.tools.probe_cohort_kernel
         # the atomic tables are read by path, not through cmacionize_tpu.data
         import torch
         cmacionize_torch.data.load("verner_photo.npz")
