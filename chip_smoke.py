@@ -191,7 +191,14 @@ Phases (any failed check raises, so the script exits non-zero):
     against its plain version on the probe's inputs, on seeded inputs at
     the probe's shapes and at 2^20 lookups (identical; K12a with duplicates
     and random weights within rel L1 1e-6), and timed at the probe's shapes
-    beside its plain version and its one PyTorch call;
+    beside its plain version and its one PyTorch call; then, for K12s and
+    K12t (on ``kernels/launch.py``) and K12r (on the ctypes path of
+    ``kernels/gather.py``), at the probe's shapes and at 2^20 lookups,
+    beside ``torch.gather``, ``torch.take_along_dim`` and ``tab[idx]``
+    (``cmacionize_torch.tools.launch_cost.measure``): (a) ms per call back
+    to back, (b) ms per call on the device alone (a CUDA graph of 50
+    calls), (c) host µs per call with no synchronise, and the host's cost
+    split step by step for the old path (K12r) and the new (K12s, K12t);
 36. the deposit and DDA-step probes (``cmacionize_torch.tools.
     probe_deposit.main()`` and ``probe_deposit2.main()``) at the tools' sizes
     (1024 packets or lanes, 7808 steps), their launch counts of K13h (the
@@ -288,7 +295,7 @@ from cmacionize_torch.tools import experimental_cone_kernel as cone
 from cmacionize_torch.tools import experimental_emission_octa as octa
 from cmacionize_torch.tools import microbench_scatter
 from cmacionize_torch.tools import probe_cohort_kernel, probe_deposit, probe_deposit2
-from cmacionize_torch.tools import probe_pallas_gather
+from cmacionize_torch.tools import launch_cost, probe_pallas_gather
 from cmacionize_torch.utils.params import ParameterFile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3063,6 +3070,10 @@ def probe_phase(device) -> tuple:
         library_ms = time_cuda(probe_library(label, args), 50)
         log(f"{label} ({name}) parity: {summary}; timing {label} {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, the one PyTorch call {library_ms:.4f} ms (CUDA events)")
+        if label in launch_cost.KERNELS:  # where a call's time goes, old path and new
+            launch_cost.measure(label, "the probe's", args)
+            launch_cost.measure(label, f"{PROBE_LOOKUPS}",
+                                cases[f"seeded, {PROBE_LOOKUPS} lookups"], host_calls=1000)
         bound = roofline(f"{label} at the probe's shapes", probe_bytes(label, args), 0.0,
                          F32_OPS_PER_S)
         records[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound,
@@ -3247,10 +3258,13 @@ def deposit_phase(device) -> tuple:
               f"K13f differs from its plain version ({case})")
     ms = time_cuda(lambda: probe_deposit_ops.fill_first(dep_m), 50)
     plain_ms = time_cuda(lambda: probe_deposit_ops.fill_first_reference(dep_m), 50)
+    # the one PyTorch call of K13f's function, which is also its plain version
+    library_ms = time_cuda(lambda: dep_m.reshape(-1)[:1].expand(1, 128).clone(), 50)
     log(f"K13f (fill_first) parity: identical bits (-0.0 included); timing K13f {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (CUDA events)")
+        f"plain {plain_ms:.4f} ms, the one PyTorch call {library_ms:.4f} ms (CUDA events)")
     records["fill_first"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                             **roofline("K13f", 4 + 4 * 128, 0.0, F32_OPS_PER_S)}
+                             **roofline("K13f", 4 + 4 * 128, 0.0, F32_OPS_PER_S),
+                             "library_ms": library_ms}
     log(f"phase 36 took {time.perf_counter() - t_phase:.2f} s")
     return launches, records
 

@@ -19,6 +19,13 @@
 // well under a microsecond of bytes, so one launch is most of the time.  The
 // indices are not checked: an index outside the table reads (or, for K12a,
 // adds) outside it, and the wrapper's caller keeps them in range.
+//
+// On the device alone the bodies beat the one PyTorch call: at 2^20 lookups on
+// an H100 80GB HBM3 (700 W), K12s takes 0.0093-0.0095 ms to torch.gather's
+// 0.0102-0.0108 and K12t 0.0360-0.0365 ms to take_along_dim's 0.0488-0.0491
+// (a CUDA graph of 50 calls, tools/launch_cost.py), so they stay one thread
+// per element; what they lost at the probe's shapes was the host's launch
+// path (kernels/launch.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -10,6 +10,10 @@ launches in ``kernels.LAUNCHES`` under the wrapper's name.  There is no
 fallback between the two.  The wrappers check devices, dtypes, shapes and
 contiguity; they do not check the indices (that would read them back to the
 host), so they must lie in the table, as for :mod:`kernels.gather`.
+
+K12s and K12t launch through :mod:`kernels.launch` (a launcher typed once,
+PyTorch's raw stream, an identity check of each tensor), K12r and K12a
+through the ctypes path of :mod:`kernels.gather`.
 """
 
 from __future__ import annotations
@@ -18,8 +22,12 @@ import torch
 
 from cmacionize_torch.kernels import LAUNCHES
 from cmacionize_torch.kernels.gather import _check, _function, _launch
+from cmacionize_torch.kernels.launch import Launcher, check_pair
 
 NAME = "probe_gather"
+F32, I32 = torch.float32, torch.int32
+_SUBLANE_GATHER = Launcher(NAME, "cmi_sublane_gather", 3, 2)
+_TAKE_ALONG_LANES = Launcher(NAME, "cmi_take_along_lanes", 3, 2)
 
 
 def take_along_lanes_reference(blk: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -50,20 +58,25 @@ def _fits_int32(label, *sizes):
         raise ValueError(f"{label}: sizes must fit int32")
 
 
+def check_take_along_lanes(blk: torch.Tensor, idx: torch.Tensor) -> tuple:
+    """K12t's checks: (device index, rows, width) of its launch, or
+    ValueError."""
+    index = check_pair("take_along_lanes", "blk", blk, F32, 2, "idx", idx, I32, 2)
+    rows, width = blk.shape
+    if idx.shape != (rows, 1):
+        raise ValueError(f"take_along_lanes: idx must be [{rows}, 1]; got {list(idx.shape)}")
+    _fits_int32("take_along_lanes", rows * width)
+    return index, rows, width
+
+
 def take_along_lanes(blk: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[t, 0] = blk[t, idx[t, 0]]``: blk f32 [T, W], idx int32 [T, 1] →
     f32 [T, 1]."""
-    if blk.device.type == "cpu":
+    if not blk.is_cuda and blk.device.type == "cpu":
         return take_along_lanes_reference(blk, idx)
-    _check("take_along_lanes", (("blk", blk, torch.float32, 2), ("idx", idx, torch.int32, 2)),
-           blk.device)
-    if idx.shape != (blk.shape[0], 1):
-        raise ValueError(f"take_along_lanes: idx must be [{blk.shape[0]}, 1]; got "
-                         f"{list(idx.shape)}")
-    _fits_int32("take_along_lanes", blk.numel())
-    out = torch.empty(idx.shape, dtype=torch.float32, device=blk.device)
-    _launch("take_along_lanes", _function("cmi_take_along_lanes", 3, 2, NAME), blk, idx, out,
-            blk.shape[0], blk.shape[1])
+    index, rows, width = check_take_along_lanes(blk, idx)
+    out = torch.empty_like(idx, dtype=F32)
+    _TAKE_ALONG_LANES(index, blk.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, width)
     LAUNCHES["take_along_lanes"] += 1
     return out
 
@@ -83,20 +96,26 @@ def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def check_sublane_gather(tab: torch.Tensor, idx: torch.Tensor) -> tuple:
+    """K12s's checks: (device index, n, width) of its launch, or
+    ValueError."""
+    index = check_pair("sublane_gather", "tab", tab, F32, 2, "idx", idx, I32, 2)
+    (rows, width), (sublanes, lanes) = tab.shape, idx.shape
+    if lanes != width:
+        raise ValueError(f"sublane_gather: idx must have the table's {width} lanes; "
+                         f"got {lanes}")
+    _fits_int32("sublane_gather", sublanes * lanes, rows * width)
+    return index, sublanes * lanes, width
+
+
 def sublane_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[s, l] = tab[idx[s, l], l]``: tab f32 [R, L], idx int32 [S, L] →
     f32 [S, L]."""
-    if tab.device.type == "cpu":
+    if not tab.is_cuda and tab.device.type == "cpu":
         return sublane_gather_reference(tab, idx)
-    _check("sublane_gather", (("tab", tab, torch.float32, 2), ("idx", idx, torch.int32, 2)),
-           tab.device)
-    if idx.shape[1] != tab.shape[1]:
-        raise ValueError(f"sublane_gather: idx must have the table's {tab.shape[1]} lanes; "
-                         f"got {idx.shape[1]}")
-    _fits_int32("sublane_gather", tab.numel(), idx.numel())
-    out = torch.empty(idx.shape, dtype=torch.float32, device=tab.device)
-    _launch("sublane_gather", _function("cmi_sublane_gather", 3, 2, NAME), tab, idx, out,
-            idx.numel(), tab.shape[1])
+    index, n, width = check_sublane_gather(tab, idx)
+    out = torch.empty_like(idx, dtype=F32)
+    _SUBLANE_GATHER(index, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, width)
     LAUNCHES["sublane_gather"] += 1
     return out
 

@@ -1,0 +1,304 @@
+"""Where a small kernel's call goes: per call back to back, on the device
+alone, and on the host step by step.
+
+For K12s (``sublane_gather``), K12t (``take_along_lanes``) and K12r
+(``row_gather``) of :mod:`cmacionize_torch.kernels.probe_gather`, and beside
+each the one PyTorch call of its function (``torch.gather``,
+``torch.take_along_dim``, ``tab[idx]``), at the probe's shapes
+(``tools/probe_pallas_gather.py``) and at 2^20 lookups:
+
+  (a) ms per call of 50 calls back to back between two CUDA events (the
+      figure ``chip_smoke.py:time_cuda`` gives: the longer of the host's
+      enqueue and the device's work);
+  (b) ms per call on the device alone: 50 calls captured into a CUDA graph,
+      its replays timed with events;
+  (c) host µs per call: ``time.perf_counter_ns`` over many calls with no
+      synchronise, and each step of the wrapper timed the same way alone.
+      The host's clock is shared with other work, so each figure is the
+      least per call over ``ROUNDS`` windows taken in turns (every call or
+      step of a measurement in each round), after a warm-up.
+
+The steps of the ctypes path that every wrapper of ``kernels/gather.py``
+uses (``_check``, ``torch.empty``, ``_function``, the ``Stream`` object,
+``torch.cuda.device``, the pointers, the ctypes call with and without its
+launch, the counter) are timed on K12r, whose wrapper is that path and
+which stays on it as the control; the steps of :mod:`kernels.launch` (the
+wrapper's own checks, ``torch.empty_like``, the pointers, the raw stream,
+the current device, the typed ctypes call with and without its launch, the
+counter) on K12s and K12t.  Launches made here outside a wrapper do not
+touch ``kernels.LAUNCHES``.
+
+Run on the card::
+
+    python -m cmacionize_torch.tools.launch_cost
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+
+import numpy as np
+import torch
+
+from cmacionize_torch.device import describe, require_cuda
+from cmacionize_torch.kernels import probe_gather
+from cmacionize_torch.kernels.gather import _check, _function
+from cmacionize_torch.kernels.launch import current_device, raw_stream
+from cmacionize_torch.tools import probe_pallas_gather as tool
+
+LOOKUPS = 1 << 20  # the larger size
+REPEATS = 50  # calls per timed window of (a) and (b)
+REPLAYS = 5  # replays of the graph of (b)
+ROUNDS = 5  # windows of (c) per call or step, taken in turns; the least counts
+WARM_UP = 200  # calls before the windows of (c)
+SEED = 1234
+HBM_BYTES_PER_S = 3.35e12
+
+# label: (wrapper name, the probe's b_* function)
+KERNELS = {
+    "K12s": ("sublane_gather", tool.b_sublane_gather),
+    "K12t": ("take_along_lanes", tool.b_taa_lanes),
+    "K12r": ("row_gather", tool.b_row_gather),
+}
+LIBRARY = {"K12s": "torch.gather", "K12t": "torch.take_along_dim", "K12r": "tab[idx]"}
+# the kernels on kernels/launch.py: their launchers and their wrappers' checks
+NEW_PATH = {
+    "K12s": (probe_gather._SUBLANE_GATHER, probe_gather.check_sublane_gather),
+    "K12t": (probe_gather._TAKE_ALONG_LANES, probe_gather.check_take_along_lanes),
+}
+
+
+def seeded_inputs(label: str, n: int, device, rng) -> tuple:
+    """``n`` seeded lookups into the probe's table (K12t: ``n`` rows of
+    128), the table's first and last entries among them."""
+    def table(rows, width):
+        return torch.tensor(rng.standard_normal((rows, width), dtype=np.float32), device=device)
+
+    def lookups(hi, shape):
+        idx = rng.integers(0, hi, n)
+        idx[0], idx[-1] = 0, hi - 1
+        return torch.tensor(idx.astype(np.int32).reshape(shape), device=device)
+
+    if label == "K12t":
+        return table(n, 128), lookups(128, (n, 1))
+    if label == "K12r":
+        return table(4096, 64), lookups(4096, (n,))
+    return table(2048, 128), lookups(2048, (n // 128, 128))
+
+
+def library_call(label: str, args: tuple):
+    """The one PyTorch call of the kernel's function, its int64 index copy
+    made here, outside any timed window."""
+    a, idx = args
+    if label == "K12s":
+        idx64 = idx.long()
+        return lambda: torch.gather(a, 0, idx64)
+    if label == "K12t":
+        idx64 = idx.long()
+        return lambda: torch.take_along_dim(a, idx64, 1)
+    return lambda: a[idx]
+
+
+def bound_ms(label: str, args: tuple) -> float:
+    """The least time an H100 SXM could take for the call (3.35 TB/s, NVIDIA's
+    data sheet): its indices and output once each, and of its table the
+    distinct 32-byte sectors that these lookups touch."""
+    a, idx = args
+    width = a.shape[1]
+    if label == "K12s":
+        offsets = idx.long() * width + torch.arange(width, device=idx.device)
+        moved = 8 * idx.numel()
+    elif label == "K12t":
+        offsets = torch.arange(idx.shape[0], device=idx.device) * width + idx[:, 0]
+        moved = 8 * idx.numel()
+    else:
+        offsets = idx[:, None].long() * width + torch.arange(width, device=idx.device)
+        moved = 4 * idx.numel() * (1 + width)
+    sectors = int(torch.unique(offsets.reshape(-1) // 8).numel())
+    return (moved + 32 * sectors) / HBM_BYTES_PER_S * 1e3
+
+
+def per_call_ms(fn, repeats: int = REPEATS) -> float:
+    """(a): mean ms per call of ``repeats`` calls back to back (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def graph_ms(fn, repeats: int = REPEATS, replays: int = REPLAYS) -> float:
+    """(b): ms per call of ``repeats`` calls captured into one CUDA graph,
+    over ``replays`` replays (CUDA events)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture: builds, loads, allocates
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(repeats):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * repeats)
+    del graph
+    return ms
+
+
+def window_us(fn, calls: int) -> float:
+    """Host µs per call of ``fn`` over one window of ``calls`` calls with no
+    synchronise (the device's queue drained before and after, outside it)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e-3 / calls
+
+
+def host_us(fns: dict, calls: int, rounds: int = ROUNDS) -> dict:
+    """(c): for each of ``fns``, the least host µs per call over ``rounds``
+    windows of ``calls // rounds`` calls, the functions taken in turns in
+    each round, after :data:`WARM_UP` calls of each."""
+    for fn in fns.values():
+        for _ in range(WARM_UP):
+            fn()
+    best = dict.fromkeys(fns, float("inf"))
+    for _ in range(rounds):
+        for key, fn in fns.items():
+            best[key] = min(best[key], window_us(fn, max(1, calls // rounds)))
+    return best
+
+
+def old_path_steps(args: tuple) -> dict:
+    """Each step of K12r's wrapper, the ctypes path of ``kernels/gather.py``,
+    as a function of no arguments; the ctypes call once with no work (n = 0:
+    it returns ``cudaGetLastError()`` and launches nothing) and once with its
+    launch."""
+    tab, idx = args
+    device = tab.device
+    fn = _function("cmi_row_gather", 3, 2, probe_gather.NAME)
+    out = torch.empty((idx.shape[0], tab.shape[1]), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    pointers = (tab.data_ptr(), idx.data_ptr(), out.data_ptr())
+    counts = collections.Counter()
+
+    def checks():  # as row_gather checks
+        _check("row_gather", (("tab", tab, torch.float32, 2), ("idx", idx, torch.int32, 1)),
+               device)
+        probe_gather._fits_int32("row_gather", tab.numel(), idx.numel() * tab.shape[1])
+
+    def context():
+        with torch.cuda.device(device):
+            pass
+
+    def counter():
+        counts["row_gather"] += 1
+
+    return {
+        "checks": checks,
+        "torch.empty": lambda: torch.empty(out.shape, dtype=torch.float32, device=device),
+        "_function": lambda: _function("cmi_row_gather", 3, 2, probe_gather.NAME),
+        "Stream object": lambda: torch.cuda.current_stream(device).cuda_stream,
+        "torch.cuda.device": context,
+        "data_ptr x3": lambda: (tab.data_ptr(), idx.data_ptr(), out.data_ptr()),
+        "ctypes, no launch": lambda: fn(*pointers, 0, tab.shape[1], stream),
+        "ctypes + launch": lambda: fn(*pointers, idx.shape[0], tab.shape[1], stream),
+        "counter": counter,
+    }
+
+
+def new_path_steps(label: str, args: tuple) -> dict:
+    """Each step of the :mod:`kernels.launch` wrapper of K12s or K12t alone,
+    its checks being the wrapper's own; the typed ctypes call once with no
+    work (n = 0) and once with its launch."""
+    launcher, check = NEW_PATH[label]
+    a, idx = args
+    index, n, width = check(a, idx)
+    fn = launcher.bind()
+    out = torch.empty_like(idx, dtype=torch.float32)
+    stream = raw_stream(index)
+    pointers = (a.data_ptr(), idx.data_ptr(), out.data_ptr())
+    counts = collections.Counter()
+
+    def counter():
+        counts[label] += 1
+
+    return {
+        "checks": lambda: check(a, idx),
+        "empty_like": lambda: torch.empty_like(idx, dtype=torch.float32),
+        "data_ptr x3": lambda: (a.data_ptr(), idx.data_ptr(), out.data_ptr()),
+        "raw stream": lambda: raw_stream(index),
+        "current device": current_device,
+        "ctypes, no launch": lambda: fn(*pointers, 0, width, stream),
+        "ctypes + launch": lambda: fn(*pointers, n, width, stream),
+        "counter": counter,
+    }
+
+
+# the steps of each path that make up its call (the others are alternatives)
+OLD_PATH_CALL = ("checks", "torch.empty", "_function", "Stream object", "torch.cuda.device",
+                 "data_ptr x3", "ctypes + launch", "counter")
+NEW_PATH_CALL = ("checks", "empty_like", "data_ptr x3", "raw stream", "current device",
+                 "ctypes + launch", "counter")
+
+
+def fmt(values: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in values.items())
+
+
+def measure(label: str, size: str, args: tuple, host_calls: int = 10_000) -> dict:
+    """(a), (b) and (c) of the kernel's wrapper and of the library call on
+    ``args``, with the split of the wrapper's path (K12r: the old path; K12s,
+    K12t: the new one); prints a line of each and returns them."""
+    name = KERNELS[label][0]
+    wrapper = getattr(probe_gather, name)
+    calls = {"wrapper": lambda: wrapper(*args), LIBRARY[label]: library_call(label, args)}
+    host = host_us(calls, host_calls)
+    record = {"bound_ms": bound_ms(label, args)}
+    print(f"launch_cost {label} {size}: bound {record['bound_ms']:.6f} ms (bytes)", flush=True)
+    for which, fn in calls.items():
+        record[which] = {"a_ms": per_call_ms(fn), "b_ms": graph_ms(fn), "c_us": host[which]}
+        print(f"launch_cost {label} {size} {which}: (a) {record[which]['a_ms']:.4f} ms per call; "
+              f"(b) {record[which]['b_ms']:.4f} ms device only (CUDA graph); "
+              f"(c) {host[which]:.3f} us host", flush=True)
+    if label in NEW_PATH:
+        which, steps, in_call = "new path split", new_path_steps(label, args), NEW_PATH_CALL
+    else:
+        which, steps, in_call = "old path split", old_path_steps(args), OLD_PATH_CALL
+    record[which] = host_us(steps, host_calls)
+    print(f"launch_cost {label} {size} {which} (us): {fmt(record[which])} (sum of "
+          f"{', '.join(in_call)}: {sum(record[which][k] for k in in_call):.3f})", flush=True)
+    return record
+
+
+def main() -> dict:
+    """Every measurement above on the card; returns {(label, size): record}."""
+    device = require_cuda()
+    print(f"launch_cost on {describe(device)}", flush=True)
+    rng = np.random.default_rng(SEED)
+    records = {}
+    for label, (_, make) in KERNELS.items():
+        _, args = make(device)
+        records[label, "probe"] = measure(label, "probe", args)
+        records[label, "2^20"] = measure(label, "2^20", seeded_inputs(label, LOOKUPS, device, rng),
+                                         host_calls=1000)
+    return records
+
+
+if __name__ == "__main__":
+    main()

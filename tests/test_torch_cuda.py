@@ -1536,6 +1536,117 @@ def test_probe_gather_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pg.scatter_add(idx, tab[:4], (2048, 128))
 
 
+# K12s and K12t, the kernels on kernels/launch.py: seeded arguments of n
+# lookups (the tables' first and last entries among them)
+def _launch_path_args(name, rng, n, cuda):
+    def table(rows, width):
+        return torch.tensor(rng.normal(size=(rows, width)).astype(np.float32), device=cuda)
+
+    if name == "sublane_gather":
+        return table(2048, 128), _probe_lookups(rng, n, 2048, (n // 128, 128), cuda)
+    return table(n, 128), _probe_lookups(rng, n, 128, (n, 1), cuda)
+
+
+LAUNCH_PATH_KERNELS = ("sublane_gather", "take_along_lanes")
+
+
+def _launch_path_case(name, case, cuda):
+    from cmacionize_torch.kernels import probe_gather as pg
+    from cmacionize_torch.tools import probe_pallas_gather as tool
+
+    fn, plain = getattr(pg, name), getattr(pg, f"{name}_reference")
+    if case == "probe":
+        make = tool.b_sublane_gather if name == "sublane_gather" else tool.b_taa_lanes
+        return fn, plain, make(cuda)[1]
+    n = {"seeded": 1024 if name == "sublane_gather" else 8192, "2^20": 2**20}[case]
+    return fn, plain, _launch_path_args(name, np.random.default_rng(n + len(name)), n, cuda)
+
+
+@pytest.mark.parametrize("case", ["probe", "seeded", "2^20"])
+@pytest.mark.parametrize("name", LAUNCH_PATH_KERNELS)
+def test_launch_path_kernels_equal_plain_versions(cuda, name, case):
+    fn, plain, args = _launch_path_case(name, case, cuda)
+    kernels.LAUNCHES.clear()
+    out = fn(*args)
+    assert kernels.LAUNCHES[name] == 1  # once per call
+    out2 = fn(*args)
+    assert kernels.LAUNCHES[name] == 2
+    ref = plain(*args)
+    assert out.dtype == torch.float32 and out.shape == args[1].shape and out.is_contiguous()
+    assert torch.equal(out, ref) and torch.equal(out2, ref)
+
+
+@pytest.mark.parametrize("name", LAUNCH_PATH_KERNELS)
+def test_launch_path_on_a_side_stream(cuda, name):
+    # the default stream is kept busy; a kernel launched there instead of on
+    # the side stream would run after the side stream's copy had read out
+    fn, plain, args = _launch_path_case(name, "2^20", cuda)
+    ref = plain(*args).cpu()
+    big = torch.randn((4096, 4096), device=cuda)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(8):
+        big = big @ big / 64.0
+    with torch.cuda.stream(side):
+        out = fn(*args)
+        host = out.cpu()  # a torch op on the side stream, its only synchronise
+    assert torch.equal(host, ref)
+
+
+@pytest.mark.parametrize("name", LAUNCH_PATH_KERNELS)
+def test_launch_path_in_a_cuda_graph(cuda, name):
+    fn, plain, args = _launch_path_case(name, "seeded", cuda)
+    rng = np.random.default_rng(7)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    kernels.LAUNCHES.clear()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    assert kernels.LAUNCHES[name] == 1
+    for _ in range(2):  # new inputs in the captured tensors, then a replay
+        table, idx = _launch_path_args(name, rng, args[1].numel(), cuda)
+        args[0].copy_(table)
+        args[1].copy_(idx)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, plain(*args))
+    assert kernels.LAUNCHES[name] == 1  # a replay calls no wrapper
+
+
+@pytest.mark.parametrize("name", LAUNCH_PATH_KERNELS)
+def test_launch_path_rejects_what_the_kernels_do_not_take(cuda, name):
+    from cmacionize_torch.kernels import probe_gather as pg
+
+    fn, _, (tab, idx) = _launch_path_case(name, "probe", cuda)
+    table = "tab" if name == "sublane_gather" else "blk"
+    kernels.LAUNCHES.clear()
+    with pytest.raises(ValueError, match=f"{table} must be"):
+        fn(tab.double(), idx)
+    with pytest.raises(ValueError, match="idx must be"):
+        fn(tab, idx.long())
+    with pytest.raises(ValueError, match="idx must be"):
+        fn(tab, idx.cpu())
+    with pytest.raises(ValueError, match=f"{table} must be contiguous"):
+        fn(tab.t().contiguous().t(), idx)
+    with pytest.raises(ValueError, match="idx must be contiguous"):
+        fn(tab, torch.stack([idx, idx], -1)[..., 0])
+    with pytest.raises(ValueError, match="idx must be"):
+        fn(tab, idx.reshape(-1))
+    assert kernels.LAUNCHES[name] == 0
+    launcher = pg._SUBLANE_GATHER if name == "sublane_gather" else pg._TAKE_ALONG_LANES
+    with pytest.raises(TypeError):  # typed once: five ints and the stream, not two
+        launcher(tab.get_device(), 1, 2)
+    huge = torch.empty((2**24, 128), device=cuda)  # 2^31 elements, never read
+    with pytest.raises(ValueError, match="sizes must fit int32"):
+        fn(huge, idx if name == "sublane_gather" else torch.zeros((2**24, 1), dtype=torch.int32,
+                                                                  device=cuda))
+    assert kernels.LAUNCHES[name] == 0
+
+
 def test_probe_tool_on_card(cuda, capsys):
     from cmacionize_torch.tools import probe_pallas_gather as tool
 

@@ -190,6 +190,8 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.tools.probe_deposit
         import cmacionize_torch.tools.probe_deposit2
         import cmacionize_torch.tools.probe_cohort_kernel
+        import cmacionize_torch.kernels.launch
+        import cmacionize_torch.tools.launch_cost
         # the atomic tables are read by path, not through cmacionize_tpu.data
         import torch
         cmacionize_torch.data.load("verner_photo.npz")
