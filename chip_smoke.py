@@ -124,7 +124,10 @@ Phases (any failed check raises, so the script exits non-zero):
     depth (16³ coarse, level 5: 2,101,184 leaves), 8e6 packets × 10
     iterations, 64 bins, 4 re-emission generations, the temperature balance:
     its structure checks and the K5s, K5d and K4 launch counts, the
-    transport / solve split; then one more iteration under torch.profiler;
+    transport / solve split, and the run's last temperature solve (K4 and
+    its wrapper) timed by CUDA events around the run's own call, beside K4's
+    bound from that solve's sweeps; then one more iteration under
+    torch.profiler (K4's own time);
 25. K5s parity on the inputs of that run's first and last source marches:
     flags, positions, tally, ion integrals; K5d against its plain version on
     the last generation's absorption sites (identical leaf ids); all timed;
@@ -191,14 +194,19 @@ Phases (any failed check raises, so the script exits non-zero):
     against its plain version on the probe's inputs, on seeded inputs at
     the probe's shapes and at 2^20 lookups (identical; K12a with duplicates
     and random weights within rel L1 1e-6), and timed at the probe's shapes
-    beside its plain version and its one PyTorch call; then, for K12s and
-    K12t (on ``kernels/launch.py``) and K12r (on the ctypes path of
+    beside its plain version and its one PyTorch call; K12r also on its
+    scalar path (a width not a multiple of 4, a table off 16-byte
+    alignment), and with one launch per call, on a side stream and after two
+    replays of a CUDA graph; then, for K12s, K12t and K12r (on
+    ``kernels/launch.py``) and K12a (on the ctypes path of
     ``kernels/gather.py``), at the probe's shapes and at 2^20 lookups,
-    beside ``torch.gather``, ``torch.take_along_dim`` and ``tab[idx]``
+    beside ``torch.gather``, ``torch.take_along_dim``, ``tab[idx]`` and
+    ``zeros`` + ``index_put_``
     (``cmacionize_torch.tools.launch_cost.measure``): (a) ms per call back
     to back, (b) ms per call on the device alone (a CUDA graph of 50
     calls), (c) host µs per call with no synchronise, and the host's cost
-    split step by step for the old path (K12r) and the new (K12s, K12t);
+    split step by step for the old path (K12a) and the new (K12s, K12t,
+    K12r);
 36. the deposit and DDA-step probes (``cmacionize_torch.tools.
     probe_deposit.main()`` and ``probe_deposit2.main()``) at the tools' sizes
     (1024 packets or lanes, 7808 steps), their launch counts of K13h (the
@@ -215,9 +223,12 @@ Phases (any failed check raises, so the script exits non-zero):
     of K14a (run_a), K14b (run_b), K14c (run_c) and K13h (run_d); then K14a,
     K14b and K14c against their plain versions on the tool's inputs, seeded
     ones at its shapes and a larger seeded case (2^20 counts, 4096 rows,
-    15616 items): identical, K14c's scalar within 1e-6 of Σ|x·y| and the
-    same bits on a second run; each timed beside its plain version, K14c
-    also beside ``pk.clone()``.
+    15616 items; K14c also 1, 2, 3 and 7 items, a partial last chunk):
+    identical, K14c's scalar within 1e-6 of Σ|x·y| and the same bits on a
+    second run; K14c with one launch per call, on a side stream and after two
+    replays of a CUDA graph; each timed beside its plain version, K14c also
+    beside ``pk.clone()``, and K14c's (a), (b) and (c) beside ``pk.clone()``'s
+    at the tool's 7808 items (``launch_cost.measure``).
 
 Each kernel's record carries ``bound_ms``, the least time an H100 could take
 for the same work (bytes over the HBM rate or operations over the peak
@@ -623,6 +634,33 @@ def capturing(owner, name: str, keep: dict, copy):
     setattr(owner, name, wrapper)
     try:
         yield captured
+    finally:
+        setattr(owner, name, original)
+
+
+@contextlib.contextmanager
+def timing_call(owner, name: str, index: int):
+    """While active, call number ``index`` (from 0) of ``owner.<name>`` is
+    timed by CUDA events on the current stream around the call; the yielded
+    dict then holds the events ("start", "end"), the call's result and its
+    first argument."""
+    original = getattr(owner, name)
+    timed, calls = {}, [0]
+
+    def wrapper(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] - 1 != index:
+            return original(*args, **kwargs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(*args, **kwargs)
+        end.record()
+        timed.update(start=start, end=end, result=out, first=args[0])
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield timed
     finally:
         setattr(owner, name, original)
 
@@ -2022,7 +2060,9 @@ def multifreq_amr(grid, device):
                        chi_h.clone(), chi_he.clone(), clone_batch(packets))) as marches, \
             capturing(amr_traversal, "leaf_of_positions", {MF_ROUNDS * MF_ITERATIONS - 1: "last"},
                       lambda root, children, px, py, pz, **kw: (
-                          px.clone(), py.clone(), pz.clone())) as sites:
+                          px.clone(), py.clone(), pz.clone())) as sites, \
+            timing_call(multifreq_simulation.temperature, "solve_temperature",
+                        MF_ITERATIONS - 4) as last_solve:  # the last of the run's K4 solves
         kernels.LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2047,6 +2087,15 @@ def multifreq_amr(grid, device):
           f"K5s launches {launches}")
     check(launches["leaf_of_positions"] == MF_ITERATIONS * MF_ROUNDS, f"K5d launches {launches}")
     check(launches["temperature"] == MF_ITERATIONS - 3, f"K4 launches {launches}")
+    check("result" in last_solve, "the multi-frequency AMR run's last K4 solve was timed")
+    solve_ms = last_solve["start"].elapsed_time(last_solve["end"])
+    sweeps, n_solve = int(last_solve["result"].sweeps.sum()), last_solve["first"].numel()
+    log(f"the multi-frequency AMR's last temperature solve on {n_solve} leaves: {solve_ms:.4f} ms "
+        f"(K4 and its wrapper: CUDA events around the run's own call of solve_temperature; "
+        f"K4 alone in the profile below), {sweeps} secant sweeps "
+        f"(max {int(last_solve['result'].sweeps.max())})")
+    roofline(f"K4 (multi-frequency AMR, the last solve; {sweeps} secant sweeps)",
+             n_solve * (18 * 8 + 15 * 8 + 4), OPS_PER_K4_SWEEP * sweeps, F64_OPS_PER_S)
     r = np.sqrt((grid.centers**2).sum(-1))
     x = {name: v.cpu().numpy() for name, v in xion.items()}
     T = T.cpu().numpy()
@@ -2921,6 +2970,46 @@ def sector_bytes(offsets: torch.Tensor) -> int:
     return 32 * int(torch.unique(offsets.reshape(-1).long() // 8).numel())
 
 
+def host_bits(out) -> tuple:
+    """A call's output tensors as int32 views on the host, to compare bit for
+    bit; read on the current stream."""
+    return tuple(o.view(torch.int32).cpu() for o in (out if isinstance(out, tuple) else (out,)))
+
+
+def launch_path_parity(name: str, fn, args: tuple, refill, agree) -> str:
+    """The checks of a kernel on ``kernels/launch.py`` beyond its parity: one
+    launch a call (``kernels.LAUNCHES[name]``); the same bits on a side stream
+    while the default stream is busy; captured into a CUDA graph and replayed
+    twice, each time after ``refill()`` has written new inputs into ``args``,
+    with ``agree(out, args)`` holding the graph's output to the plain
+    version.  Returns a summary."""
+    kernels.LAUNCHES.clear()
+    expected = host_bits(fn(*args))
+    check(kernels.LAUNCHES[name] == 1, f"{name}: {kernels.LAUNCHES[name]} launches in one call")
+    busy = torch.randn((4096, 4096), device=args[0].device)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(8):
+        busy = busy @ busy / 64.0
+    with torch.cuda.stream(side):
+        got = host_bits(fn(*args))  # the side stream's only synchronise
+    check(all(torch.equal(a, b) for a, b in zip(got, expected)),
+          f"{name} on a side stream differs from its call on the default stream")
+    del busy
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    for replay in range(2):
+        refill()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(agree(out, args), f"{name} differs from its plain version after graph replay "
+                                f"{replay + 1}")
+    del graph, out
+    return "one launch a call, the same bits on a side stream, two graph replays agree"
+
+
 # The probes of phase 35 (tools/probe_pallas_gather.py): the record's name,
 # its ``b_*`` function and the def line of the Pallas kernel each replaces
 PROBE_KERNELS = (
@@ -3030,6 +3119,7 @@ def probe_phase(device) -> tuple:
     lookups (gathers and integer-weight K12a identical, random-weight K12a
     within rel L1 1e-6), and timed at the probe's shapes beside its plain
     version and its one PyTorch call."""
+    t_phase = time.perf_counter()
     kernels.LAUNCHES.clear()
     probe_pallas_gather.main(device=device)
     torch.cuda.synchronize()
@@ -3052,11 +3142,23 @@ def probe_phase(device) -> tuple:
                  f"seeded, {n_probe} lookups": probe_inputs(label, rng, n_probe, device),
                  f"seeded, {PROBE_LOOKUPS} lookups": probe_inputs(
                      label, rng, PROBE_LOOKUPS, device)}
+        if label == "K12r":  # its scalar path: width 63, a table 4 bytes past alignment
+            tab, idx = cases[f"seeded, {n_probe} lookups"]
+            flat = torch.empty(tab.numel() + 1, device=device)
+            flat[1:] = tab.reshape(-1)
+            cases["seeded, width 63 (scalar path)"] = (tab[:, :63].contiguous(), idx)
+            cases["seeded, unaligned table (scalar path)"] = (flat[1:].view(tab.shape), idx)
         for case, case_args in cases.items():
             out, ref = fn(*case_args), plain(*case_args)
             torch.cuda.synchronize()
             check(torch.equal(out, ref), f"{label} differs from its plain version ({case} inputs)")
         summary = f"identical on the probe's and seeded inputs at {n_probe} and {PROBE_LOOKUPS}"
+        if label == "K12r":
+            summary += " and on the scalar path; " + launch_path_parity(
+                name, fn, cases[f"seeded, {n_probe} lookups"],
+                lambda: [a.copy_(b) for a, b in zip(cases[f"seeded, {n_probe} lookups"],
+                                                    probe_inputs(label, rng, n_probe, device))],
+                lambda out, a: torch.equal(out, a[0][a[1].long()]))
         if label == "K12a":
             for n in (n_probe, PROBE_LOOKUPS):
                 case_args = probe_inputs(label, rng, n, device, weights="random")
@@ -3078,6 +3180,7 @@ def probe_phase(device) -> tuple:
                          F32_OPS_PER_S)
         records[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound,
                          "library_ms": library_ms}
+    log(f"phase 35 took {time.perf_counter() - t_phase:.2f} s")
     return launches, records
 
 
@@ -3274,10 +3377,12 @@ def cohort_phase(device) -> tuple:
     sizes, its launch counts of K14a, K14b, K14c and K13h (run_d); then K14a,
     K14b and K14c against their plain versions on the tool's inputs, seeded
     ones at the tool's shapes and a larger seeded case (K14a: 2^20 counts;
-    K14b: 4096 rows; K14c: twice the tool's 7808 items): K14a and K14b
-    identical, K14c's array identical and its scalar within 1e-6 of Σ|x·y|,
-    and the same bits on a second run; each timed beside its plain version
-    and, for K14c, ``pk.clone()``."""
+    K14b: 4096 rows; K14c: twice the tool's 7808 items, and 1, 2, 3 and 7):
+    K14a and K14b identical, K14c's array identical and its scalar within
+    1e-6 of Σ|x·y|, and the same bits on a second run; K14c's launch-path
+    checks (:func:`launch_path_parity`); each timed beside its plain version
+    and, for K14c, ``pk.clone()``, with K14c's (a), (b) and (c) on the tool's
+    input."""
     t_phase = time.perf_counter()
     kernels.LAUNCHES.clear()
     probe_cohort_kernel.main(device=device)
@@ -3333,35 +3438,58 @@ def cohort_phase(device) -> tuple:
 
     (pk,) = probe_cohort_kernel.c_inputs(device)
     items = pk.shape[0]
-    worst = 0.0
-    for case, p in {"the tool's": pk,
-                    "seeded": torch.tensor(rng.standard_normal((items, 16, 128), np.float32),
-                                           device=device),
-                    f"seeded, {2 * items} items": torch.tensor(
-                        rng.standard_normal((2 * items, 16, 128), np.float32), device=device)
-                    }.items():
-        out, s = probe_cohort_ops.stream_rows(p)
+
+    def seeded_items(n):
+        return torch.tensor(rng.standard_normal((n, 16, 128), np.float32), device=device)
+
+    def stream_rows_agree(result, p) -> tuple:
+        """K14c's ``result`` on ``p`` against the plain version: (the array
+        identical and the scalar within MAX_STREAM_SUM_REL_ERR of Σ|x·y|, the
+        scalar's error, the plain scalar, Σ|x·y|)."""
+        out, s = result
         out_r, s_r = probe_cohort_ops.stream_rows_reference(p)
-        out2, s2 = probe_cohort_ops.stream_rows(p)
-        torch.cuda.synchronize()
         magnitude = float((p[:, 0].double() * p[:, 1].double()).abs().sum())
         err = abs(float(s) - float(s_r))
-        check(torch.equal(out, out_r), f"K14c's array differs from its plain version ({case})")
-        check(err <= MAX_STREAM_SUM_REL_ERR * magnitude,
-              f"K14c's sum {float(s)} against {float(s_r)} ({case})")
+        return torch.equal(out, out_r) and err <= MAX_STREAM_SUM_REL_ERR * magnitude, err, \
+            float(s_r), magnitude
+
+    worst = 0.0
+    for case, p in {"the tool's": pk, "seeded": seeded_items(items),
+                    f"seeded, {2 * items} items": seeded_items(2 * items),
+                    **{f"seeded, {n} items": seeded_items(n) for n in (1, 2, 3, 7)}}.items():
+        out, s = probe_cohort_ops.stream_rows(p)
+        out2, s2 = probe_cohort_ops.stream_rows(p)
+        torch.cuda.synchronize()
+        ok, err, s_r, magnitude = stream_rows_agree((out, s), p)
+        check(ok, f"K14c differs from its plain version ({case}): sum {float(s)} against {s_r}")
         check(torch.equal(out2, out) and torch.equal(s2.view(torch.int32), s.view(torch.int32)),
               f"K14c repeats itself bit for bit ({case})")
         worst = max(worst, err)
-        log(f"K14c {case}: array identical, sum {float(s)!r} against {float(s_r)!r} "
+        log(f"K14c {case}: array identical, sum {float(s)!r} against {s_r!r} "
             f"({err / magnitude:.3e} of sum |x y|), a second run identical")
-        del p, out, out_r, out2
+        del p, out, out2
+    seeded = seeded_items(items)
+
+    def stream_rows_graph_agrees(result, args):
+        ok = stream_rows_agree(result, args[0])[0]
+        _, s_eager = probe_cohort_ops.stream_rows(args[0])
+        return ok and torch.equal(result[1].view(torch.int32), s_eager.view(torch.int32))
+
+    log("K14c: " + launch_path_parity("stream_rows", probe_cohort_ops.stream_rows, (seeded,),
+                                      lambda: seeded.copy_(seeded_items(items)),
+                                      stream_rows_graph_agrees))
+    del seeded
     ms = time_cuda(lambda: probe_cohort_ops.stream_rows(pk), 20)
     plain_ms = time_cuda(lambda: probe_cohort_ops.stream_rows_reference(pk), 20)
     library_ms = time_cuda(lambda: pk.clone(), 20)
     log(f"K14c (stream_rows) timing: K14c {ms:.4f} ms, plain {plain_ms:.4f} ms, pk.clone() "
         f"{library_ms:.4f} ms (CUDA events, {pk.numel() * 4} bytes in and out)")
+    # (a), (b), (c) beside pk.clone() on the tool's input (2 x 7808 items:
+    # tools/launch_cost.py)
+    launch_cost.measure("K14c", f"the tool's {items} items", (pk,), host_calls=1000)
     records["stream_rows"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                              **roofline("K14c at the tool's shapes", 2 * 4 * pk.numel(),
+                              **roofline("K14c at the tool's shapes (15 rows in, 16 out)",
+                                         launch_cost.STREAM_ROWS_BYTES_PER_ELEMENT * pk.numel(),
                                          3 * items * 128, F32_OPS_PER_S),
                               "library_ms": library_ms}
     log(f"phase 37 took {time.perf_counter() - t_phase:.2f} s")

@@ -1,5 +1,5 @@
 // K12t, K12r, K12s and K12a: the dynamic-indexing probes of
-// tools/probe_pallas_gather.py, one thread per element.
+// tools/probe_pallas_gather.py: one thread per element, K12r one float4.
 //
 // K12t replaces b_taa_lanes.run (take_along_axis on lanes: out[t, 0] =
 // blk[t, idx[t, 0]] from a VMEM-resident [8192, 128] block), K12r
@@ -14,8 +14,9 @@
 //
 // What bounds them on an H100: the indices and the outputs stream at HBM rate,
 // and each lookup reads one 32-byte sector of a table that stays in L2 (K12r
-// reads whole 256-byte rows: a warp takes one row, so its reads and writes
-// coalesce).  At the probe's shapes (8192 lookups, 1024 for K12s) the work is
+// reads whole 256-byte rows as float4, 16 lanes to a row, so its reads and
+// writes coalesce; at 2^20 lookups its 256 MB of output bound it).  At the
+// probe's shapes (8192 lookups, 1024 for K12s) the work is
 // well under a microsecond of bytes, so one launch is most of the time.  The
 // indices are not checked: an index outside the table reads (or, for K12a,
 // adds) outside it, and the wrapper's caller keeps them in range.
@@ -34,6 +35,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarp = 32;
+constexpr int kUnroll = 4;  // K12r's float4 in flight per lane
 
 // one thread per row t: out[t] = blk[t * width + idx[t]]
 __global__ void __launch_bounds__(kThreads) take_along_lanes_kernel(
@@ -43,8 +45,9 @@ __global__ void __launch_bounds__(kThreads) take_along_lanes_kernel(
   if (t < rows) out[t] = __ldg(blk + static_cast<long long>(t) * width + __ldg(idx + t));
 }
 
-// one warp per output row t: lane l copies columns l, l + 32, ... of
-// tab[idx[t], :]
+// K12r's scalar path, for a width that is not a multiple of 4 or a table
+// that is not 16-byte aligned: one warp per output row t, lane l copies
+// columns l, l + 32, ... of tab[idx[t], :]
 __global__ void __launch_bounds__(kThreads) row_gather_kernel(
     const float* __restrict__ tab, const int* __restrict__ idx, float* __restrict__ out,
     int rows, int width) {
@@ -53,6 +56,41 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
   const float* src = tab + static_cast<long long>(__ldg(idx + t)) * width;
   float* dst = out + t * width;
   for (int w = threadIdx.x % kWarp; w < width; w += kWarp) dst[w] = __ldg(src + w);
+}
+
+// K12r's vector path: a warp takes `per_warp` (at most 32) consecutive
+// output rows of `vecs` float4 each, as many as make kUnroll float4 a lane,
+// so that a small call still spreads over the card; lane l reads idx of row
+// l once and the warp shares the indices by __shfl_sync.  The warp copies its
+// rows' float4 as one flat run, kUnroll loads issued before their stores,
+// which stream past L1 and L2 (__stcs): nothing re-reads the output in the
+// call.  At width 64 that is 8 rows a warp, 16 lanes to a row.
+__global__ void __launch_bounds__(kThreads) row_gather_vec_kernel(
+    const float4* __restrict__ tab, const int* __restrict__ idx, float4* __restrict__ out,
+    int rows, int vecs, int per_warp) {
+  const long long first = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) /
+                          kWarp * per_warp;
+  if (first >= rows) return;  // the whole warp
+  const int lane = threadIdx.x % kWarp;
+  const int n_rows = static_cast<int>(min(static_cast<long long>(per_warp), rows - first));
+  const int mine = lane < n_rows ? __ldg(idx + first + lane) : 0;
+  const int n = n_rows * vecs;  // float4 of the warp's rows
+  float4* dst = out + first * vecs;
+  for (int e0 = 0; e0 < n; e0 += kWarp * kUnroll) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = e0 + u * kWarp + lane;
+      const int r = e / vecs;  // the row of the run
+      const int row = __shfl_sync(0xffffffffu, mine, r % kWarp);
+      if (e < n) v[u] = __ldg(tab + static_cast<long long>(row) * vecs + (e - r * vecs));
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = e0 + u * kWarp + lane;
+      if (e < n) __stcs(dst + e, v[u]);
+    }
+  }
 }
 
 // one thread per output element i = s * width + l: out[i] = tab[idx[i], l]
@@ -86,12 +124,25 @@ extern "C" int cmi_take_along_lanes(const float* blk, const int* idx, float* out
 }
 
 // Launches K12r on `stream`: out[t * width + w] = tab[idx[t] * width + w] for
-// t < rows, w < width.  Returns cudaGetLastError() (0 on success).
+// t < rows, w < width; as float4 where width % 4 == 0 and tab and out are
+// 16-byte aligned, else one float at a time.  Returns cudaGetLastError() (0 on
+// success).
 extern "C" int cmi_row_gather(const float* tab, const int* idx, float* out, int rows, int width,
                               void* stream) {
-  if (rows > 0 && width > 0) {
-    row_gather_kernel<<<blocks(static_cast<long long>(rows) * kWarp), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(tab, idx, out, rows, width);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vector = width % 4 == 0 && reinterpret_cast<uintptr_t>(tab) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (rows > 0 && width > 0 && vector) {
+    const int vecs = width / 4;
+    const int fill = kWarp * kUnroll / vecs;  // rows that make kUnroll float4 a lane
+    const int per_warp = fill < 1 ? 1 : fill > kWarp ? kWarp : fill;
+    const long long warps = (static_cast<long long>(rows) + per_warp - 1) / per_warp;
+    row_gather_vec_kernel<<<blocks(warps * kWarp), kThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(tab), idx, reinterpret_cast<float4*>(out), rows, vecs,
+        per_warp);
+  } else if (rows > 0 && width > 0) {
+    row_gather_kernel<<<blocks(static_cast<long long>(rows) * kWarp), kThreads, 0, s>>>(
+        tab, idx, out, rows, width);
   }
   return static_cast<int>(cudaGetLastError());
 }

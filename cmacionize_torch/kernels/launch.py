@@ -13,9 +13,9 @@ tuple-driven checks and ctypes.  This path cuts each of them:
 - the stream is PyTorch's current raw stream of the tensors' device as an int
   (:data:`raw_stream`, no ``Stream`` object), and ``torch.cuda.device`` is
   entered only when that device is not the current one;
-- :func:`check_pair` compares each tensor's dtype by identity and its device
-  index, dimension count and contiguity, and builds a message only when one
-  of them is wrong;
+- :func:`check_pair` (two tensors) and :func:`check_one` compare each
+  tensor's dtype by identity and its device index, dimension count and
+  contiguity, and build a message only when one of them is wrong;
 - the wrapper allocates its output with ``torch.empty_like``, the cheapest
   of the allocations timed.
 
@@ -27,8 +27,8 @@ a wrong device, dtype, dimension count, shape, contiguity or int32 overflow;
 launch counted in ``kernels.LAUNCHES`` by the wrapper.  There is no fallback:
 a library that cannot be built, or a launch that fails, raises.
 
-Used by K12s and K12t (``kernels/probe_gather.py``); every other kernel keeps
-its own launch code.
+Used by K12s, K12t and K12r (``kernels/probe_gather.py``) and K14c
+(``kernels/probe_cohort.py``); every other kernel keeps its own launch code.
 """
 
 from __future__ import annotations
@@ -96,6 +96,15 @@ def check_pair(label: str, a_name: str, a: torch.Tensor, a_dtype, a_dim: int,
         return index
     raise ValueError(_first_wrong(label, a.device if a.is_cuda else "a CUDA device",
                                   ((a_name, a, a_dtype, a_dim), (b_name, b, b_dtype, b_dim))))
+
+
+def check_one(label: str, name: str, t: torch.Tensor, dtype, dim: int) -> int:
+    """The CUDA device index of ``t``, which must have that dtype and number
+    of dimensions and be contiguous; raises ValueError if it does not."""
+    if t.dtype is dtype and t.ndim == dim and t.is_cuda and t.is_contiguous():
+        return t.get_device()
+    raise ValueError(_first_wrong(label, t.device if t.is_cuda else "a CUDA device",
+                                  ((name, t, dtype, dim),)))
 
 
 def _first_wrong(label: str, device, tensors) -> str:

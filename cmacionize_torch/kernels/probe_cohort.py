@@ -9,23 +9,25 @@ replaced by row 0 + row 1, and the sum of row 0 · row 1) dispatch on the
 device: CPU tensors run their ``*_reference``, CUDA tensors launch the
 kernel, which counts its launches in ``kernels.LAUNCHES`` under the
 wrapper's name.  There is no fallback between the two.  The wrappers check
-devices, dtypes, shapes and contiguity.
+devices, dtypes, shapes and contiguity.  K14c launches through
+:mod:`kernels.launch` (a launcher typed once, PyTorch's raw stream), K14a and
+K14b through the ctypes path of :mod:`kernels.gather`.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from cmacionize_torch.kernels import LAUNCHES
-from cmacionize_torch.kernels.build import load_library
 from cmacionize_torch.kernels.gather import _check, _function, _launch
+from cmacionize_torch.kernels.launch import Launcher, check_one
 
 NAME = "probe_cohort"
 LANES = 128
 ITEM_ROWS = 16  # rows of one [16, 128] item of run_c's stream
 COUNT_SHAPE = (8, LANES)  # run_a's output block
+STREAM_CHUNK = 4  # items of K14c's chunks, one partial sum each (csrc/probe_cohort.cu:kChunk)
+_STREAM_ROWS = Launcher(NAME, "cmi_stream_rows", 4, 1)
 
 
 def count_positive_reference(cnt: torch.Tensor) -> torch.Tensor:
@@ -84,31 +86,31 @@ def lane_gather_loop(tab: torch.Tensor, idx: torch.Tensor, nsteps: int = 1000) -
     return out
 
 
-def _partials(items: int) -> int:
-    """The size of K14c's scratch for ``items`` items, as the launcher computes it."""
-    fn = load_library(NAME).cmi_stream_rows_partials
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    return fn(items)
+def check_stream_rows(pk: torch.Tensor) -> tuple:
+    """K14c's checks: (device index, items) of its launch, or ValueError."""
+    index = check_one("stream_rows", "pk", pk, torch.float32, 3)
+    if pk.shape[1:] != (ITEM_ROWS, LANES):
+        raise ValueError(f"stream_rows: pk must be [N, {ITEM_ROWS}, {LANES}]; got "
+                         f"{list(pk.shape)}")
+    if pk.data_ptr() % 16 != 0:
+        raise ValueError("stream_rows: pk must be 16-byte aligned")
+    if pk.numel() >= 2**31:
+        raise ValueError("stream_rows: pk must have fewer than 2^31 elements")
+    return index, pk.shape[0]
 
 
 def stream_rows(pk: torch.Tensor):
     """(``pk`` with row 2 of each item = row 0 + row 1, the sum of row 0 ·
     row 1 as f32 [1, 1]): pk f32 [N, 16, 128].  On the card the sum is
-    reduced in a fixed order (per block, then over the blocks), so repeated
-    runs agree bit for bit."""
-    if pk.device.type == "cpu":
+    reduced in a fixed order (per chunk of four items, then over the chunks
+    in order), so repeated runs agree bit for bit."""
+    if not pk.is_cuda and pk.device.type == "cpu":
         return stream_rows_reference(pk)
-    _check("stream_rows", (("pk", pk, torch.float32, 3),), pk.device)
-    if tuple(pk.shape[1:]) != (ITEM_ROWS, LANES):
-        raise ValueError(f"stream_rows: pk must be [N, {ITEM_ROWS}, {LANES}]; got "
-                         f"{list(pk.shape)}")
-    if pk.data_ptr() % 16 != 0 or pk.numel() >= 2**31:
-        raise ValueError("stream_rows: pk must be 16-byte aligned with fewer than 2^31 elements")
+    index, items = check_stream_rows(pk)
     out = torch.empty_like(pk)
-    partials = torch.empty(_partials(pk.shape[0]), dtype=torch.float32, device=pk.device)
-    s = torch.empty((1, 1), dtype=torch.float32, device=pk.device)
-    _launch("stream_rows", _function("cmi_stream_rows", 4, 1, NAME), pk, out, partials, s,
-            pk.shape[0])
+    s = pk.new_empty((1, 1))
+    # the chunks' partial sums, then the two counters the launcher zeroes
+    scratch = pk.new_empty(-(-items // STREAM_CHUNK) + 2)
+    _STREAM_ROWS(index, pk.data_ptr(), out.data_ptr(), scratch.data_ptr(), s.data_ptr(), items)
     LAUNCHES["stream_rows"] += 1
     return out, s

@@ -11,9 +11,9 @@ fallback between the two.  The wrappers check devices, dtypes, shapes and
 contiguity; they do not check the indices (that would read them back to the
 host), so they must lie in the table, as for :mod:`kernels.gather`.
 
-K12s and K12t launch through :mod:`kernels.launch` (a launcher typed once,
-PyTorch's raw stream, an identity check of each tensor), K12r and K12a
-through the ctypes path of :mod:`kernels.gather`.
+K12s, K12t and K12r launch through :mod:`kernels.launch` (a launcher typed
+once, PyTorch's raw stream, an identity check of each tensor), K12a through
+the ctypes path of :mod:`kernels.gather`.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ NAME = "probe_gather"
 F32, I32 = torch.float32, torch.int32
 _SUBLANE_GATHER = Launcher(NAME, "cmi_sublane_gather", 3, 2)
 _TAKE_ALONG_LANES = Launcher(NAME, "cmi_take_along_lanes", 3, 2)
+_ROW_GATHER = Launcher(NAME, "cmi_row_gather", 3, 2)
 
 
 def take_along_lanes_reference(blk: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -81,17 +82,23 @@ def take_along_lanes(blk: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def check_row_gather(tab: torch.Tensor, idx: torch.Tensor) -> tuple:
+    """K12r's checks: (device index, rows, width) of its launch, or
+    ValueError."""
+    index = check_pair("row_gather", "tab", tab, F32, 2, "idx", idx, I32, 1)
+    rows, width = idx.shape[0], tab.shape[1]
+    _fits_int32("row_gather", tab.numel(), rows * width)
+    return index, rows, width
+
+
 def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[t, :] = tab[idx[t], :]``: tab f32 [R, W], idx int32 [T] → f32
     [T, W]."""
-    if tab.device.type == "cpu":
+    if not tab.is_cuda and tab.device.type == "cpu":
         return row_gather_reference(tab, idx)
-    _check("row_gather", (("tab", tab, torch.float32, 2), ("idx", idx, torch.int32, 1)),
-           tab.device)
-    _fits_int32("row_gather", tab.numel(), idx.numel() * tab.shape[1])
-    out = torch.empty((idx.shape[0], tab.shape[1]), dtype=torch.float32, device=tab.device)
-    _launch("row_gather", _function("cmi_row_gather", 3, 2, NAME), tab, idx, out, idx.shape[0],
-            tab.shape[1])
+    index, rows, width = check_row_gather(tab, idx)
+    out = tab.new_empty((rows, width))
+    _ROW_GATHER(index, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, width)
     LAUNCHES["row_gather"] += 1
     return out
 

@@ -1,11 +1,15 @@
-"""Where a small kernel's call goes: per call back to back, on the device
-alone, and on the host step by step.
+"""Where a kernel's call goes: per call back to back, on the device alone,
+and on the host step by step.
 
-For K12s (``sublane_gather``), K12t (``take_along_lanes``) and K12r
-(``row_gather``) of :mod:`cmacionize_torch.kernels.probe_gather`, and beside
-each the one PyTorch call of its function (``torch.gather``,
-``torch.take_along_dim``, ``tab[idx]``), at the probe's shapes
-(``tools/probe_pallas_gather.py``) and at 2^20 lookups:
+For K12s (``sublane_gather``), K12t (``take_along_lanes``), K12r
+(``row_gather``) and K12a (``scatter_add``) of
+:mod:`cmacionize_torch.kernels.probe_gather` and K14c (``stream_rows``) of
+:mod:`cmacionize_torch.kernels.probe_cohort`, and beside each the one
+PyTorch call of its function (``torch.gather``, ``torch.take_along_dim``,
+``tab[idx]``, ``zeros`` + ``index_put_``, ``pk.clone()``, K14c's bytes bar its
+sum), at the tools' shapes (``tools/probe_pallas_gather.py``,
+``tools/probe_cohort_kernel.py``) and at a larger one (2^20 lookups; K14c
+twice the tool's 7808 items):
 
   (a) ms per call of 50 calls back to back between two CUDA events (the
       figure ``chip_smoke.py:time_cuda`` gives: the longer of the host's
@@ -13,20 +17,23 @@ each the one PyTorch call of its function (``torch.gather``,
   (b) ms per call on the device alone: 50 calls captured into a CUDA graph,
       its replays timed with events;
   (c) host µs per call: ``time.perf_counter_ns`` over many calls with no
-      synchronise, and each step of the wrapper timed the same way alone.
-      The host's clock is shared with other work, so each figure is the
-      least per call over ``ROUNDS`` windows taken in turns (every call or
-      step of a measurement in each round), after a warm-up.
+      synchronise.  The host's clock is shared with other work, so each
+      figure is the least per call over ``ROUNDS`` windows taken in turns
+      (every call or step of a measurement in each round), after a warm-up.
 
-The steps of the ctypes path that every wrapper of ``kernels/gather.py``
-uses (``_check``, ``torch.empty``, ``_function``, the ``Stream`` object,
+The host steps of the two launch paths are timed alone the same way: those of
+the ctypes path that the older wrappers use (``kernels/gather.py``:
+``_check``, ``torch.empty``, ``_function``, the ``Stream`` object,
 ``torch.cuda.device``, the pointers, the ctypes call with and without its
-launch, the counter) are timed on K12r, whose wrapper is that path and
-which stays on it as the control; the steps of :mod:`kernels.launch` (the
-wrapper's own checks, ``torch.empty_like``, the pointers, the raw stream,
-the current device, the typed ctypes call with and without its launch, the
-counter) on K12s and K12t.  Launches made here outside a wrapper do not
-touch ``kernels.LAUNCHES``.
+launch, the counter) on K12a, which stays on it as the control; those of
+:mod:`kernels.launch` (the wrapper's own checks, the output's allocation, the
+pointers, the raw stream, the current device, the typed ctypes call with and
+without its launch, the counter) on K12s, K12t and K12r.  K14c's calls are
+bound by the device, so its host steps are not split; :func:`main` splits
+its device time by the name of each kernel, memset or copy in a
+``torch.profiler`` window (``measure``, which ``chip_smoke.py`` calls, does
+not).
+Launches made here outside a wrapper do not touch ``kernels.LAUNCHES``.
 
 Run on the card::
 
@@ -42,36 +49,51 @@ import numpy as np
 import torch
 
 from cmacionize_torch.device import describe, require_cuda
-from cmacionize_torch.kernels import probe_gather
+from cmacionize_torch.kernels import probe_cohort, probe_gather
 from cmacionize_torch.kernels.gather import _check, _function
 from cmacionize_torch.kernels.launch import current_device, raw_stream
+from cmacionize_torch.tools import probe_cohort_kernel as cohort_tool
 from cmacionize_torch.tools import probe_pallas_gather as tool
 
-LOOKUPS = 1 << 20  # the larger size
+LOOKUPS = 1 << 20  # the larger size of the gathers and K12a
 REPEATS = 50  # calls per timed window of (a) and (b)
 REPLAYS = 5  # replays of the graph of (b)
 ROUNDS = 5  # windows of (c) per call or step, taken in turns; the least counts
 WARM_UP = 200  # calls before the windows of (c)
 SEED = 1234
 HBM_BYTES_PER_S = 3.35e12
+# K14c moves 15 of an item's 16 rows in and 16 out: 31/16 of 4 bytes an element
+STREAM_ROWS_BYTES_PER_ELEMENT = 4 * 31 / 16
+SCATTER_SHAPE = (tool.SCATTER_N // 128, 128)  # K12a's output
 
-# label: (wrapper name, the probe's b_* function)
+# label: (the wrapper, the tool's arguments at its own shapes)
 KERNELS = {
-    "K12s": ("sublane_gather", tool.b_sublane_gather),
-    "K12t": ("take_along_lanes", tool.b_taa_lanes),
-    "K12r": ("row_gather", tool.b_row_gather),
+    "K12s": (probe_gather.sublane_gather, lambda device: tool.b_sublane_gather(device)[1]),
+    "K12t": (probe_gather.take_along_lanes, lambda device: tool.b_taa_lanes(device)[1]),
+    "K12r": (probe_gather.row_gather, lambda device: tool.b_row_gather(device)[1]),
+    "K12a": (tool.scatter_add_probe, lambda device: tool.b_scatter_add(device)[1]),
+    "K14c": (probe_cohort.stream_rows, cohort_tool.c_inputs),
 }
-LIBRARY = {"K12s": "torch.gather", "K12t": "torch.take_along_dim", "K12r": "tab[idx]"}
-# the kernels on kernels/launch.py: their launchers and their wrappers' checks
+LIBRARY = {"K12s": "torch.gather", "K12t": "torch.take_along_dim", "K12r": "tab[idx]",
+           "K12a": "zeros + index_put_", "K14c": "pk.clone()"}
+# the kernels on kernels/launch.py: their launchers, their wrappers' checks
+# and output allocations
 NEW_PATH = {
-    "K12s": (probe_gather._SUBLANE_GATHER, probe_gather.check_sublane_gather),
-    "K12t": (probe_gather._TAKE_ALONG_LANES, probe_gather.check_take_along_lanes),
+    "K12s": (probe_gather._SUBLANE_GATHER, probe_gather.check_sublane_gather,
+             lambda a, idx: torch.empty_like(idx, dtype=torch.float32)),
+    "K12t": (probe_gather._TAKE_ALONG_LANES, probe_gather.check_take_along_lanes,
+             lambda a, idx: torch.empty_like(idx, dtype=torch.float32)),
+    "K12r": (probe_gather._ROW_GATHER, probe_gather.check_row_gather,
+             lambda a, idx: a.new_empty((idx.shape[0], a.shape[1]))),
 }
+OLD_PATH = "K12a"  # the control on the ctypes path of kernels/gather.py
 
 
 def seeded_inputs(label: str, n: int, device, rng) -> tuple:
-    """``n`` seeded lookups into the probe's table (K12t: ``n`` rows of
-    128), the table's first and last entries among them."""
+    """Seeded arguments of the larger size: ``n`` lookups into the probe's
+    table (K12t: ``n`` rows of 128), the table's first and last entries among
+    them; K12a ``n`` integer weights added at indices with duplicates; K14c
+    ``n`` items of [16, 128]."""
     def table(rows, width):
         return torch.tensor(rng.standard_normal((rows, width), dtype=np.float32), device=device)
 
@@ -84,12 +106,21 @@ def seeded_inputs(label: str, n: int, device, rng) -> tuple:
         return table(n, 128), lookups(128, (n, 1))
     if label == "K12r":
         return table(4096, 64), lookups(4096, (n,))
+    if label == "K12a":
+        val = rng.integers(-3, 4, (n // 128, 128)).astype(np.float32)
+        return lookups(tool.SCATTER_N, (n // 128, 128)), torch.tensor(val, device=device)
+    if label == "K14c":
+        return (torch.tensor(rng.standard_normal((n, 16, 128), dtype=np.float32), device=device),)
     return table(2048, 128), lookups(2048, (n // 128, 128))
 
 
 def library_call(label: str, args: tuple):
     """The one PyTorch call of the kernel's function, its int64 index copy
-    made here, outside any timed window."""
+    made here, outside any timed window (K14c: ``pk.clone()``, which moves
+    its bytes but does not form row 2 or the sum)."""
+    if label == "K14c":
+        (pk,) = args
+        return pk.clone
     a, idx = args
     if label == "K12s":
         idx64 = idx.long()
@@ -97,14 +128,24 @@ def library_call(label: str, args: tuple):
     if label == "K12t":
         idx64 = idx.long()
         return lambda: torch.take_along_dim(a, idx64, 1)
+    if label == "K12a":
+        flat, val = a.reshape(-1).long(), idx.reshape(-1)
+        return lambda: torch.zeros(tool.SCATTER_N, device=val.device).index_put_(
+            (flat,), val, accumulate=True)
     return lambda: a[idx]
 
 
 def bound_ms(label: str, args: tuple) -> float:
     """The least time an H100 SXM could take for the call (3.35 TB/s, NVIDIA's
-    data sheet): its indices and output once each, and of its table the
-    distinct 32-byte sectors that these lookups touch."""
+    data sheet): its inputs and output once each; of a gather's table, the
+    distinct 32-byte sectors that these lookups touch; of K14c's items, the 15
+    rows that its output needs (row 2 out is row 0 + row 1) and the 16 it
+    writes."""
+    if label == "K14c":
+        return STREAM_ROWS_BYTES_PER_ELEMENT * args[0].numel() / HBM_BYTES_PER_S * 1e3
     a, idx = args
+    if label == "K12a":
+        return 4 * (a.numel() + idx.numel() + tool.SCATTER_N) / HBM_BYTES_PER_S * 1e3
     width = a.shape[1]
     if label == "K12s":
         offsets = idx.long() * width + torch.arange(width, device=idx.device)
@@ -158,6 +199,25 @@ def graph_ms(fn, repeats: int = REPEATS, replays: int = REPLAYS) -> float:
     return ms
 
 
+def device_split(fn, calls: int = 20) -> dict:
+    """Device ms per call of each kernel, memset or copy that ``fn`` runs, by
+    name without its arguments, over a ``torch.profiler`` window of ``calls``
+    calls (the device's own events, as ``chip_smoke.py:profile_window``
+    counts them)."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {event.key.replace("(anonymous namespace)::", "").split("(")[0].strip():
+            event.self_device_time_total / calls / 1e3
+            for event in prof.key_averages()
+            if event.device_type == torch.autograd.DeviceType.CUDA
+            and event.self_device_time_total > 0}
+
+
 def window_us(fn, calls: int) -> float:
     """Host µs per call of ``fn`` over one window of ``calls`` calls with no
     synchronise (the device's queue drained before and after, outside it)."""
@@ -185,52 +245,52 @@ def host_us(fns: dict, calls: int, rounds: int = ROUNDS) -> dict:
 
 
 def old_path_steps(args: tuple) -> dict:
-    """Each step of K12r's wrapper, the ctypes path of ``kernels/gather.py``,
-    as a function of no arguments; the ctypes call once with no work (n = 0:
-    it returns ``cudaGetLastError()`` and launches nothing) and once with its
-    launch."""
-    tab, idx = args
-    device = tab.device
-    fn = _function("cmi_row_gather", 3, 2, probe_gather.NAME)
-    out = torch.empty((idx.shape[0], tab.shape[1]), dtype=torch.float32, device=device)
+    """Each step of K12a's wrapper, the ctypes path of ``kernels/gather.py``,
+    as a function of no arguments; the ctypes call once with no work (n = 0
+    and nothing to zero: it returns ``cudaGetLastError()`` and launches
+    nothing) and once with its zeroing and launch."""
+    idx, val = args
+    device = val.device
+    fn = _function("cmi_scatter_add", 3, 2, probe_gather.NAME)
+    out = torch.empty(SCATTER_SHAPE, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    pointers = (tab.data_ptr(), idx.data_ptr(), out.data_ptr())
+    pointers = (idx.data_ptr(), val.data_ptr(), out.data_ptr())
     counts = collections.Counter()
 
-    def checks():  # as row_gather checks
-        _check("row_gather", (("tab", tab, torch.float32, 2), ("idx", idx, torch.int32, 1)),
-               device)
-        probe_gather._fits_int32("row_gather", tab.numel(), idx.numel() * tab.shape[1])
+    def checks():  # as scatter_add checks
+        _check("scatter_add", (("idx", idx, torch.int32, val.dim()),
+                               ("val", val, torch.float32, val.dim())), device)
+        probe_gather._fits_int32("scatter_add", idx.numel(), out.numel())
 
     def context():
         with torch.cuda.device(device):
             pass
 
     def counter():
-        counts["row_gather"] += 1
+        counts["scatter_add"] += 1
 
     return {
         "checks": checks,
-        "torch.empty": lambda: torch.empty(out.shape, dtype=torch.float32, device=device),
-        "_function": lambda: _function("cmi_row_gather", 3, 2, probe_gather.NAME),
+        "torch.empty": lambda: torch.empty(SCATTER_SHAPE, dtype=torch.float32, device=device),
+        "_function": lambda: _function("cmi_scatter_add", 3, 2, probe_gather.NAME),
         "Stream object": lambda: torch.cuda.current_stream(device).cuda_stream,
         "torch.cuda.device": context,
-        "data_ptr x3": lambda: (tab.data_ptr(), idx.data_ptr(), out.data_ptr()),
-        "ctypes, no launch": lambda: fn(*pointers, 0, tab.shape[1], stream),
-        "ctypes + launch": lambda: fn(*pointers, idx.shape[0], tab.shape[1], stream),
+        "data_ptr x3": lambda: (idx.data_ptr(), val.data_ptr(), out.data_ptr()),
+        "ctypes, no launch": lambda: fn(*pointers, 0, 0, stream),
+        "ctypes + launch": lambda: fn(*pointers, idx.numel(), out.numel(), stream),
         "counter": counter,
     }
 
 
 def new_path_steps(label: str, args: tuple) -> dict:
-    """Each step of the :mod:`kernels.launch` wrapper of K12s or K12t alone,
-    its checks being the wrapper's own; the typed ctypes call once with no
-    work (n = 0) and once with its launch."""
-    launcher, check = NEW_PATH[label]
+    """Each step of the :mod:`kernels.launch` wrapper of K12s, K12t or K12r
+    alone, its checks and allocation being the wrapper's own; the typed
+    ctypes call once with no work (n = 0) and once with its launch."""
+    launcher, check, alloc = NEW_PATH[label]
     a, idx = args
     index, n, width = check(a, idx)
     fn = launcher.bind()
-    out = torch.empty_like(idx, dtype=torch.float32)
+    out = alloc(a, idx)
     stream = raw_stream(index)
     pointers = (a.data_ptr(), idx.data_ptr(), out.data_ptr())
     counts = collections.Counter()
@@ -240,7 +300,7 @@ def new_path_steps(label: str, args: tuple) -> dict:
 
     return {
         "checks": lambda: check(a, idx),
-        "empty_like": lambda: torch.empty_like(idx, dtype=torch.float32),
+        "allocation": lambda: alloc(a, idx),
         "data_ptr x3": lambda: (a.data_ptr(), idx.data_ptr(), out.data_ptr()),
         "raw stream": lambda: raw_stream(index),
         "current device": current_device,
@@ -253,20 +313,20 @@ def new_path_steps(label: str, args: tuple) -> dict:
 # the steps of each path that make up its call (the others are alternatives)
 OLD_PATH_CALL = ("checks", "torch.empty", "_function", "Stream object", "torch.cuda.device",
                  "data_ptr x3", "ctypes + launch", "counter")
-NEW_PATH_CALL = ("checks", "empty_like", "data_ptr x3", "raw stream", "current device",
+NEW_PATH_CALL = ("checks", "allocation", "data_ptr x3", "raw stream", "current device",
                  "ctypes + launch", "counter")
 
 
 def fmt(values: dict) -> str:
-    return ", ".join(f"{k} {v:.3f}" for k, v in values.items())
+    return ", ".join(f"{k} {v:.4g}" for k, v in values.items())
 
 
 def measure(label: str, size: str, args: tuple, host_calls: int = 10_000) -> dict:
     """(a), (b) and (c) of the kernel's wrapper and of the library call on
-    ``args``, with the split of the wrapper's path (K12r: the old path; K12s,
-    K12t: the new one); prints a line of each and returns them."""
-    name = KERNELS[label][0]
-    wrapper = getattr(probe_gather, name)
+    ``args``, with the split of the wrapper's path (K12a: the old path; K12s,
+    K12t, K12r: the new one; K14c: none); prints a line of each and returns
+    them."""
+    wrapper = KERNELS[label][0]
     calls = {"wrapper": lambda: wrapper(*args), LIBRARY[label]: library_call(label, args)}
     host = host_us(calls, host_calls)
     record = {"bound_ms": bound_ms(label, args)}
@@ -276,6 +336,8 @@ def measure(label: str, size: str, args: tuple, host_calls: int = 10_000) -> dic
         print(f"launch_cost {label} {size} {which}: (a) {record[which]['a_ms']:.4f} ms per call; "
               f"(b) {record[which]['b_ms']:.4f} ms device only (CUDA graph); "
               f"(c) {host[which]:.3f} us host", flush=True)
+    if label == "K14c":  # bound by the device: its host steps are not split
+        return record
     if label in NEW_PATH:
         which, steps, in_call = "new path split", new_path_steps(label, args), NEW_PATH_CALL
     else:
@@ -286,6 +348,11 @@ def measure(label: str, size: str, args: tuple, host_calls: int = 10_000) -> dic
     return record
 
 
+# the larger size of each kernel
+LARGER = {"K12s": LOOKUPS, "K12t": LOOKUPS, "K12r": LOOKUPS, "K12a": LOOKUPS,
+          "K14c": 2 * cohort_tool.NCHUNK * 8}
+
+
 def main() -> dict:
     """Every measurement above on the card; returns {(label, size): record}."""
     device = require_cuda()
@@ -293,10 +360,21 @@ def main() -> dict:
     rng = np.random.default_rng(SEED)
     records = {}
     for label, (_, make) in KERNELS.items():
-        _, args = make(device)
-        records[label, "probe"] = measure(label, "probe", args)
-        records[label, "2^20"] = measure(label, "2^20", seeded_inputs(label, LOOKUPS, device, rng),
-                                         host_calls=1000)
+        n = LARGER[label]
+        for size in ("tool", str(n)):
+            args = make(device) if size == "tool" else seeded_inputs(label, n, device, rng)
+            # K14c's windows stay short enough that its queued launches do
+            # not fill the device's queue, which would time the device, not
+            # the host
+            records[label, size] = measure(
+                label, size, args,
+                host_calls=10_000 if size == "tool" and label != "K14c" else 1000)
+            if label == "K14c":  # its device time by kernel, here only (PERF.md §6)
+                for which, fn in {"wrapper": lambda: probe_cohort.stream_rows(*args),
+                                  LIBRARY[label]: library_call(label, args)}.items():
+                    split = records[label, size][which]["device_split"] = device_split(fn)
+                    print(f"launch_cost {label} {size} {which} device split (ms per call, "
+                          f"torch.profiler): {fmt(split)}", flush=True)
     return records
 
 

@@ -1800,3 +1800,200 @@ def test_probe_deposit_and_cohort_tools_on_card(cuda, capsys):
         "shifted_histogram", "dda_math", "dda_incremental", "fill_first", "count_positive",
         "lane_gather_loop", "stream_rows"))
     assert capsys.readouterr().out.count("(CUDA events)") == 16
+
+
+# -- K14c and K12r on kernels/launch.py: the bulk-async stream and the vector rows --------------
+
+
+def _stream_input(items, seed, cuda):
+    return torch.tensor(np.random.default_rng(seed).standard_normal((items, 16, 128), np.float32),
+                        device=cuda)
+
+
+def _assert_stream_rows_equal(pk, out, s):
+    from cmacionize_torch.kernels import probe_cohort as pc
+
+    out_r, s_r = pc.stream_rows_reference(pk)
+    assert torch.equal(out, out_r) and s.shape == (1, 1)
+    magnitude = float((pk[:, 0].double() * pk[:, 1].double()).abs().sum())
+    assert abs(float(s) - float(s_r)) <= 1e-6 * magnitude
+
+
+# chunks of four items, at most 132 blocks, six fixed chunks a block before the
+# counter: 1-7 items, a chunk boundary at 4 and a partial last chunk; 528 and
+# 529, one chunk a block on all 132 blocks, then one block with a second;
+# 3168 and 3169, the fixed chunks all taken, then the counter's first chunk;
+# 15616, twice the tool's items
+@pytest.mark.parametrize("items", [1, 2, 3, 7, 528, 529, 3168, 3169, 15616])
+def test_stream_rows_bulk_copies_equal_plain_version_in_one_launch(cuda, items):
+    from cmacionize_torch.kernels import probe_cohort as pc
+
+    pk = _stream_input(items, items + 13, cuda)
+    kernels.LAUNCHES.clear()
+    out, s = pc.stream_rows(pk)
+    assert kernels.LAUNCHES["stream_rows"] == 1  # once per call
+    _assert_stream_rows_equal(pk, out, s)
+
+
+def test_stream_rows_on_the_tools_input(cuda):
+    from cmacionize_torch.kernels import probe_cohort as pc
+    from cmacionize_torch.tools import probe_cohort_kernel as tool
+
+    (pk,) = tool.c_inputs(cuda)
+    out, s = pc.stream_rows(pk)
+    _assert_stream_rows_equal(pk, out, s)
+    assert float(s) == float(pk[:, 0].double().mul(pk[:, 1].double()).sum())  # exact on ones
+
+
+def test_stream_rows_repeats_itself_after_another_size(cuda):
+    # the ticket is zeroed by each launch: a call of another size in between
+    # leaves the next call's bits as they were
+    from cmacionize_torch.kernels import probe_cohort as pc
+
+    pk, small = _stream_input(7808, 1, cuda), _stream_input(3, 2, cuda)
+    out, s = pc.stream_rows(pk)
+    out_small, s_small = pc.stream_rows(small)
+    out2, s2 = pc.stream_rows(pk)
+    assert torch.equal(out2, out) and torch.equal(s2.view(torch.int32), s.view(torch.int32))
+    _assert_stream_rows_equal(small, out_small, s_small)
+
+
+def test_stream_rows_on_a_side_stream(cuda):
+    from cmacionize_torch.kernels import probe_cohort as pc
+
+    pk = _stream_input(7808, 3, cuda)
+    ref, s_ref = pc.stream_rows(pk)
+    ref, s_ref = ref.cpu(), s_ref.cpu()
+    big = torch.randn((4096, 4096), device=cuda)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(8):  # keeps the default stream busy
+        big = big @ big / 64.0
+    with torch.cuda.stream(side):
+        out, s = pc.stream_rows(pk)
+        host, s_host = out.cpu(), s.cpu()  # torch ops on the side stream, its only synchronise
+    assert torch.equal(host, ref) and torch.equal(s_host.view(torch.int32), s_ref.view(torch.int32))
+
+
+def test_stream_rows_in_a_cuda_graph(cuda):
+    from cmacionize_torch.kernels import probe_cohort as pc
+
+    pk = _stream_input(7808, 4, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pc.stream_rows(pk)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    kernels.LAUNCHES.clear()
+    with torch.cuda.graph(graph):
+        out, s = pc.stream_rows(pk)
+    assert kernels.LAUNCHES["stream_rows"] == 1
+    for seed in (5, 6):  # new inputs in the captured tensor, then a replay
+        pk.copy_(_stream_input(7808, seed, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_stream_rows_equal(pk, out, s)
+        _, s_eager = pc.stream_rows(pk)
+        assert torch.equal(s.view(torch.int32), s_eager.view(torch.int32))
+    assert kernels.LAUNCHES["stream_rows"] == 3  # a replay calls no wrapper
+
+
+def _row_gather_case(case, cuda):
+    """(tab, idx) of K12r: the probe's, 2^20 lookups, widths on the vector
+    path (multiples of 4, rows that end inside a warp's run) and on the
+    scalar one (a width not a multiple of 4, a table 4 bytes past 16-byte
+    alignment)."""
+    from cmacionize_torch.tools import probe_pallas_gather as tool
+
+    if case == "probe":
+        return tool.b_row_gather(cuda)[1]
+    rows, width, n, offset = {"2^20": (4096, 64, 2**20, 0), "width 4": (1000, 4, 8195, 0),
+                              "width 12": (1000, 12, 4099, 0), "width 132": (512, 132, 777, 0),
+                              "width 63": (4096, 63, 8192, 0), "width 1": (300, 1, 1001, 0),
+                              "unaligned": (4096, 64, 8192, 1)}[case]
+    rng = np.random.default_rng(rows + width + n)
+    flat = torch.tensor(rng.normal(size=rows * width + offset).astype(np.float32), device=cuda)
+    tab = flat[offset:].view(rows, width)
+    assert (tab.data_ptr() % 16 == 0) == (offset == 0)
+    return tab, _probe_lookups(rng, n, rows, (n,), cuda)
+
+
+ROW_GATHER_CASES = ("probe", "2^20", "width 4", "width 12", "width 132", "width 63", "width 1",
+                    "unaligned")
+
+
+@pytest.mark.parametrize("case", ROW_GATHER_CASES)
+def test_row_gather_launch_path_equals_indexing(cuda, case):
+    from cmacionize_torch.kernels import probe_gather as pg
+
+    tab, idx = _row_gather_case(case, cuda)
+    kernels.LAUNCHES.clear()
+    out = pg.row_gather(tab, idx)
+    assert kernels.LAUNCHES["row_gather"] == 1  # once per call
+    assert out.shape == (idx.shape[0], tab.shape[1]) and out.is_contiguous()
+    assert torch.equal(out, tab[idx.long()]) and torch.equal(out, pg.row_gather_reference(tab, idx))
+
+
+def test_row_gather_launch_path_on_a_side_stream(cuda):
+    from cmacionize_torch.kernels import probe_gather as pg
+
+    tab, idx = _row_gather_case("2^20", cuda)
+    ref = tab[idx.long()].cpu()
+    big = torch.randn((4096, 4096), device=cuda)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(8):
+        big = big @ big / 64.0
+    with torch.cuda.stream(side):
+        host = pg.row_gather(tab, idx).cpu()
+    assert torch.equal(host, ref)
+
+
+def test_row_gather_launch_path_in_a_cuda_graph(cuda):
+    from cmacionize_torch.kernels import probe_gather as pg
+
+    tab, idx = _row_gather_case("probe", cuda)
+    rng = np.random.default_rng(11)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pg.row_gather(tab, idx)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    kernels.LAUNCHES.clear()
+    with torch.cuda.graph(graph):
+        out = pg.row_gather(tab, idx)
+    assert kernels.LAUNCHES["row_gather"] == 1
+    for _ in range(2):
+        tab.copy_(torch.tensor(rng.normal(size=tuple(tab.shape)).astype(np.float32)))
+        idx.copy_(_probe_lookups(rng, idx.numel(), tab.shape[0], idx.shape, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, tab[idx.long()])
+    assert kernels.LAUNCHES["row_gather"] == 1
+
+
+def test_row_gather_and_stream_rows_reject_what_the_kernels_do_not_take(cuda):
+    from cmacionize_torch.kernels import probe_cohort as pc
+    from cmacionize_torch.kernels import probe_gather as pg
+
+    tab, idx = _row_gather_case("probe", cuda)
+    kernels.LAUNCHES.clear()
+    for args, message in (((tab.double(), idx), "tab must be"), ((tab, idx.long()), "idx must be"),
+                          ((tab, idx.cpu()), "idx must be"),
+                          ((tab.t().contiguous().t(), idx), "tab must be contiguous"),
+                          ((tab, idx[::2]), "idx must be contiguous")):
+        with pytest.raises(ValueError, match=f"row_gather: {message}"):
+            pg.row_gather(*args)
+    with pytest.raises(ValueError, match="sizes must fit int32"):
+        pg.row_gather(tab, torch.zeros(2**25, dtype=torch.int32, device=cuda))
+    pk = torch.ones((4, 16, 128), device=cuda)
+    for arg, message in ((pk.double(), "pk must be a 3D"), (pk.reshape(4, 2048), "pk must be a 3D"),
+                         (pk.transpose(1, 2).contiguous().transpose(1, 2), "pk must be contiguous"),
+                         (pk[:, :8].contiguous(), r"pk must be \[N, 16, 128\]")):
+        with pytest.raises(ValueError, match=f"stream_rows: {message}"):
+            pc.stream_rows(arg)
+    assert kernels.LAUNCHES["row_gather"] == kernels.LAUNCHES["stream_rows"] == 0
+    with pytest.raises(TypeError):  # typed once: four pointers, one int and the stream
+        pc._STREAM_ROWS(pk.get_device(), 1, 2)

@@ -1,17 +1,17 @@
-"""The launch path of K12s and K12t (``cmacionize_torch/kernels/launch.py``)
-on the CPU.
+"""The launch path of K12s, K12t, K12r and K14c
+(``cmacionize_torch/kernels/launch.py``) on the CPU.
 
 The CPU has no card and no ``nvcc``, so what is held here is what a wrapper
 does around its launch: the module imports, builds and binds nothing until a
 kernel launches; a :class:`Launcher` types its function once, launches on
 the raw stream, enters the device's context only when the device is not the
 current one and raises RuntimeError on a failed launch (a stand-in library
-on the CPU); :func:`check_pair` and the wrappers' checks raise ValueError on
-each wrong argument the CPU can show (a dtype, a dimension count, a
-contiguity, a tensor off the card, a shape, a size past int32); the wrappers
-of K12s and K12t run their plain versions on CPU tensors and refuse any other
-non-CUDA tensor; every launcher names an ``extern "C"`` function of its
-source with the arguments it passes.  The kernels themselves, on the card,
+on the CPU); :func:`check_pair`, :func:`check_one` and the wrappers' checks
+raise ValueError on each wrong argument the CPU can show (a dtype, a
+dimension count, a contiguity, a tensor off the card, a shape, an alignment,
+a size past int32); the wrappers run their plain versions on CPU tensors and
+refuse any other non-CUDA tensor; every launcher names an ``extern "C"``
+function of its source with the arguments it passes.  The kernels themselves, on the card,
 on a side stream and in a CUDA graph, are in tests/test_torch_cuda.py; their
 plain versions against the JAX Pallas bodies in
 tests/test_torch_probe_pallas_gather.py.
@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from cmacionize_torch import kernels
-from cmacionize_torch.kernels import build, launch, probe_gather
+from cmacionize_torch.kernels import build, launch, probe_cohort, probe_gather
 
 F32, I32 = torch.float32, torch.int32
 
@@ -270,3 +270,220 @@ def test_every_launcher_names_a_launcher_of_its_source():
                  for p in params]
         assert kinds == launcher.argtypes, (where, params)
         assert params[-1] == "void* stream", where
+
+
+# -- K12r and K14c ------------------------------------------------------------------------------
+
+
+def test_k12r_and_k14c_launchers_are_found_and_bind_nothing_at_import():
+    # the signature test above holds every Launcher it finds against its
+    # source; these two are among them, and importing builds and binds nothing
+    assert {"cmacionize_torch.kernels.probe_gather._ROW_GATHER",
+            "cmacionize_torch.kernels.probe_cohort._STREAM_ROWS"} <= set(_launchers())
+    assert (probe_gather._ROW_GATHER.symbol, probe_cohort._STREAM_ROWS.symbol) == (
+        "cmi_row_gather", "cmi_stream_rows")
+    code = (
+        "from cmacionize_torch.kernels import build, probe_cohort, probe_gather\n"
+        "assert not build._LIBRARIES\n"
+        "assert probe_gather._ROW_GATHER.function is None\n"
+        "assert probe_cohort._STREAM_ROWS.function is None\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent"}  # no nvcc
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=build.CSRC_DIR.parent.parent, check=False)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_check_one_refuses_a_tensor_off_the_card(device):
+    pk = torch.empty((2, 16, 128), device=device)
+    with pytest.raises(ValueError, match=r"k: pk must be a 3D torch.float32 tensor on a CUDA "
+                                         rf"device; got 3D torch.float32 on {device}"):
+        launch.check_one("k", "pk", pk, F32, 3)
+
+
+@pytest.mark.parametrize("which, message", [
+    ("dtype", "pk must be a 3D torch.float32 tensor on cpu; got 3D torch.float64 on cpu"),
+    ("dim", "pk must be a 3D torch.float32 tensor on cpu; got 2D torch.float32 on cpu"),
+    ("contiguity", "pk must be contiguous"),
+])
+def test_check_one_names_the_wrong_property(which, message):
+    pk = torch.zeros((2, 16, 128))
+    wrong = {"dtype": pk.double(), "dim": pk.reshape(2, -1),
+             "contiguity": pk.transpose(1, 2).contiguous().transpose(1, 2)}[which]
+    assert launch._first_wrong("k", torch.device("cpu"), (("pk", wrong, F32, 3),)) == f"k: {message}"
+    with pytest.raises(ValueError, match="k: pk must be .* on a CUDA device"):
+        launch.check_one("k", "pk", wrong, F32, 3)
+
+
+ROW_GATHER_WRONG = {
+    "tab dtype": "tab must be a 2D torch.float32 tensor on cpu; got 2D torch.float64 on cpu",
+    "idx dtype": "idx must be a 1D torch.int32 tensor on cpu; got 1D torch.int64 on cpu",
+    "tab dim": "tab must be a 2D torch.float32 tensor on cpu; got 1D torch.float32 on cpu",
+    "idx dim": "idx must be a 1D torch.int32 tensor on cpu; got 2D torch.int32 on cpu",
+    "tab contiguity": "tab must be contiguous",
+    "idx contiguity": "idx must be contiguous",
+}
+
+
+@pytest.mark.parametrize("which", sorted(ROW_GATHER_WRONG))
+def test_check_row_gather_names_each_wrong_argument(which):
+    # K12r's idx is 1D; the CPU stands in for the card's device
+    tab, idx = torch.zeros((16, 8)), torch.zeros(32, dtype=I32)
+    tab, idx = {
+        "tab dtype": lambda: (tab.double(), idx),
+        "idx dtype": lambda: (tab, idx.long()),
+        "tab dim": lambda: (tab.reshape(-1), idx),
+        "idx dim": lambda: (tab, idx.reshape(4, 8)),
+        "tab contiguity": lambda: (tab.t().contiguous().t(), idx),
+        "idx contiguity": lambda: (tab, idx[::2]),
+    }[which]()
+    tensors = (("tab", tab, F32, 2), ("idx", idx, I32, 1))
+    assert launch._first_wrong("row_gather", torch.device("cpu"), tensors) == \
+        f"row_gather: {ROW_GATHER_WRONG[which]}"
+    with pytest.raises(ValueError, match="row_gather: tab must be .* on a CUDA device"):
+        probe_gather.check_row_gather(tab, idx)
+
+
+@pytest.mark.parametrize("shapes, sizes", [
+    (((4096, 64), (8192,)), (8192, 64)),
+    (((4096, 63), (2**20,)), (2**20, 63)),
+])
+def test_check_row_gather_gives_the_launch_sizes(monkeypatch, shapes, sizes):
+    monkeypatch.setattr(probe_gather, "check_pair", lambda *args: 2)
+    tab = torch.empty(shapes[0], device="meta")
+    idx = torch.empty(shapes[1], dtype=I32, device="meta")
+    assert probe_gather.check_row_gather(tab, idx) == (2, *sizes)
+
+
+@pytest.mark.parametrize("shapes", [((2**25, 64), (8,)), ((4096, 64), (2**25,))])
+def test_check_row_gather_refuses_sizes_past_int32(monkeypatch, shapes):
+    monkeypatch.setattr(probe_gather, "check_pair", lambda *args: 0)
+    tab = torch.empty(shapes[0], device="meta")
+    idx = torch.empty(shapes[1], dtype=I32, device="meta")
+    with pytest.raises(ValueError, match="row_gather: sizes must fit int32"):
+        probe_gather.check_row_gather(tab, idx)
+
+
+def _unaligned(shape):
+    """A contiguous CPU tensor of ``shape`` that starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.zeros(int(np.prod(shape)) + 4)
+    offset = next(k for k in range(4) if (flat.data_ptr() + 4 * k) % 16 == 4)
+    return flat[offset:offset + int(np.prod(shape))].view(shape)
+
+
+@pytest.mark.parametrize("make, message", [
+    (lambda: torch.zeros((2, 8, 128)), r"pk must be \[N, 16, 128\]; got \[2, 8, 128\]"),
+    (lambda: torch.zeros((2, 16, 64)), r"pk must be \[N, 16, 128\]; got \[2, 16, 64\]"),
+    (lambda: _unaligned((2, 16, 128)), "pk must be 16-byte aligned"),
+    (lambda: torch.empty((2**20, 16, 128), device="meta"), "pk must have fewer than 2\\^31 elements"),
+])
+def test_check_stream_rows_refuses_shapes_alignment_and_sizes(monkeypatch, make, message):
+    # past check_one (as if the tensor lay on the card)
+    monkeypatch.setattr(probe_cohort, "check_one", lambda *args: 0)
+    with pytest.raises(ValueError, match=f"stream_rows: {message}"):
+        probe_cohort.check_stream_rows(make())
+
+
+def test_check_stream_rows_gives_the_launch_sizes(monkeypatch):
+    monkeypatch.setattr(probe_cohort, "check_one", lambda *args: 1)
+    assert probe_cohort.check_stream_rows(torch.zeros((7, 16, 128))) == (1, 7)
+    assert probe_cohort.check_stream_rows(
+        torch.empty((2**20 - 1, 16, 128), device="meta")) == (1, 2**20 - 1)
+
+
+@pytest.mark.parametrize("make, message", [
+    (lambda: torch.zeros((2, 16, 128), dtype=torch.float64), "got 3D torch.float64 on cpu"),
+    (lambda: torch.zeros((2, 2048)), "got 2D torch.float32 on cpu"),
+    (lambda: torch.zeros((2, 128, 16)).transpose(1, 2), "got 3D torch.float32 on cpu"),
+])
+def test_stream_rows_check_names_the_tensor_off_the_card(make, message):
+    with pytest.raises(ValueError, match=f"stream_rows: pk must be .* on a CUDA device; {message}"):
+        probe_cohort.check_stream_rows(make())
+
+
+def test_stream_chunk_matches_the_source():
+    source = (build.CSRC_DIR / "probe_cohort.cu").read_text()
+    assert f"constexpr int kChunk = {probe_cohort.STREAM_CHUNK};" in source
+
+
+def test_row_gather_and_stream_rows_run_the_plain_version_on_cpu_tensors():
+    rng = np.random.default_rng(4)
+    table = rng.normal(size=(4096, 64)).astype(np.float32)
+    idx = rng.integers(0, 4096, 8192).astype(np.int32)
+    pk = rng.normal(size=(9, 16, 128)).astype(np.float32)
+    kernels.LAUNCHES.clear()
+    out = probe_gather.row_gather(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(out.numpy(), table[idx])
+    rows, s = probe_cohort.stream_rows(torch.from_numpy(pk))
+    expected = pk.copy()
+    expected[:, 2] = pk[:, 0] + pk[:, 1]
+    np.testing.assert_array_equal(rows.numpy(), expected)
+    np.testing.assert_allclose(float(s), float((pk[:, 0].astype(np.float64) * pk[:, 1]).sum()),
+                               rtol=1e-5)
+    assert kernels.LAUNCHES["row_gather"] == kernels.LAUNCHES["stream_rows"] == 0
+    assert probe_gather._ROW_GATHER.function is None and probe_cohort._STREAM_ROWS.function is None
+
+
+def test_row_gather_and_stream_rows_refuse_meta_tensors():
+    tab, idx = torch.empty((4096, 64), device="meta"), torch.empty(8192, dtype=I32, device="meta")
+    with pytest.raises(ValueError, match="row_gather: tab must be a 2D torch.float32 tensor on a "
+                                         "CUDA device; got 2D torch.float32 on meta"):
+        probe_gather.row_gather(tab, idx)
+    with pytest.raises(ValueError, match="stream_rows: pk must be a 3D torch.float32 tensor on a "
+                                         "CUDA device; got 3D torch.float32 on meta"):
+        probe_cohort.stream_rows(torch.empty((8, 16, 128), device="meta"))
+
+
+# -- tools/launch_cost.py: what it times, on the CPU ----------------------------------------------
+
+
+@pytest.mark.parametrize("label", ["K12s", "K12t", "K12r", "K12a", "K14c"])
+def test_launch_cost_library_calls_compute_the_wrappers_functions(label):
+    # the one PyTorch call timed beside each wrapper computes its function
+    # (K14c's pk.clone() moves the same bytes: every row but row 2); on CPU
+    # tensors the wrappers run their plain versions and launch nothing
+    from cmacionize_torch.tools import launch_cost
+
+    n = {"K12s": 1024, "K12t": 256, "K12r": 512, "K12a": 1024, "K14c": 5}[label]
+    args = launch_cost.seeded_inputs(label, n, "cpu", np.random.default_rng(len(label) + n))
+    wrapper = launch_cost.KERNELS[label][0]
+    kernels.LAUNCHES.clear()
+    out, library = wrapper(*args), launch_cost.library_call(label, args)()
+    if label == "K14c":
+        rows = [0, 1, *range(3, 16)]
+        assert torch.equal(out[0][:, rows], library[:, rows])
+    else:
+        assert torch.equal(out.reshape(-1), library.reshape(-1))
+    assert sum(kernels.LAUNCHES.values()) == 0
+
+
+def test_launch_cost_bounds_count_each_byte_once():
+    from cmacionize_torch.tools import launch_cost, probe_cohort_kernel, probe_pallas_gather
+
+    # K12r at the probe's shapes: (7t) mod 4096 touches the whole 1 MB table,
+    # then 8192 indices and 2 MB out (chip_smoke.py's 0.000949 ms)
+    _, args = probe_pallas_gather.b_row_gather("cpu")
+    assert launch_cost.bound_ms("K12r", args) == pytest.approx(
+        (4 * 8192 * 65 + 4096 * 64 * 4) / 3.35e12 * 1e3)
+    assert launch_cost.bound_ms("K12r", args) == pytest.approx(0.000949, abs=5e-7)
+    # K14c: 15 rows of each item read (row 2 out is row 0 + row 1), 16 written
+    (pk,) = probe_cohort_kernel.c_inputs("meta")
+    assert launch_cost.bound_ms("K14c", (pk,)) == pytest.approx(
+        (15 + 16) * 128 * 4 * pk.shape[0] / 3.35e12 * 1e3)
+    assert launch_cost.bound_ms("K14c", (pk,)) == pytest.approx(0.036994, abs=5e-7)
+    assert launch_cost.LARGER["K14c"] == 2 * pk.shape[0]
+    idx, val = probe_pallas_gather.b_scatter_add("cpu")[1]
+    assert launch_cost.bound_ms("K12a", (idx, val)) == pytest.approx(
+        4 * (2 * idx.numel() + probe_pallas_gather.SCATTER_N) / 3.35e12 * 1e3)
+
+
+def test_launch_cost_splits_each_path_on_its_kernels():
+    from cmacionize_torch.tools import launch_cost
+
+    assert set(launch_cost.NEW_PATH) == {"K12s", "K12t", "K12r"}
+    assert launch_cost.OLD_PATH == "K12a" and launch_cost.OLD_PATH not in launch_cost.NEW_PATH
+    assert set(launch_cost.KERNELS) == set(launch_cost.LIBRARY) == set(launch_cost.LARGER)
+    for label, (launcher, _, _) in launch_cost.NEW_PATH.items():
+        assert isinstance(launcher, launch.Launcher) and launcher.library == "probe_gather"
