@@ -196,17 +196,18 @@ Phases (any failed check raises, so the script exits non-zero):
     and random weights within rel L1 1e-6), and timed at the probe's shapes
     beside its plain version and its one PyTorch call; K12r also on its
     scalar path (a width not a multiple of 4, a table off 16-byte
-    alignment), and with one launch per call, on a side stream and after two
-    replays of a CUDA graph; then, for K12s, K12t and K12r (on
+    alignment), K11r on 2^20 - 3 lookups, 3D blocks and views off 16-byte
+    alignment (rows and lanes; the table), and both with one launch per call, on a side stream and after two replays of
+    a CUDA graph; then, for K11r, K12s, K12t and K12r (on
     ``kernels/launch.py``) and K12a (on the ctypes path of
-    ``kernels/gather.py``), at the probe's shapes and at 2^20 lookups,
-    beside ``torch.gather``, ``torch.take_along_dim``, ``tab[idx]`` and
-    ``zeros`` + ``index_put_``
+    ``kernels/gather.py``), at the probe's shapes and (all but K11r) at 2^20
+    lookups, beside ``tab[hi, lo]``, ``torch.gather``,
+    ``torch.take_along_dim``, ``tab[idx]`` and ``zeros`` + ``index_put_``
     (``cmacionize_torch.tools.launch_cost.measure``): (a) ms per call back
     to back, (b) ms per call on the device alone (a CUDA graph of 50
     calls), (c) host µs per call with no synchronise, and the host's cost
-    split step by step for the old path (K12a) and the new (K12s, K12t,
-    K12r);
+    split step by step for the old path (K12a) and the new (K11r, K12s,
+    K12t, K12r);
 36. the deposit and DDA-step probes (``cmacionize_torch.tools.
     probe_deposit.main()`` and ``probe_deposit2.main()``) at the tools' sizes
     (1024 packets or lanes, 7808 steps), their launch counts of K13h (the
@@ -215,9 +216,12 @@ Phases (any failed check raises, so the script exits non-zero):
     ones at the tools' shapes (K13h also at 300 steps) and on a larger seeded
     case (K13h 2^16 packets x 7808 steps, K13e and K13w 2^20 lanes): K13h
     identical with integer weights and within rel 1e-5 per cell with random
-    ones, the others identical in every lane and bit; each timed beside its
-    plain version (K13h also beside ``torch.bincount`` on the expanded
-    cells), K13e and K13w with their latency floors;
+    ones, the others identical in every lane and bit; K13f (on
+    ``kernels/launch.py``) with one launch per call, on a side stream and
+    after two replays of a CUDA graph, and its (a), (b), (c) and host split
+    beside its one PyTorch call at [8, 128] (``launch_cost.measure``); each
+    timed beside its plain version (K13h also beside ``torch.bincount`` on
+    the expanded cells), K13e and K13w with their latency floors;
 37. the cohort mechanics probes (``cmacionize_torch.tools.
     probe_cohort_kernel.main()``) at the tool's sizes, their launch counts
     of K14a (run_a), K14b (run_b), K14c (run_c) and K13h (run_d); then K14a,
@@ -2926,6 +2930,7 @@ def gather_phase(device) -> tuple:
     """Phase 34: the microbenchmark on the card at the tool's sizes, then
     K11 and K11r against their plain versions and timed beside their
     one-call PyTorch counterparts."""
+    t_phase = time.perf_counter()
     kernels.LAUNCHES.clear()
     microbench_scatter.main(device=device)
     torch.cuda.synchronize()
@@ -2961,6 +2966,7 @@ def gather_phase(device) -> tuple:
         bound = roofline(label, (index_bytes + 4) * n + 4 * n_cell, 0.0, F32_OPS_PER_S)
         records.append({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound,
                         "library_ms": library_ms})
+    log(f"phase 34 took {time.perf_counter() - t_phase:.2f} s")
     return launches, records
 
 
@@ -2968,6 +2974,14 @@ def sector_bytes(offsets: torch.Tensor) -> int:
     """Bytes of the distinct 32-byte sectors that hold the f32 elements at the
     flat ``offsets`` of one table."""
     return 32 * int(torch.unique(offsets.reshape(-1).long() // 8).numel())
+
+
+def unaligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` on its device that starts 4 bytes past a
+    16-byte boundary (a view with a storage offset)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
 
 
 def host_bits(out) -> tuple:
@@ -3028,8 +3042,7 @@ def probe_plain(label: str):
     return {
         "K12t": probe_gather.take_along_lanes_reference,
         "K12r": probe_gather.row_gather_reference,
-        "K11r": lambda tab, hi, lo: gather_ops.gather2d_reference(
-            tab, hi.reshape(-1), lo.reshape(-1)).reshape(hi.shape),
+        "K11r": gather_ops.gather2d_reference,
         "K12s": probe_gather.sublane_gather_reference,
         "K12a": lambda idx, val: probe_gather.scatter_add_reference(
             idx, val, (probe_pallas_gather.SCATTER_N // 128, 128)),
@@ -3148,6 +3161,16 @@ def probe_phase(device) -> tuple:
             flat[1:] = tab.reshape(-1)
             cases["seeded, width 63 (scalar path)"] = (tab[:, :63].contiguous(), idx)
             cases["seeded, unaligned table (scalar path)"] = (flat[1:].view(tab.shape), idx)
+        if label == "K11r":  # a last block part full, 3D blocks, views off 16-byte alignment
+            tab, hi, lo = cases[f"seeded, {PROBE_LOOKUPS} lookups"]
+            n_tail = PROBE_LOOKUPS - 3
+            cases[f"seeded, {n_tail} lookups"] = (
+                tab, hi.reshape(-1)[:n_tail], lo.reshape(-1)[:n_tail])
+            tab, hi, lo = cases[f"seeded, {n_probe} lookups"]
+            cases["seeded, 3D blocks"] = (tab, hi.reshape(4, -1, 128), lo.reshape(4, -1, 128))
+            cases["seeded, unaligned rows and lanes"] = (
+                tab, unaligned_copy(hi), unaligned_copy(lo))
+            cases["seeded, unaligned table"] = (unaligned_copy(tab), hi, lo)
         for case, case_args in cases.items():
             out, ref = fn(*case_args), plain(*case_args)
             torch.cuda.synchronize()
@@ -3159,6 +3182,12 @@ def probe_phase(device) -> tuple:
                 lambda: [a.copy_(b) for a, b in zip(cases[f"seeded, {n_probe} lookups"],
                                                     probe_inputs(label, rng, n_probe, device))],
                 lambda out, a: torch.equal(out, a[0][a[1].long()]))
+        if label == "K11r":
+            summary += (f", {n_tail} lookups, 3D blocks and unaligned views; " + launch_path_parity(
+                "gather2d", fn, cases[f"seeded, {n_probe} lookups"],
+                lambda: [a.copy_(b) for a, b in zip(cases[f"seeded, {n_probe} lookups"],
+                                                    probe_inputs(label, rng, n_probe, device))],
+                lambda out, a: torch.equal(out, a[0][a[1].long(), a[2].long()])))
         if label == "K12a":
             for n in (n_probe, PROBE_LOOKUPS):
                 case_args = probe_inputs(label, rng, n, device, weights="random")
@@ -3174,8 +3203,9 @@ def probe_phase(device) -> tuple:
             f"{plain_ms:.4f} ms, the one PyTorch call {library_ms:.4f} ms (CUDA events)")
         if label in launch_cost.KERNELS:  # where a call's time goes, old path and new
             launch_cost.measure(label, "the probe's", args)
-            launch_cost.measure(label, f"{PROBE_LOOKUPS}",
-                                cases[f"seeded, {PROBE_LOOKUPS} lookups"], host_calls=1000)
+            if label != "K11r":  # K11r's 2^20 lookups: tools/launch_cost.py alone
+                launch_cost.measure(label, f"{PROBE_LOOKUPS}",
+                                    cases[f"seeded, {PROBE_LOOKUPS} lookups"], host_calls=1000)
         bound = roofline(f"{label} at the probe's shapes", probe_bytes(label, args), 0.0,
                          F32_OPS_PER_S)
         records[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound,
@@ -3359,12 +3389,19 @@ def deposit_phase(device) -> tuple:
         torch.cuda.synchronize()
         check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
               f"K13f differs from its plain version ({case})")
+    summary = launch_path_parity(
+        "fill_first", probe_deposit_ops.fill_first, (seeded,),
+        lambda: seeded.copy_(torch.tensor(rng.standard_normal((8, 128), dtype=np.float32))),
+        lambda out, a: torch.equal(out.view(torch.int32), probe_deposit_ops.fill_first_reference(
+            a[0]).view(torch.int32)))
+    launch_cost.measure("K13f", "the tools' [8, 128]", (dep_m,))
     ms = time_cuda(lambda: probe_deposit_ops.fill_first(dep_m), 50)
     plain_ms = time_cuda(lambda: probe_deposit_ops.fill_first_reference(dep_m), 50)
     # the one PyTorch call of K13f's function, which is also its plain version
     library_ms = time_cuda(lambda: dep_m.reshape(-1)[:1].expand(1, 128).clone(), 50)
-    log(f"K13f (fill_first) parity: identical bits (-0.0 included); timing K13f {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, the one PyTorch call {library_ms:.4f} ms (CUDA events)")
+    log(f"K13f (fill_first) parity: identical bits (-0.0 included); {summary}; timing K13f "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, the one PyTorch call {library_ms:.4f} ms "
+        f"(CUDA events)")
     records["fill_first"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                              **roofline("K13f", 4 + 4 * 128, 0.0, F32_OPS_PER_S),
                              "library_ms": library_ms}

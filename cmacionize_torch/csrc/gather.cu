@@ -4,16 +4,25 @@
 // tbl[idx[i]] from a VMEM-resident [262144] f32 table, blocks of 8192
 // indices); K11r replaces pallas_gather2d (a row gather from a [2048, 128]
 // table followed by a one-hot pick of the lane, out[i] = tbl2[rows[i],
-// lanes[i]]).  The one-hot pick works around the TPU's lane layout and is not
-// part of the function, so K11r reads the one element.  The plain versions
-// are cmacionize_torch/kernels/gather.py:gather_reference and
-// gather2d_reference; both kernels copy bits and equal them exactly.
+// lanes[i]]) and tools/probe_pallas_gather.py:b_flat_gather_2d.run
+// (tab[hi, lo] on [64, 128] index blocks).  The one-hot pick works around the
+// TPU's lane layout and is not part of the function, so K11r reads the one
+// element.  The plain versions are cmacionize_torch/kernels/gather.py:
+// gather_reference and gather2d_reference; both kernels copy bits and equal
+// them exactly.
 //
 // What bounds them on an H100: the 4-byte index (8 bytes for K11r) read and
-// the 4-byte output written per lane stream at HBM rate; the table (1 MB at
-// 64^3) stays in L2, so each lane's random read costs an L2 sector, not HBM
-// bandwidth.  The indices are not checked: an index outside the table reads
-// outside it (the wrapper's caller keeps them in range).
+// the 4-byte output written per lookup stream through HBM (K11r's 12 bytes a
+// lookup: 0.0038 ms at 2^20 lookups and 3.35 TB/s); the table (1 MB at 64^3)
+// stays in L2, so each lookup's random read costs one 32-byte L2 sector (33.5
+// MB of sectors at 2^20), not HBM bandwidth.  The sectors bind: at 2^20
+// lookups on an H100 80GB HBM3 (700 W) K11r takes 0.0097 ms on the device
+// alone, 2.4x the bytes' bound, and four or eight lookups a thread, int4 index
+// loads, a float4 store or __ldcg table reads took no less (PERF.md, section
+// 6).  So both take one lookup a thread, in blocks of 256.  K11r's
+// offsets are 32-bit: the wrapper keeps the table below 2^31 elements.  The
+// indices are not checked: an index outside the table reads outside it (the
+// wrapper's caller keeps them in range).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,9 +42,7 @@ __global__ void __launch_bounds__(kThreads) gather2d_kernel(
     const float* __restrict__ tbl2, const int* __restrict__ rows,
     const int* __restrict__ lanes, float* __restrict__ out, int n, int width) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i < n) {
-    out[i] = __ldg(tbl2 + static_cast<long long>(__ldg(rows + i)) * width + __ldg(lanes + i));
-  }
+  if (i < n) out[i] = __ldg(tbl2 + __ldg(rows + i) * width + __ldg(lanes + i));
 }
 
 }  // namespace

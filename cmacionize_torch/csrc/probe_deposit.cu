@@ -34,7 +34,9 @@
 // K13f replaces probe_deposit2.py's make.run with d12_kernel: out[0, c] =
 // dep[0] for the 128 cells (the TPU body checks a [16, 8] -> [1, 128] reshape
 // of zeros + dep[0, 0]; XLA folds the addition of zero away, so a -0.0 stays
-// -0.0, and K13f copies the bits).  The plain versions are
+// -0.0, and K13f copies the bits).  Its 516 bytes take no time on the card:
+// a call costs its host launch, so K13f's wrapper launches through the lean
+// path of cmacionize_torch/kernels/launch.py.  The plain versions are
 // cmacionize_torch/kernels/probe_deposit.py:*_reference.
 
 #include <cuda_runtime.h>

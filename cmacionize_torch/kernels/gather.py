@@ -2,12 +2,18 @@
 plain versions.
 
 :func:`gather` (``out[i] = tbl[idx[i]]``) and :func:`gather2d`
-(``out[i] = tbl2[rows[i], lanes[i]]``) dispatch on the device: CPU tensors
-run :func:`gather_reference` / :func:`gather2d_reference`, CUDA tensors
-launch the kernel, which counts its launches in ``kernels.LAUNCHES["gather"]``
-/ ``["gather2d"]``.  There is no fallback between the two.  The wrapper
-checks devices, dtypes, shapes and contiguity; it does not check the indices
-(that would read them back to the host), so they must lie in the table.
+(``out = tbl2[rows, lanes]`` for index blocks of any one shape) dispatch on
+the device: CPU tensors run :func:`gather_reference` /
+:func:`gather2d_reference`, CUDA tensors launch the kernel, which counts its
+launches in ``kernels.LAUNCHES["gather"]`` / ``["gather2d"]``.  There is no
+fallback between the two.  The wrappers check devices, dtypes, shapes and
+contiguity; they do not check the indices (that would read them back to the
+host), so they must lie in the table.
+
+K11r launches through :mod:`kernels.launch` (a launcher typed once,
+PyTorch's raw stream, an identity check of each tensor); K11 through the
+ctypes path here (:func:`_check`, :func:`_function`, :func:`_launch`), which
+the older wrappers of the package share.
 """
 
 from __future__ import annotations
@@ -18,8 +24,11 @@ import torch
 
 from cmacionize_torch.kernels import LAUNCHES
 from cmacionize_torch.kernels.build import load_library
+from cmacionize_torch.kernels.launch import Launcher, _first_wrong, check_pair
 
 NAME = "gather"
+F32, I32 = torch.float32, torch.int32
+_GATHER2D = Launcher(NAME, "cmi_gather2d", 4, 2)
 
 
 def gather_reference(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -28,7 +37,8 @@ def gather_reference(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather2d_reference(tbl2: torch.Tensor, rows: torch.Tensor, lanes: torch.Tensor):
-    """Plain version of K11r: ``tbl2[rows, lanes]`` of a 2D table."""
+    """Plain version of K11r: ``tbl2[rows, lanes]`` of a 2D table, for index
+    blocks of one shape."""
     return tbl2[rows, lanes]
 
 
@@ -78,17 +88,29 @@ def gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def check_gather2d(tbl2: torch.Tensor, rows: torch.Tensor, lanes: torch.Tensor) -> tuple:
+    """K11r's checks: (device index, n, width) of its launch, or
+    ValueError."""
+    index = check_pair("gather2d", "tbl2", tbl2, F32, 2, "rows", rows, I32, None)
+    if not (lanes.dtype is I32 and lanes.shape == rows.shape and lanes.get_device() == index
+            and lanes.is_contiguous()):
+        if lanes.shape != rows.shape:
+            raise ValueError(f"gather2d: rows and lanes must have one shape; got "
+                             f"{list(rows.shape)} and {list(lanes.shape)}")
+        raise ValueError(_first_wrong("gather2d", rows.device, (("lanes", lanes, I32, None),)))
+    n = rows.numel()
+    if max(tbl2.numel(), n) >= 2**31:
+        raise ValueError("gather2d: sizes must fit int32")
+    return index, n, tbl2.shape[1]
+
+
 def gather2d(tbl2: torch.Tensor, rows: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
-    """``out[i] = tbl2[rows[i], lanes[i]]``: tbl2 f32 [R, W], rows and lanes
-    int32 [n] → f32 [n]."""
+    """``out = tbl2[rows, lanes]``: tbl2 f32 [R, W], rows and lanes int32 of
+    one shape (any number of dimensions) → f32 of that shape."""
     if tbl2.device.type == "cpu":
         return gather2d_reference(tbl2, rows, lanes)
-    _check("gather2d", (("tbl2", tbl2, torch.float32, 2), ("rows", rows, torch.int32, 1),
-                        ("lanes", lanes, torch.int32, 1)), tbl2.device)
-    if rows.shape != lanes.shape or max(tbl2.numel(), rows.numel()) >= 2**31:
-        raise ValueError("gather2d: rows and lanes must have one shape; sizes must fit int32")
-    out = torch.empty(rows.shape, dtype=torch.float32, device=tbl2.device)
-    _launch("gather2d", _function("cmi_gather2d", 4, 2), tbl2, rows, lanes, out,
-            rows.numel(), tbl2.shape[1])
+    index, n, width = check_gather2d(tbl2, rows, lanes)
+    out = torch.empty_like(rows, dtype=F32)
+    _GATHER2D(index, tbl2.data_ptr(), rows.data_ptr(), lanes.data_ptr(), out.data_ptr(), n, width)
     LAUNCHES["gather2d"] += 1
     return out

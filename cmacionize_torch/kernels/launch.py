@@ -14,8 +14,9 @@ tuple-driven checks and ctypes.  This path cuts each of them:
   (:data:`raw_stream`, no ``Stream`` object), and ``torch.cuda.device`` is
   entered only when that device is not the current one;
 - :func:`check_pair` (two tensors) and :func:`check_one` compare each
-  tensor's dtype by identity and its device index, dimension count and
-  contiguity, and build a message only when one of them is wrong;
+  tensor's dtype by identity and its device index, dimension count (any,
+  where it is given as None) and contiguity, and build a message only when
+  one of them is wrong;
 - the wrapper allocates its output with ``torch.empty_like``, the cheapest
   of the allocations timed.
 
@@ -27,7 +28,8 @@ a wrong device, dtype, dimension count, shape, contiguity or int32 overflow;
 launch counted in ``kernels.LAUNCHES`` by the wrapper.  There is no fallback:
 a library that cannot be built, or a launch that fails, raises.
 
-Used by K12s, K12t and K12r (``kernels/probe_gather.py``) and K14c
+Used by K11r (``kernels/gather.py``), K12s, K12t and K12r
+(``kernels/probe_gather.py``), K13f (``kernels/probe_deposit.py``) and K14c
 (``kernels/probe_cohort.py``); every other kernel keeps its own launch code.
 """
 
@@ -85,23 +87,25 @@ class Launcher:
 
 
 def check_pair(label: str, a_name: str, a: torch.Tensor, a_dtype, a_dim: int,
-               b_name: str, b: torch.Tensor, b_dtype, b_dim: int) -> int:
+               b_name: str, b: torch.Tensor, b_dtype, b_dim: int | None) -> int:
     """The CUDA device index of ``a`` and ``b``, which must have those dtypes
-    and numbers of dimensions, lie on one CUDA device and be contiguous;
-    raises ValueError naming the first that does not."""
+    and numbers of dimensions (``b`` any where ``b_dim`` is None), lie on one
+    CUDA device and be contiguous; raises ValueError naming the first that
+    does not."""
     index = a.get_device()
-    if (a.dtype is a_dtype and b.dtype is b_dtype and a.ndim == a_dim and b.ndim == b_dim
-            and a.is_cuda and b.get_device() == index and b.is_cuda
-            and a.is_contiguous() and b.is_contiguous()):
+    if (a.dtype is a_dtype and b.dtype is b_dtype and a.ndim == a_dim
+            and (b_dim is None or b.ndim == b_dim) and a.is_cuda and b.get_device() == index
+            and b.is_cuda and a.is_contiguous() and b.is_contiguous()):
         return index
     raise ValueError(_first_wrong(label, a.device if a.is_cuda else "a CUDA device",
                                   ((a_name, a, a_dtype, a_dim), (b_name, b, b_dtype, b_dim))))
 
 
-def check_one(label: str, name: str, t: torch.Tensor, dtype, dim: int) -> int:
+def check_one(label: str, name: str, t: torch.Tensor, dtype, dim: int | None) -> int:
     """The CUDA device index of ``t``, which must have that dtype and number
-    of dimensions and be contiguous; raises ValueError if it does not."""
-    if t.dtype is dtype and t.ndim == dim and t.is_cuda and t.is_contiguous():
+    of dimensions (any where ``dim`` is None) and be contiguous; raises
+    ValueError if it does not."""
+    if t.dtype is dtype and (dim is None or t.ndim == dim) and t.is_cuda and t.is_contiguous():
         return t.get_device()
     raise ValueError(_first_wrong(label, t.device if t.is_cuda else "a CUDA device",
                                   ((name, t, dtype, dim),)))
@@ -109,10 +113,12 @@ def check_one(label: str, name: str, t: torch.Tensor, dtype, dim: int) -> int:
 
 def _first_wrong(label: str, device, tensors) -> str:
     """The message of the first of ``tensors`` (name, tensor, dtype, dim)
-    that is not on ``device`` with its dtype and dim, or not contiguous."""
+    that is not on ``device`` with its dtype and dim (any where dim is None),
+    or not contiguous."""
     for name, t, dtype, dim in tensors:
-        if str(t.device) != str(device) or t.dtype != dtype or t.dim() != dim:
-            return (f"{label}: {name} must be a {dim}D {dtype} tensor on {device}; "
+        if str(t.device) != str(device) or t.dtype != dtype or dim not in (None, t.dim()):
+            shape = "" if dim is None else f"{dim}D "
+            return (f"{label}: {name} must be a {shape}{dtype} tensor on {device}; "
                     f"got {t.dim()}D {t.dtype} on {t.device}")
         if not t.is_contiguous():
             return f"{label}: {name} must be contiguous"

@@ -9,6 +9,10 @@ their ``*_reference``, CUDA tensors launch the kernel, which counts its
 launches in ``kernels.LAUNCHES`` under the wrapper's name.  There is no
 fallback between the two.  The wrappers check devices, dtypes and
 contiguity.
+
+K13f launches through :mod:`kernels.launch` (a launcher typed once, PyTorch's
+raw stream, an identity check of its tensor), the others through the ctypes
+path of :mod:`kernels.gather`.
 """
 
 from __future__ import annotations
@@ -17,10 +21,12 @@ import torch
 
 from cmacionize_torch.kernels import LAUNCHES
 from cmacionize_torch.kernels.gather import _check, _function, _launch
+from cmacionize_torch.kernels.launch import Launcher, check_one
 from cmacionize_torch.ops.traversal import _fma
 
 NAME = "probe_deposit"
 CELLS = 128
+_FILL_FIRST = Launcher(NAME, "cmi_fill_first", 2, 0)
 HISTOGRAM_STEP_CHUNK = 128  # steps the plain histogram deposits per index_add_
 
 
@@ -160,16 +166,25 @@ def dda_incremental(a: torch.Tensor, b: torch.Tensor, nstep: int) -> torch.Tenso
     return out
 
 
+def check_fill_first(dep: torch.Tensor) -> tuple:
+    """K13f's checks: (device index,) of its launch, which takes no size, or
+    ValueError.  ``dep`` has any number of dimensions, at least one
+    element and, as every tensor of this module's wrappers, fewer than 2^31."""
+    index = check_one("fill_first", "dep", dep, torch.float32, None)
+    if not 0 < dep.numel() < 2**31:
+        raise ValueError("fill_first: dep must not be empty" if dep.numel() == 0 else
+                         "fill_first: sizes must fit int32")
+    return (index,)
+
+
 def fill_first(dep: torch.Tensor) -> torch.Tensor:
     """``tools/probe_deposit2.py``'s D12 body, ``zeros + dep[0, 0]`` as
     [1, 128]: f32 [1, 128] filled with ``dep.flat[0]`` (its bits: XLA folds
     the addition of zero, so a −0.0 stays −0.0)."""
     if dep.device.type == "cpu":
         return fill_first_reference(dep)
-    _check("fill_first", (("dep", dep, torch.float32, None),), dep.device)
-    if dep.numel() == 0:
-        raise ValueError("fill_first: dep must not be empty")
-    out = torch.empty((1, CELLS), dtype=torch.float32, device=dep.device)
-    _launch("fill_first", _function("cmi_fill_first", 2, 0, NAME), dep, out)
+    (index,) = check_fill_first(dep)
+    out = dep.new_empty(1, CELLS)
+    _FILL_FIRST(index, dep.data_ptr(), out.data_ptr())
     LAUNCHES["fill_first"] += 1
     return out

@@ -1,15 +1,19 @@
 """Where a kernel's call goes: per call back to back, on the device alone,
 and on the host step by step.
 
-For K12s (``sublane_gather``), K12t (``take_along_lanes``), K12r
-(``row_gather``) and K12a (``scatter_add``) of
-:mod:`cmacionize_torch.kernels.probe_gather` and K14c (``stream_rows``) of
-:mod:`cmacionize_torch.kernels.probe_cohort`, and beside each the one
-PyTorch call of its function (``torch.gather``, ``torch.take_along_dim``,
-``tab[idx]``, ``zeros`` + ``index_put_``, ``pk.clone()``, K14c's bytes bar its
-sum), at the tools' shapes (``tools/probe_pallas_gather.py``,
-``tools/probe_cohort_kernel.py``) and at a larger one (2^20 lookups; K14c
-twice the tool's 7808 items):
+For K11r (``gather2d``) of :mod:`cmacionize_torch.kernels.gather`, K12s
+(``sublane_gather``), K12t (``take_along_lanes``), K12r (``row_gather``) and
+K12a (``scatter_add``) of :mod:`cmacionize_torch.kernels.probe_gather`, K13f
+(``fill_first``) of :mod:`cmacionize_torch.kernels.probe_deposit` and K14c
+(``stream_rows``) of :mod:`cmacionize_torch.kernels.probe_cohort`, and beside
+each the one PyTorch call of its function (``tab[hi, lo]``, ``torch.gather``,
+``torch.take_along_dim``, ``tab[idx]``, ``zeros`` + ``index_put_``,
+``dep.reshape(-1)[:1].expand(1, 128).clone()``, ``pk.clone()``, K14c's bytes
+bar its sum), at the tools' shapes (``tools/probe_pallas_gather.py``, K11r's
+flat 2D probe among them; ``tools/probe_deposit.py``'s [8, 128] packets;
+``tools/probe_cohort_kernel.py``) and at a larger one (2^20 lookups, K11r's
+as 1D rows and lanes into [2048, 128]; K14c twice the tool's 7808 items;
+K13f, which reads one element, none):
 
   (a) ms per call of 50 calls back to back between two CUDA events (the
       figure ``chip_smoke.py:time_cuda`` gives: the longer of the host's
@@ -28,7 +32,8 @@ the ctypes path that the older wrappers use (``kernels/gather.py``:
 launch, the counter) on K12a, which stays on it as the control; those of
 :mod:`kernels.launch` (the wrapper's own checks, the output's allocation, the
 pointers, the raw stream, the current device, the typed ctypes call with and
-without its launch, the counter) on K12s, K12t and K12r.  K14c's calls are
+(where the launcher takes a count) without its launch, the counter) on K11r,
+K12s, K12t, K12r and K13f.  K14c's calls are
 bound by the device, so its host steps are not split; :func:`main` splits
 its device time by the name of each kernel, memset or copy in a
 ``torch.profiler`` window (``measure``, which ``chip_smoke.py`` calls, does
@@ -49,11 +54,12 @@ import numpy as np
 import torch
 
 from cmacionize_torch.device import describe, require_cuda
-from cmacionize_torch.kernels import probe_cohort, probe_gather
+from cmacionize_torch.kernels import gather, probe_cohort, probe_deposit, probe_gather
 from cmacionize_torch.kernels.gather import _check, _function
 from cmacionize_torch.kernels.launch import current_device, raw_stream
 from cmacionize_torch.tools import probe_cohort_kernel as cohort_tool
 from cmacionize_torch.tools import probe_pallas_gather as tool
+from cmacionize_torch.tools.probe_deposit import march_inputs
 
 LOOKUPS = 1 << 20  # the larger size of the gathers and K12a
 REPEATS = 50  # calls per timed window of (a) and (b)
@@ -68,32 +74,41 @@ SCATTER_SHAPE = (tool.SCATTER_N // 128, 128)  # K12a's output
 
 # label: (the wrapper, the tool's arguments at its own shapes)
 KERNELS = {
+    "K11r": (gather.gather2d, lambda device: tool.b_flat_gather_2d(device)[1]),
     "K12s": (probe_gather.sublane_gather, lambda device: tool.b_sublane_gather(device)[1]),
     "K12t": (probe_gather.take_along_lanes, lambda device: tool.b_taa_lanes(device)[1]),
     "K12r": (probe_gather.row_gather, lambda device: tool.b_row_gather(device)[1]),
     "K12a": (tool.scatter_add_probe, lambda device: tool.b_scatter_add(device)[1]),
+    "K13f": (probe_deposit.fill_first, lambda device: march_inputs(device)[:1]),
     "K14c": (probe_cohort.stream_rows, cohort_tool.c_inputs),
 }
-LIBRARY = {"K12s": "torch.gather", "K12t": "torch.take_along_dim", "K12r": "tab[idx]",
-           "K12a": "zeros + index_put_", "K14c": "pk.clone()"}
-# the kernels on kernels/launch.py: their launchers, their wrappers' checks
-# and output allocations
+LIBRARY = {"K11r": "tab[hi, lo]", "K12s": "torch.gather", "K12t": "torch.take_along_dim",
+           "K12r": "tab[idx]", "K12a": "zeros + index_put_",
+           "K13f": "dep.reshape(-1)[:1].expand(1, 128).clone()", "K14c": "pk.clone()"}
+# the kernels on kernels/launch.py whose host steps are split: their
+# launchers, their wrappers' checks (the device index, then the launcher's
+# ints) and output allocations
 NEW_PATH = {
+    "K11r": (gather._GATHER2D, gather.check_gather2d,
+             lambda tab, rows, lanes: torch.empty_like(rows, dtype=torch.float32)),
     "K12s": (probe_gather._SUBLANE_GATHER, probe_gather.check_sublane_gather,
              lambda a, idx: torch.empty_like(idx, dtype=torch.float32)),
     "K12t": (probe_gather._TAKE_ALONG_LANES, probe_gather.check_take_along_lanes,
              lambda a, idx: torch.empty_like(idx, dtype=torch.float32)),
     "K12r": (probe_gather._ROW_GATHER, probe_gather.check_row_gather,
              lambda a, idx: a.new_empty((idx.shape[0], a.shape[1]))),
+    "K13f": (probe_deposit._FILL_FIRST, probe_deposit.check_fill_first,
+             lambda dep: dep.new_empty(1, probe_deposit.CELLS)),
 }
 OLD_PATH = "K12a"  # the control on the ctypes path of kernels/gather.py
 
 
 def seeded_inputs(label: str, n: int, device, rng) -> tuple:
     """Seeded arguments of the larger size: ``n`` lookups into the probe's
-    table (K12t: ``n`` rows of 128), the table's first and last entries among
-    them; K12a ``n`` integer weights added at indices with duplicates; K14c
-    ``n`` items of [16, 128]."""
+    table (K12t: ``n`` rows of 128; K11r 1D rows and lanes), the table's first
+    and last entries among them; K12a ``n`` integer weights added at indices
+    with duplicates; K13f ``n`` normal values as [n / 128, 128]; K14c ``n``
+    items of [16, 128]."""
     def table(rows, width):
         return torch.tensor(rng.standard_normal((rows, width), dtype=np.float32), device=device)
 
@@ -102,10 +117,15 @@ def seeded_inputs(label: str, n: int, device, rng) -> tuple:
         idx[0], idx[-1] = 0, hi - 1
         return torch.tensor(idx.astype(np.int32).reshape(shape), device=device)
 
+    if label == "K11r":
+        flat = lookups(2048 * 128, (n,))
+        return table(2048, 128), flat // 128, flat % 128
     if label == "K12t":
         return table(n, 128), lookups(128, (n, 1))
     if label == "K12r":
         return table(4096, 64), lookups(4096, (n,))
+    if label == "K13f":
+        return (table(n // 128, 128),)
     if label == "K12a":
         val = rng.integers(-3, 4, (n // 128, 128)).astype(np.float32)
         return lookups(tool.SCATTER_N, (n // 128, 128)), torch.tensor(val, device=device)
@@ -121,6 +141,12 @@ def library_call(label: str, args: tuple):
     if label == "K14c":
         (pk,) = args
         return pk.clone
+    if label == "K13f":
+        (dep,) = args
+        return lambda: dep.reshape(-1)[:1].expand(1, probe_deposit.CELLS).clone()
+    if label == "K11r":
+        tab, rows, lanes = args
+        return lambda: tab[rows, lanes]
     a, idx = args
     if label == "K12s":
         idx64 = idx.long()
@@ -140,9 +166,15 @@ def bound_ms(label: str, args: tuple) -> float:
     data sheet): its inputs and output once each; of a gather's table, the
     distinct 32-byte sectors that these lookups touch; of K14c's items, the 15
     rows that its output needs (row 2 out is row 0 + row 1) and the 16 it
-    writes."""
+    writes; of K13f's input, the one element it copies."""
     if label == "K14c":
         return STREAM_ROWS_BYTES_PER_ELEMENT * args[0].numel() / HBM_BYTES_PER_S * 1e3
+    if label == "K13f":
+        return 4 * (1 + probe_deposit.CELLS) / HBM_BYTES_PER_S * 1e3
+    if label == "K11r":  # 8 bytes of indices in and 4 out a lookup
+        tab, rows, lanes = args
+        sectors = int(torch.unique((rows.long() * tab.shape[1] + lanes).reshape(-1) // 8).numel())
+        return (12 * rows.numel() + 32 * sectors) / HBM_BYTES_PER_S * 1e3
     a, idx = args
     if label == "K12a":
         return 4 * (a.numel() + idx.numel() + tool.SCATTER_N) / HBM_BYTES_PER_S * 1e3
@@ -283,38 +315,34 @@ def old_path_steps(args: tuple) -> dict:
 
 
 def new_path_steps(label: str, args: tuple) -> dict:
-    """Each step of the :mod:`kernels.launch` wrapper of K12s, K12t or K12r
-    alone, its checks and allocation being the wrapper's own; the typed
-    ctypes call once with no work (n = 0) and once with its launch."""
+    """Each step of the :mod:`kernels.launch` wrapper of K11r, K12s, K12t,
+    K12r or K13f alone, its checks and allocation being the wrapper's own;
+    the typed ctypes call once with no work (a count of 0, where the launcher
+    takes one) and once with its launch."""
     launcher, check, alloc = NEW_PATH[label]
-    a, idx = args
-    index, n, width = check(a, idx)
+    index, *ints = check(*args)
     fn = launcher.bind()
-    out = alloc(a, idx)
+    out = alloc(*args)
     stream = raw_stream(index)
-    pointers = (a.data_ptr(), idx.data_ptr(), out.data_ptr())
+    tensors = (*args, out)
+    pointers = tuple(map(torch.Tensor.data_ptr, tensors))
     counts = collections.Counter()
 
     def counter():
         counts[label] += 1
 
-    return {
-        "checks": lambda: check(a, idx),
-        "allocation": lambda: alloc(a, idx),
-        "data_ptr x3": lambda: (a.data_ptr(), idx.data_ptr(), out.data_ptr()),
+    steps = {
+        "checks": lambda: check(*args),
+        "allocation": lambda: alloc(*args),
+        f"data_ptr x{len(tensors)}": lambda: tuple(map(torch.Tensor.data_ptr, tensors)),
         "raw stream": lambda: raw_stream(index),
         "current device": current_device,
-        "ctypes, no launch": lambda: fn(*pointers, 0, width, stream),
-        "ctypes + launch": lambda: fn(*pointers, n, width, stream),
-        "counter": counter,
     }
-
-
-# the steps of each path that make up its call (the others are alternatives)
-OLD_PATH_CALL = ("checks", "torch.empty", "_function", "Stream object", "torch.cuda.device",
-                 "data_ptr x3", "ctypes + launch", "counter")
-NEW_PATH_CALL = ("checks", "allocation", "data_ptr x3", "raw stream", "current device",
-                 "ctypes + launch", "counter")
+    if ints:
+        steps["ctypes, no launch"] = lambda: fn(*pointers, 0, *ints[1:], stream)
+    steps["ctypes + launch"] = lambda: fn(*pointers, *ints, stream)
+    steps["counter"] = counter
+    return steps
 
 
 def fmt(values: dict) -> str:
@@ -323,9 +351,9 @@ def fmt(values: dict) -> str:
 
 def measure(label: str, size: str, args: tuple, host_calls: int = 10_000) -> dict:
     """(a), (b) and (c) of the kernel's wrapper and of the library call on
-    ``args``, with the split of the wrapper's path (K12a: the old path; K12s,
-    K12t, K12r: the new one; K14c: none); prints a line of each and returns
-    them."""
+    ``args``, with the split of the wrapper's path (K12a: the old path; K11r,
+    K12s, K12t, K12r, K13f: the new one; K14c: none); prints a line of each
+    and returns them."""
     wrapper = KERNELS[label][0]
     calls = {"wrapper": lambda: wrapper(*args), LIBRARY[label]: library_call(label, args)}
     host = host_us(calls, host_calls)
@@ -339,18 +367,19 @@ def measure(label: str, size: str, args: tuple, host_calls: int = 10_000) -> dic
     if label == "K14c":  # bound by the device: its host steps are not split
         return record
     if label in NEW_PATH:
-        which, steps, in_call = "new path split", new_path_steps(label, args), NEW_PATH_CALL
+        which, steps = "new path split", new_path_steps(label, args)
     else:
-        which, steps, in_call = "old path split", old_path_steps(args), OLD_PATH_CALL
+        which, steps = "old path split", old_path_steps(args)
+    in_call = [step for step in steps if step != "ctypes, no launch"]  # the others make the call
     record[which] = host_us(steps, host_calls)
     print(f"launch_cost {label} {size} {which} (us): {fmt(record[which])} (sum of "
           f"{', '.join(in_call)}: {sum(record[which][k] for k in in_call):.3f})", flush=True)
     return record
 
 
-# the larger size of each kernel
-LARGER = {"K12s": LOOKUPS, "K12t": LOOKUPS, "K12r": LOOKUPS, "K12a": LOOKUPS,
-          "K14c": 2 * cohort_tool.NCHUNK * 8}
+# the larger size of each kernel (K13f, which reads one element, has none)
+LARGER = {"K11r": LOOKUPS, "K12s": LOOKUPS, "K12t": LOOKUPS, "K12r": LOOKUPS, "K12a": LOOKUPS,
+          "K13f": None, "K14c": 2 * cohort_tool.NCHUNK * 8}
 
 
 def main() -> dict:
@@ -361,7 +390,7 @@ def main() -> dict:
     records = {}
     for label, (_, make) in KERNELS.items():
         n = LARGER[label]
-        for size in ("tool", str(n)):
+        for size in ("tool",) if n is None else ("tool", str(n)):
             args = make(device) if size == "tool" else seeded_inputs(label, n, device, rng)
             # K14c's windows stay short enough that its queued launches do
             # not fill the device's queue, which would time the device, not

@@ -81,8 +81,9 @@ def b_row_gather(device):
 
 # --- 3. flat gather from 2D table via per-lane 2D indices ------------------
 def flat_gather_2d(tab, hi, lo):
-    """``tab[hi, lo]`` through K11r on flat views of the index blocks."""
-    return gather2d(tab, hi.reshape(-1), lo.reshape(-1)).reshape(hi.shape)
+    """``tab[hi, lo]`` through K11r, which takes the [64, 128] index blocks as
+    they are."""
+    return gather2d(tab, hi, lo)
 
 
 def b_flat_gather_2d(device):

@@ -1997,3 +1997,172 @@ def test_row_gather_and_stream_rows_reject_what_the_kernels_do_not_take(cuda):
     assert kernels.LAUNCHES["row_gather"] == kernels.LAUNCHES["stream_rows"] == 0
     with pytest.raises(TypeError):  # typed once: four pointers, one int and the stream
         pc._STREAM_ROWS(pk.get_device(), 1, 2)
+
+
+# -- K11r and K13f on kernels/launch.py --------------------------------------------------------------
+
+
+def _unaligned_copy(t):
+    """A contiguous copy of ``t`` on its device, 4 bytes past a 16-byte
+    boundary (a view with a storage offset)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+GATHER2D_CASES = {  # the index blocks' shape; which views start off 16-byte alignment
+    "2^20": ((2**20,), ""), "2D": ((64, 128), ""), "3D": ((4, 16, 128), ""),
+    "4D": ((2, 3, 5, 7), ""), "2^20 - 3": ((2**20 - 3,), ""), "1026": ((1026,), ""),
+    "7": ((7,), ""), "one": ((1,), ""), "unaligned rows": ((8192,), "rows"),
+    "unaligned lanes": ((64, 128), "lanes"), "unaligned table": ((8192,), "table"),
+}
+
+
+def _gather2d_case(case, cuda):
+    """(tbl2, rows, lanes) of K11r: the flat 2D probe's, or seeded lookups
+    into [2048, 128] (its first and last entries among them) as index blocks
+    of GATHER2D_CASES' shape, with the named view off 16-byte
+    alignment."""
+    from cmacionize_torch.tools import probe_pallas_gather as tool
+
+    if case == "probe":
+        return tool.b_flat_gather_2d(cuda)[1]
+    shape, unaligned = GATHER2D_CASES[case]
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(n + len(case))
+    flat = _probe_lookups(rng, n, 2048 * 128, shape, cuda)
+    tab = torch.tensor(rng.normal(size=(2048, 128)).astype(np.float32), device=cuda)
+    rows, lanes = flat // 128, flat % 128
+    if unaligned == "rows":
+        rows = _unaligned_copy(rows)
+    elif unaligned == "lanes":
+        lanes = _unaligned_copy(lanes)
+    elif unaligned == "table":
+        tab = _unaligned_copy(tab)
+    return tab, rows, lanes
+
+
+@pytest.mark.parametrize("case", ["probe", *GATHER2D_CASES])
+def test_gather2d_launch_path_equals_indexing(cuda, case):
+    from cmacionize_torch.kernels import gather
+
+    tab, rows, lanes = _gather2d_case(case, cuda)
+    kernels.LAUNCHES.clear()
+    out = gather.gather2d(tab, rows, lanes)
+    assert kernels.LAUNCHES["gather2d"] == 1  # once per call
+    assert out.shape == rows.shape and out.dtype == torch.float32 and out.is_contiguous()
+    assert torch.equal(out.view(torch.int32), tab[rows.long(), lanes.long()].view(torch.int32))
+    assert torch.equal(out, gather.gather2d_reference(tab, rows, lanes))
+
+
+def test_gather2d_launch_path_on_a_side_stream(cuda):
+    from cmacionize_torch.kernels import gather
+
+    tab, rows, lanes = _gather2d_case("2^20 - 3", cuda)
+    ref = tab[rows.long(), lanes.long()].cpu()
+    big = torch.randn((4096, 4096), device=cuda)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(8):
+        big = big @ big / 64.0
+    with torch.cuda.stream(side):
+        host = gather.gather2d(tab, rows, lanes).cpu()
+    assert torch.equal(host, ref)
+
+
+@pytest.mark.parametrize("case", ["probe", "unaligned rows"])
+def test_gather2d_launch_path_in_a_cuda_graph(cuda, case):
+    from cmacionize_torch.kernels import gather
+
+    tab, rows, lanes = _gather2d_case(case, cuda)
+    rng = np.random.default_rng(13)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gather.gather2d(tab, rows, lanes)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    kernels.LAUNCHES.clear()
+    with torch.cuda.graph(graph):
+        out = gather.gather2d(tab, rows, lanes)
+    assert kernels.LAUNCHES["gather2d"] == 1
+    for _ in range(2):  # new inputs in the captured tensors, then a replay
+        flat = _probe_lookups(rng, rows.numel(), 2048 * 128, rows.shape, cuda)
+        tab.copy_(torch.tensor(rng.normal(size=tuple(tab.shape)).astype(np.float32)))
+        rows.copy_(flat // 128)
+        lanes.copy_(flat % 128)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, tab[rows.long(), lanes.long()])
+    assert kernels.LAUNCHES["gather2d"] == 1  # a replay calls no wrapper
+
+
+def test_fill_first_launch_path(cuda):
+    # one launch a call, the first value's bits (-0.0 among them), on a side
+    # stream and in a CUDA graph whose replays read new inputs
+    from cmacionize_torch.kernels import probe_deposit as pd
+
+    rng = np.random.default_rng(17)
+    dep = torch.tensor(rng.normal(size=(8, 128)).astype(np.float32), device=cuda)
+    for first in (2.5, -0.0, float("nan")):
+        dep[0, 0] = first
+        kernels.LAUNCHES.clear()
+        out = pd.fill_first(dep)
+        assert kernels.LAUNCHES["fill_first"] == 1
+        assert out.shape == (1, 128) and out.is_contiguous()
+        assert torch.equal(out.view(torch.int32), pd.fill_first_reference(dep).view(torch.int32))
+    big = torch.randn((4096, 4096), device=cuda)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(8):
+        big = big @ big / 64.0
+    with torch.cuda.stream(side):
+        host = pd.fill_first(dep[1:]).cpu()
+    assert torch.equal(host.view(torch.int32), dep[1:2, :1].cpu().view(torch.int32).expand(1, 128))
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pd.fill_first(dep)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    kernels.LAUNCHES.clear()
+    with torch.cuda.graph(graph):
+        out = pd.fill_first(dep)
+    for _ in range(2):
+        dep.copy_(torch.tensor(rng.normal(size=(8, 128)).astype(np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), pd.fill_first_reference(dep).view(torch.int32))
+    assert kernels.LAUNCHES["fill_first"] == 1
+
+
+def test_gather2d_and_fill_first_reject_what_the_kernels_do_not_take(cuda):
+    from cmacionize_torch.kernels import gather
+    from cmacionize_torch.kernels import probe_deposit as pd
+
+    tab, rows, lanes = _gather2d_case("probe", cuda)
+    kernels.LAUNCHES.clear()
+    for args, message in (((tab.double(), rows, lanes), "tbl2 must be a 2D"),
+                          ((tab.reshape(-1), rows, lanes), "tbl2 must be a 2D"),
+                          ((tab, rows.long(), lanes), "rows must be a torch.int32"),
+                          ((tab, rows, lanes.long()), "lanes must be a torch.int32"),
+                          ((tab, rows, lanes.cpu()), "lanes must be a torch.int32 tensor on cuda"),
+                          ((tab, rows.cpu(), lanes), "rows must be a torch.int32 tensor on cuda"),
+                          ((tab.t().contiguous().t(), rows, lanes), "tbl2 must be contiguous"),
+                          ((tab, rows.t().contiguous().t(), lanes), "rows must be contiguous"),
+                          ((tab, rows, lanes.t().contiguous().t()), "lanes must be contiguous"),
+                          ((tab, rows, lanes.reshape(-1)), "rows and lanes must have one shape")):
+        with pytest.raises(ValueError, match=f"gather2d: {message}"):
+            gather.gather2d(*args)
+    huge = torch.empty((2**24, 128), device=cuda)  # 2^31 elements, never read
+    with pytest.raises(ValueError, match="gather2d: sizes must fit int32"):
+        gather.gather2d(huge, rows, lanes)
+    dep = torch.ones((8, 128), device=cuda)
+    for arg, message in ((dep.double(), "dep must be a torch.float32"),
+                         (dep.t(), "dep must be contiguous"), (dep[:0], "dep must not be empty")):
+        with pytest.raises(ValueError, match=f"fill_first: {message}"):
+            pd.fill_first(arg)
+    assert kernels.LAUNCHES["gather2d"] == kernels.LAUNCHES["fill_first"] == 0
+    with pytest.raises(TypeError):  # typed once: four pointers, two ints and the stream
+        gather._GATHER2D(tab.get_device(), 1, 2)
+    with pytest.raises(TypeError):  # two pointers and the stream, not the stream alone
+        pd._FILL_FIRST(dep.get_device())

@@ -1,4 +1,4 @@
-"""The launch path of K12s, K12t, K12r and K14c
+"""The launch path of K11r, K12s, K12t, K12r, K13f and K14c
 (``cmacionize_torch/kernels/launch.py``) on the CPU.
 
 The CPU has no card and no ``nvcc``, so what is held here is what a wrapper
@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from cmacionize_torch import kernels
-from cmacionize_torch.kernels import build, launch, probe_cohort, probe_gather
+from cmacionize_torch.kernels import build, gather, launch, probe_cohort, probe_deposit, probe_gather
 
 F32, I32 = torch.float32, torch.int32
 
@@ -436,17 +436,212 @@ def test_row_gather_and_stream_rows_refuse_meta_tensors():
         probe_cohort.stream_rows(torch.empty((8, 16, 128), device="meta"))
 
 
+# -- K11r and K13f ------------------------------------------------------------------------------
+
+
+def test_k11r_and_k13f_launchers_are_found_and_bind_nothing_at_import():
+    # the signature test above holds every Launcher it finds against its
+    # source; these two are among them, and importing builds and binds nothing
+    assert {"cmacionize_torch.kernels.gather._GATHER2D",
+            "cmacionize_torch.kernels.probe_deposit._FILL_FIRST"} <= set(_launchers())
+    assert (gather._GATHER2D.library, gather._GATHER2D.symbol) == ("gather", "cmi_gather2d")
+    assert (probe_deposit._FILL_FIRST.library, probe_deposit._FILL_FIRST.symbol) == (
+        "probe_deposit", "cmi_fill_first")
+    code = (
+        "from cmacionize_torch.kernels import build, gather, probe_deposit\n"
+        "from cmacionize_torch.tools import probe_deposit2, probe_pallas_gather\n"
+        "assert not build._LIBRARIES\n"
+        "assert gather._GATHER2D.function is None\n"
+        "assert probe_deposit._FILL_FIRST.function is None\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent"}  # no nvcc
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=build.CSRC_DIR.parent.parent, check=False)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _gather2d_args(shape=(64, 128)):
+    return (torch.zeros((2048, 128)), torch.zeros(shape, dtype=I32),
+            torch.zeros(shape, dtype=I32))
+
+
+GATHER2D_WRONG = {
+    "tbl2 dtype": ("tbl2 must be a 2D torch.float32 tensor on a CUDA device; "
+                   "got 2D torch.float64 on cpu"),
+    "tbl2 dim": ("tbl2 must be a 2D torch.float32 tensor on a CUDA device; "
+                 "got 1D torch.float32 on cpu"),
+    "tbl2 contiguity": ("tbl2 must be a 2D torch.float32 tensor on a CUDA device; "
+                        "got 2D torch.float32 on cpu"),
+    "rows dtype": "rows must be a torch.int32 tensor on cpu; got 2D torch.int64 on cpu",
+    "rows contiguity": "rows must be contiguous",
+    "lanes dtype": "lanes must be a torch.int32 tensor on cpu; got 2D torch.int64 on cpu",
+    "lanes shape": r"rows and lanes must have one shape; got \[64, 128\] and \[128, 64\]",
+    "lanes 3D": r"rows and lanes must have one shape; got \[64, 128\] and \[4, 16, 128\]",
+    "lanes contiguity": "lanes must be contiguous",
+    "lanes device": "lanes must be a torch.int32 tensor on cpu; got 2D torch.int32 on meta",
+}
+
+
+def _wrong_gather2d(which):
+    tbl2, rows, lanes = _gather2d_args()
+    return {
+        "tbl2 dtype": lambda: (tbl2.double(), rows, lanes),
+        "tbl2 dim": lambda: (tbl2.reshape(-1), rows, lanes),
+        "tbl2 contiguity": lambda: (tbl2.t().contiguous().t(), rows, lanes),
+        "rows dtype": lambda: (tbl2, rows.long(), lanes),
+        "rows contiguity": lambda: (tbl2, rows.t().contiguous().t(), lanes),
+        "lanes dtype": lambda: (tbl2, rows, lanes.long()),
+        "lanes shape": lambda: (tbl2, rows, lanes.reshape(128, 64)),
+        "lanes 3D": lambda: (tbl2, rows, lanes.reshape(4, 16, 128)),
+        "lanes contiguity": lambda: (tbl2, rows, lanes.t().contiguous().t()),
+        "lanes device": lambda: (tbl2, rows, torch.empty((64, 128), dtype=I32, device="meta")),
+    }[which]()
+
+
+@pytest.mark.parametrize("which", sorted(GATHER2D_WRONG))
+def test_check_gather2d_names_each_wrong_argument(monkeypatch, which):
+    # the CPU stands in for the card's device: check_pair gives index 0 where
+    # the table and rows would pass on the card, and each check below it
+    # names the wrong argument (lanes, on the CPU, is never on device 0)
+    tbl2, rows, lanes = _wrong_gather2d(which)
+    if which.startswith("tbl2"):
+        with pytest.raises(ValueError, match=f"gather2d: {GATHER2D_WRONG[which]}"):
+            gather.check_gather2d(tbl2, rows, lanes)
+        return
+    real = launch.check_pair
+
+    def on_cpu(label, a_name, a, a_dtype, a_dim, b_name, b, b_dtype, b_dim):
+        if a.dtype is a_dtype and b.dtype is b_dtype and b.is_contiguous():
+            return 0
+        raise ValueError(launch._first_wrong(label, a.device, (
+            (a_name, a, a_dtype, a_dim), (b_name, b, b_dtype, b_dim))))
+
+    monkeypatch.setattr(gather, "check_pair", on_cpu)
+    with pytest.raises(ValueError, match=f"gather2d: {GATHER2D_WRONG[which]}"):
+        gather.check_gather2d(tbl2, rows, lanes)
+    with pytest.raises(ValueError, match="gather2d: .* on a CUDA device"):
+        real("gather2d", "tbl2", tbl2, F32, 2, "rows", rows, I32, None)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_check_gather2d_refuses_tensors_off_the_card(device):
+    tbl2, rows, lanes = (t.to(device) for t in _gather2d_args())
+    with pytest.raises(ValueError, match=r"gather2d: tbl2 must be a 2D torch.float32 tensor on a "
+                                         rf"CUDA device; got 2D torch.float32 on {device}"):
+        gather.check_gather2d(tbl2, rows, lanes)
+
+
+def test_gather2d_refuses_meta_tensors():
+    tbl2, rows, lanes = (t.to("meta") for t in _gather2d_args())
+    with pytest.raises(ValueError, match="gather2d: tbl2 must be .* on a CUDA device; got 2D "
+                                         "torch.float32 on meta"):
+        gather.gather2d(tbl2, rows, lanes)
+
+
+@pytest.mark.parametrize("shapes", [((2**24, 128), (8,)), ((2048, 128), (2**31,)),
+                                    ((2048, 128), (2**16, 2**15))])
+def test_check_gather2d_refuses_sizes_past_int32(monkeypatch, shapes):
+    monkeypatch.setattr(gather, "check_pair", lambda *args: 0)
+    tbl2 = torch.empty(shapes[0], device="meta")
+    rows = torch.empty(shapes[1], dtype=I32, device="meta")
+    lanes = torch.empty(shapes[1], dtype=I32, device="meta")
+    monkeypatch.setattr(torch.Tensor, "get_device", lambda self: 0)
+    with pytest.raises(ValueError, match="gather2d: sizes must fit int32"):
+        gather.check_gather2d(tbl2, rows, lanes)
+
+
+@pytest.mark.parametrize("table, index, sizes", [
+    ((2048, 128), (64, 128), (8192, 128)),
+    ((2048, 128), (4, 16, 128), (8192, 128)),
+    ((2048, 128), (2**20 - 3,), (2**20 - 3, 128)),
+    ((4096, 64), (7, 3, 5, 2), (210, 64)),
+])
+def test_check_gather2d_gives_the_launch_sizes(monkeypatch, table, index, sizes):
+    # index blocks of any shape; n is their element count, the width the table's
+    monkeypatch.setattr(gather, "check_pair", lambda *args: 3)
+    monkeypatch.setattr(torch.Tensor, "get_device", lambda self: 3)
+    tbl2 = torch.empty(table, device="meta")
+    rows, lanes = (torch.empty(index, dtype=I32, device="meta") for _ in range(2))
+    assert gather.check_gather2d(tbl2, rows, lanes) == (3, *sizes)
+
+
+FILL_FIRST_WRONG = {
+    "dtype": ("dep must be a torch.float32 tensor on a CUDA device; "
+              "got 2D torch.float64 on cpu"),
+    "contiguity": ("dep must be a torch.float32 tensor on a CUDA device; "
+                   "got 2D torch.float32 on cpu"),
+}
+
+
+@pytest.mark.parametrize("which", sorted(FILL_FIRST_WRONG))
+def test_check_fill_first_names_the_wrong_property(which):
+    dep = torch.zeros((8, 128))
+    wrong = {"dtype": dep.double(), "contiguity": dep.t()}[which]
+    with pytest.raises(ValueError, match=f"fill_first: {FILL_FIRST_WRONG[which]}"):
+        probe_deposit.check_fill_first(wrong)
+    message = {"dtype": "dep must be a torch.float32 tensor on cpu; got 2D torch.float64 on cpu",
+               "contiguity": "dep must be contiguous"}[which]
+    assert launch._first_wrong("fill_first", torch.device("cpu"),
+                               (("dep", wrong, F32, None),)) == f"fill_first: {message}"
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_check_fill_first_refuses_a_tensor_off_the_card(device):
+    with pytest.raises(ValueError, match=r"fill_first: dep must be a torch.float32 tensor on a "
+                                         rf"CUDA device; got 2D torch.float32 on {device}"):
+        probe_deposit.check_fill_first(torch.zeros((8, 128), device=device))
+    if device == "meta":  # the wrapper runs the plain version on the CPU only
+        with pytest.raises(ValueError, match="fill_first: dep must be .* on a CUDA device"):
+            probe_deposit.fill_first(torch.zeros((8, 128), device=device))
+
+
+@pytest.mark.parametrize("shape, message", [
+    ((0, 128), "dep must not be empty"),
+    ((2**31,), "sizes must fit int32"),
+])
+def test_check_fill_first_refuses_empty_and_huge_tensors(monkeypatch, shape, message):
+    monkeypatch.setattr(probe_deposit, "check_one", lambda *args: 0)
+    with pytest.raises(ValueError, match=f"fill_first: {message}"):
+        probe_deposit.check_fill_first(torch.empty(shape, device="meta"))
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (1,), (2, 3, 4), (2**31 - 1,)])
+def test_check_fill_first_gives_the_launch_device(monkeypatch, shape):
+    # any number of dimensions; the launch takes no size, only the device
+    monkeypatch.setattr(probe_deposit, "check_one", lambda *args: 5)
+    assert probe_deposit.check_fill_first(torch.empty(shape, device="meta")) == (5,)
+
+
+def test_gather2d_and_fill_first_run_the_plain_version_on_cpu_tensors():
+    rng = np.random.default_rng(6)
+    table = rng.normal(size=(2048, 128)).astype(np.float32)
+    hi = rng.integers(0, 2048, (4, 16, 128)).astype(np.int32)
+    lo = rng.integers(0, 128, (4, 16, 128)).astype(np.int32)
+    dep = rng.normal(size=(8, 128)).astype(np.float32)
+    dep[0, 0] = -0.0
+    kernels.LAUNCHES.clear()
+    out = gather.gather2d(*(torch.from_numpy(a) for a in (table, hi, lo)))
+    np.testing.assert_array_equal(out.numpy(), table[hi, lo])
+    first = probe_deposit.fill_first(torch.from_numpy(dep))
+    assert first.shape == (1, 128)
+    np.testing.assert_array_equal(first.numpy().view(np.int32),
+                                  np.full((1, 128), dep[0, 0]).view(np.int32))
+    assert kernels.LAUNCHES["gather2d"] == kernels.LAUNCHES["fill_first"] == 0
+    assert gather._GATHER2D.function is None and probe_deposit._FILL_FIRST.function is None
+
+
 # -- tools/launch_cost.py: what it times, on the CPU ----------------------------------------------
 
 
-@pytest.mark.parametrize("label", ["K12s", "K12t", "K12r", "K12a", "K14c"])
+@pytest.mark.parametrize("label", ["K11r", "K12s", "K12t", "K12r", "K12a", "K13f", "K14c"])
 def test_launch_cost_library_calls_compute_the_wrappers_functions(label):
     # the one PyTorch call timed beside each wrapper computes its function
     # (K14c's pk.clone() moves the same bytes: every row but row 2); on CPU
     # tensors the wrappers run their plain versions and launch nothing
     from cmacionize_torch.tools import launch_cost
 
-    n = {"K12s": 1024, "K12t": 256, "K12r": 512, "K12a": 1024, "K14c": 5}[label]
+    n = {"K11r": 1027, "K12s": 1024, "K12t": 256, "K12r": 512, "K12a": 1024, "K13f": 1024,
+         "K14c": 5}[label]
     args = launch_cost.seeded_inputs(label, n, "cpu", np.random.default_rng(len(label) + n))
     wrapper = launch_cost.KERNELS[label][0]
     kernels.LAUNCHES.clear()
@@ -477,13 +672,33 @@ def test_launch_cost_bounds_count_each_byte_once():
     idx, val = probe_pallas_gather.b_scatter_add("cpu")[1]
     assert launch_cost.bound_ms("K12a", (idx, val)) == pytest.approx(
         4 * (2 * idx.numel() + probe_pallas_gather.SCATTER_N) / 3.35e12 * 1e3)
+    # K11r at the flat 2D probe's shape: 8 bytes of indices in and 4 out a
+    # lookup, and the 6452 distinct sectors that (97t) mod 2^18 touches
+    # (chip_smoke.py's 0.000091 ms)
+    tab, hi, lo = probe_pallas_gather.b_flat_gather_2d("cpu")[1]
+    assert launch_cost.bound_ms("K11r", (tab, hi, lo)) == pytest.approx(
+        (12 * 8192 + 32 * 6452) / 3.35e12 * 1e3)
+    assert launch_cost.bound_ms("K11r", (tab, hi, lo)) == pytest.approx(0.000091, abs=5e-7)
+    # at 2^20 seeded lookups every sector of the 1 MB table is touched
+    n = launch_cost.LARGER["K11r"]
+    args = launch_cost.seeded_inputs("K11r", n, "cpu", np.random.default_rng(1))
+    assert launch_cost.bound_ms("K11r", args) == pytest.approx(
+        (12 * n + 4 * 2048 * 128) / 3.35e12 * 1e3)
+    assert launch_cost.bound_ms("K11r", args) == pytest.approx(0.004069, abs=5e-7)
+    # K13f: the one element it copies in, 128 out
+    assert launch_cost.bound_ms("K13f", (torch.zeros((8, 128)),)) == pytest.approx(
+        516 / 3.35e12 * 1e3)
+    assert launch_cost.LARGER["K13f"] is None
 
 
 def test_launch_cost_splits_each_path_on_its_kernels():
     from cmacionize_torch.tools import launch_cost
 
-    assert set(launch_cost.NEW_PATH) == {"K12s", "K12t", "K12r"}
+    assert set(launch_cost.NEW_PATH) == {"K11r", "K12s", "K12t", "K12r", "K13f"}
     assert launch_cost.OLD_PATH == "K12a" and launch_cost.OLD_PATH not in launch_cost.NEW_PATH
     assert set(launch_cost.KERNELS) == set(launch_cost.LIBRARY) == set(launch_cost.LARGER)
+    libraries = {"K11r": "gather", "K13f": "probe_deposit"}
     for label, (launcher, _, _) in launch_cost.NEW_PATH.items():
-        assert isinstance(launcher, launch.Launcher) and launcher.library == "probe_gather"
+        assert isinstance(launcher, launch.Launcher)
+        assert launcher.library == libraries.get(label, "probe_gather")
+        assert launch_cost.KERNELS[label][0].__module__ == f"cmacionize_torch.kernels.{launcher.library}"

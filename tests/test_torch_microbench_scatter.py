@@ -113,7 +113,11 @@ def test_module_runs_as_a_script_on_the_cpu():
     # at the tool's sizes (2^20 indices, 64^3 cells): ~5 s on the CPU
     proc = subprocess.run(
         [sys.executable, "-m", "cmacionize_torch.tools.microbench_scatter", "--device", "cpu"],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+        # one thread: beside the other test processes, torch's thread per core
+        # stalls the child past its limit, and these sizes gain nothing from threads
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+                           MKL_NUM_THREADS="1"),
+        capture_output=True, text=True,
         timeout=120, check=False,
     )
     assert proc.returncode == 0, proc.stderr

@@ -174,7 +174,11 @@ def test_module_runs_as_a_script_on_the_cpu():
     # one plain call per probe at the tool's sizes (run_c on 64 MB): ~1 s
     proc = subprocess.run(
         [sys.executable, "-m", port.__name__, "--device", "cpu"],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+        # one thread: beside the other test processes, torch's thread per core
+        # stalls the child past its limit, and these sizes gain nothing from threads
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+                           MKL_NUM_THREADS="1"),
+        capture_output=True, text=True,
         timeout=120, check=False,
     )
     assert proc.returncode == 0, proc.stderr

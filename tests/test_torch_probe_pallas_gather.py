@@ -104,6 +104,28 @@ def test_probe_equals_pallas_kernel_on_the_tools_own_inputs(name, interpret):
     np.testing.assert_array_equal(got, expected)
 
 
+@pytest.mark.parametrize("shape", [(64, 128), (4, 16, 128), (8, 8, 8, 16)])
+def test_gather2d_takes_index_blocks_as_the_pallas_kernel(shape, interpret):
+    # K11r takes the flat 2D probe's index blocks as they are, of any shape:
+    # the JAX probe's run on the same 8192 lookups as its [64, 128] blocks,
+    # and tab[hi, lo] in numpy, give the same bits in that shape
+    rng = np.random.default_rng(sum(shape))
+    table = rng.normal(size=(2048, 128)).astype(np.float32)
+    flat = rng.integers(0, 2048 * 128, 8192)
+    flat[0], flat[-1] = 0, 2048 * 128 - 1
+    hi, lo = (flat // 128).astype(np.int32), (flat % 128).astype(np.int32)
+    jax_run, _ = jax_probe.b_flat_gather_2d()
+    expected = np.asarray(jax_run(jnp.asarray(table), jnp.asarray(hi.reshape(64, 128)),
+                                  jnp.asarray(lo.reshape(64, 128))))
+    hi, lo = hi.reshape(shape), lo.reshape(shape)
+    fn, _ = port.b_flat_gather_2d(CPU)
+    got = fn(*(torch.from_numpy(a) for a in (table, hi, lo)))
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  expected.reshape(shape).view(np.int32))
+    np.testing.assert_array_equal(got.numpy(), table[hi, lo])
+
+
 @pytest.mark.parametrize("weights", ["integer", "random"])
 def test_scatter_add_accumulates_duplicates_as_the_pallas_kernel(weights, interpret):
     rng = np.random.default_rng(7)
@@ -164,7 +186,11 @@ def test_module_runs_as_a_script_on_the_cpu():
     # at the tool's sizes (the baselines at 2^20): ~5 s on the CPU
     proc = subprocess.run(
         [sys.executable, "-m", "cmacionize_torch.tools.probe_pallas_gather", "--device", "cpu"],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+        # one thread: beside the other test processes, torch's thread per core
+        # stalls the child past its limit, and these sizes gain nothing from threads
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+                           MKL_NUM_THREADS="1"),
+        capture_output=True, text=True,
         timeout=120, check=False,
     )
     assert proc.returncode == 0, proc.stderr
