@@ -113,12 +113,17 @@ Phases (any failed check raises, so the script exits non-zero):
     source, FixedValue σ/α and 20 iterations, with 1.6e7 packets each, on a
     64³ coarse grid with the zone [-2.5 pc, 2.5 pc)³ refined to level 3
     (17,006,592 leaves, a 512³ finest lattice) through AMRIonizationSimulation(..., device="cuda").run,
-    timed, with K5's launch count, the ionized volume against the Strömgren
-    volume and the 50%-crossing radius over the leaf centers against the
-    analytic one; then 2 more iterations under torch.profiler;
+    timed, with K5's launch count, the packets still active at the step cap
+    per iteration, the ionized volume against the Strömgren volume and the
+    50%-crossing radius over the leaf centers against the analytic one; then
+    2 more iterations under torch.profiler;
 23. K5 parity: the octree march against its plain version on the card, on
     that run's final χ and 1.6e7 fresh packets from the source: flags,
-    positions, tally; both timed;
+    positions, tally, and the count of packets active at the step cap
+    (equal); the plain version's fixed points and no-op steps, its steps per
+    packet, warp and block (``tools/octree_study.py:march_study``), K5's
+    registers and resident blocks per SM; both timed, and K5's bound with
+    and without the no-op steps;
 24. main path: MultiFreqAMRSimulation on tests/test_multifreq_grids.py:40-72's
     box, gas, abundances, source and zone at tests/test_amr.py:438-470's
     depth (16³ coarse, level 5: 2,101,184 leaves), 8e6 packets × 10
@@ -185,7 +190,10 @@ Phases (any failed check raises, so the script exits non-zero):
     microbench_scatter.main()``) at the tool's sizes (2^20 indices, 64³
     table), its launch counts of K11 and K11r; then K11 and K11r against
     their plain versions (identical) and timed beside ``tbl[idx]`` and
-    ``tbl2[rows, lanes]``;
+    ``tbl2[rows, lanes]``; K11 (on ``kernels/launch.py``) with one launch per
+    call, on a side stream and after two replays of a CUDA graph, and its
+    (a), (b), (c) and host split beside ``tbl[idx]`` at the microbenchmark's
+    inputs (``launch_cost.measure``);
 35. the dynamic-indexing probes (``cmacionize_torch.tools.
     probe_pallas_gather.main()``) at the tool's sizes (8192 lookups, 1024
     for the sublane gather; the baselines at 2^20), their launch counts of
@@ -264,6 +272,7 @@ from cmacionize_torch.kernels import gather as gather_ops
 from cmacionize_torch.kernels import probe_cohort as probe_cohort_ops
 from cmacionize_torch.kernels import probe_deposit as probe_deposit_ops
 from cmacionize_torch.kernels import probe_gather
+from cmacionize_torch.kernels import trace_octree as trace_octree_ops
 from cmacionize_torch.kernels.peel_off import peel_off_cuda
 from cmacionize_torch.kernels.peel_off_polarized import peel_off_polarized_cuda
 from cmacionize_torch import constants
@@ -310,7 +319,7 @@ from cmacionize_torch.tools import experimental_cone_kernel as cone
 from cmacionize_torch.tools import experimental_emission_octa as octa
 from cmacionize_torch.tools import microbench_scatter
 from cmacionize_torch.tools import probe_cohort_kernel, probe_deposit, probe_deposit2
-from cmacionize_torch.tools import launch_cost, probe_pallas_gather
+from cmacionize_torch.tools import launch_cost, octree_study, probe_pallas_gather
 from cmacionize_torch.utils.params import ParameterFile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1943,12 +1952,13 @@ def stromgren_amr(grid, device):
         source_position=config.source_position, luminosity=config.luminosity,
         cross_section=config.cross_section, recombination_rate=config.recombination_rate,
         n_photons=AMR_PHOTONS, max_level=AMR_MAX_LEVEL, seed=42, grid=grid)
-    kernels.LAUNCHES.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    xn = sim.run(config.n_iterations)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with counting_at_cap() as at_cap:
+        kernels.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xn = sim.run(config.n_iterations)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = kernels.LAUNCHES["trace_octree"]
     xn_host = xn.cpu().numpy()
     r_s = (3.0 * config.luminosity / (4.0 * np.pi * config.number_density**2
@@ -1962,7 +1972,8 @@ def stromgren_amr(grid, device):
         f"iterations in {wall:.4f} s wall, cold: the process's first run of the path, with "
         f"the octree tables' copy to the card ({n_packets / wall:.6g} packets/s); K5 launches "
         f"{launches}")
-    log(f"  escaped per iteration: {sim.n_escaped.tolist()}")
+    log(f"  escaped per iteration: {sim.n_escaped.tolist()}; of them still active at the step "
+        f"cap: {[int(n) for n in at_cap]}")
     log(f"  50%-radius over leaf centers / analytic ({r_s / PC:.4f} pc): {ratio:.5f}; ionized "
         f"volume / Stromgren volume {volume:.5f}")
     check(launches == config.n_iterations, f"stromgren_amr K5 launches {launches}")
@@ -1974,6 +1985,25 @@ def stromgren_amr(grid, device):
     profile_window(f"{AMR_PROFILED_ITERATIONS} more stromgren_amr iterations",
                    lambda: sim.run(AMR_PROFILED_ITERATIONS), {"K5": ("trace_octree_kernel",)})
     return sim, launches
+
+
+@contextlib.contextmanager
+def counting_at_cap():
+    """While active, each call of ``amr_traversal.trace_packets_octree``
+    appends the count of packets its march left active at the step cap (a
+    device scalar, read after the run) to the yielded list."""
+    original, counts = amr_traversal.trace_packets_octree, []
+
+    def wrapper(*args, **kwargs):
+        tally, out = original(*args, **kwargs)
+        counts.append(torch.sum(out.active))
+        return tally, out
+
+    amr_traversal.trace_packets_octree = wrapper
+    try:
+        yield counts
+    finally:
+        amr_traversal.trace_packets_octree = original
 
 
 def compare_octree_marches(label, out_k, out_r, tally_k, tally_r):
@@ -2030,20 +2060,44 @@ def octree_parity(sim, device) -> dict:
         root, children, chi, pk, zeros(), stats=stats, **march))
     max_err = compare_octree_marches("K5 parity (stromgren_amr's final chi, fresh packets)",
                                      out_k, out_r, tally_k, tally_r)
-    del tally_r, out_r
+    at_cap = (int(out_k.active.sum()), int(out_r.active.sum()))
+    log(f"  packets active at the step cap: K5 {at_cap[0]}, plain {at_cap[1]}")
+    check(at_cap[0] == at_cap[1], f"K5 left {at_cap[0]} packets active at the step cap, the "
+                                  f"plain version {at_cap[1]}")
+    # the tally's summation order: K5's and the plain version's f32 tallies,
+    # each against the plain march summed in f64
+    tally_64 = amr_traversal.trace_packets_octree_reference(
+        root, children, chi, pk, torch.zeros(C, dtype=torch.float64, device=device), **march)[0]
+    rel_64 = [float((t.double() - tally_64).abs().sum() / tally_64.abs().sum())
+              for t in (tally_k, tally_r)]
+    log(f"  tally rel L1 against the plain march summed in f64: K5 {rel_64[0]:.3e}, the plain "
+        f"version in f32 {rel_64[1]:.3e}")
+    check(rel_64[0] <= MAX_TALLY_REL_L1, f"K5's tally rel L1 against f64 {rel_64[0]}")
+    del tally_r, out_r, tally_64
+    max_steps = amr_traversal.default_max_steps(march["coarse_shape"], march["max_level"])
+    study = octree_study.march_study(stats, max_steps, "K5 parity input, the plain march")
+    del stats["steps"], stats["fixed_point_step"]
+    occupancy = trace_octree_ops.occupancy(device)
     scratch = zeros()
     ms = time_cuda(lambda: amr_traversal.trace_packets_octree(
         root, children, chi, pk, scratch, **march), 3)
     steps, levels = int(stats["packet_steps"]), int(stats["descent_levels"])
+    noops, noop_levels = int(stats["noop_steps"]), int(stats["noop_descent_levels"])
     log(f"timing K5 on {C} leaves / {n} packets ({steps} packet steps, {levels} descent "
-        f"levels, {steps / n:.1f} steps per packet): K5 {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"per march (CUDA events, incl. the packet-state copy; the plain version's one "
-        f"parity call, with its step counting)")
+        f"levels, {steps / n:.1f} steps per packet; {noops} no-op steps with {noop_levels} "
+        f"levels, after the fixed points of {study['fixed_points']} packets): K5 {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms per march (CUDA events, incl. the packet-state copy; the "
+        f"plain version's one parity call, with its step counting); K5 {occupancy['registers']} "
+        f"registers, {occupancy['blocks_per_sm']} blocks of 256 per SM x {occupancy['sms']} SMs")
     # root, children, chi read, the tally read and written; packets in: 8
     # f32 + 2 flags, out: position, tau, 2 flags
-    bound = roofline(f"K5 ({steps} packet steps, {levels} descent levels)",
-                     octree_bytes(root, children) + 12 * C + 52 * n,
-                     OPS_PER_K5_STEP * steps + OPS_PER_OCTREE_LEVEL * levels, F32_OPS_PER_S)
+    n_bytes = octree_bytes(root, children) + 12 * C + 52 * n
+    roofline(f"K5 with the no-op steps ({steps} packet steps, {levels} descent levels)",
+             n_bytes, OPS_PER_K5_STEP * steps + OPS_PER_OCTREE_LEVEL * levels, F32_OPS_PER_S)
+    # the bound of the record: the steps that some output needs
+    bound = roofline(f"K5 ({steps - noops} packet steps, {levels - noop_levels} descent levels)",
+                     n_bytes, OPS_PER_K5_STEP * (steps - noops)
+                     + OPS_PER_OCTREE_LEVEL * (levels - noop_levels), F32_OPS_PER_S)
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
@@ -2957,12 +3011,23 @@ def gather_phase(device) -> tuple:
         out, ref = fn(*args), plain(*args)
         torch.cuda.synchronize()
         check(torch.equal(out, ref), f"{label} differs from its plain version")
+        summary = "identical"
+        if label == "K11":
+            def refill():
+                tbl.copy_(torch.tensor(rng.normal(size=n_cell).astype(np.float32)))
+                idx.copy_(torch.tensor(rng.integers(0, n_cell, n).astype(np.int32)))
+
+            summary += "; " + launch_path_parity(
+                "gather", fn, args, refill, lambda out, a: torch.equal(out, a[0][a[1].long()]))
         ms = time_cuda(lambda: fn(*args), 50)
         plain_ms = time_cuda(lambda: plain(*args), 50)
         library_ms = time_cuda(lambda: library(*args), 50)
         log(f"{label} parity on {n} random indices (the table's first and last entries "
-            f"among them): identical; timing {label} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"among them): {summary}; timing {label} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"the one PyTorch call {library_ms:.4f} ms (CUDA events)")
+        if label == "K11":  # where a call's time goes, at the microbenchmark's inputs
+            launch_cost.measure(label, "the microbenchmark's",
+                                launch_cost.microbench_inputs(device))
         bound = roofline(label, (index_bytes + 4) * n + 4 * n_cell, 0.0, F32_OPS_PER_S)
         records.append({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound,
                         "library_ms": library_ms})

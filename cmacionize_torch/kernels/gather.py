@@ -10,10 +10,10 @@ fallback between the two.  The wrappers check devices, dtypes, shapes and
 contiguity; they do not check the indices (that would read them back to the
 host), so they must lie in the table.
 
-K11r launches through :mod:`kernels.launch` (a launcher typed once,
-PyTorch's raw stream, an identity check of each tensor); K11 through the
-ctypes path here (:func:`_check`, :func:`_function`, :func:`_launch`), which
-the older wrappers of the package share.
+Both launch through :mod:`kernels.launch` (a launcher typed once,
+PyTorch's raw stream, an identity check of each tensor).  The ctypes path
+here (:func:`_check`, :func:`_function`, :func:`_launch`) serves the older
+wrappers of the package.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from cmacionize_torch.kernels.launch import Launcher, _first_wrong, check_pair
 
 NAME = "gather"
 F32, I32 = torch.float32, torch.int32
+_GATHER = Launcher(NAME, "cmi_gather", 3, 1)
 _GATHER2D = Launcher(NAME, "cmi_gather2d", 4, 2)
 
 
@@ -74,16 +75,22 @@ def _launch(label, fn, *args):
         raise RuntimeError(f"{label}: CUDA error {err} at launch")
 
 
+def check_gather(tbl: torch.Tensor, idx: torch.Tensor) -> tuple:
+    """K11's checks: (device index, n) of its launch, or ValueError."""
+    index = check_pair("gather", "tbl", tbl, F32, 1, "idx", idx, I32, 1)
+    n = idx.numel()
+    if max(tbl.numel(), n) >= 2**31:
+        raise ValueError("gather: sizes must fit int32")
+    return index, n
+
+
 def gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[i] = tbl[idx[i]]``: tbl f32 [N], idx int32 [n] → f32 [n]."""
     if tbl.device.type == "cpu":
         return gather_reference(tbl, idx)
-    _check("gather", (("tbl", tbl, torch.float32, 1), ("idx", idx, torch.int32, 1)),
-           tbl.device)
-    if max(tbl.numel(), idx.numel()) >= 2**31:
-        raise ValueError("gather: sizes must fit int32")
-    out = torch.empty(idx.shape, dtype=torch.float32, device=tbl.device)
-    _launch("gather", _function("cmi_gather", 3, 1), tbl, idx, out, idx.numel())
+    index, n = check_gather(tbl, idx)
+    out = torch.empty_like(idx, dtype=F32)
+    _GATHER(index, tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), n)
     LAUNCHES["gather"] += 1
     return out
 

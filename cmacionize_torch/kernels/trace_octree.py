@@ -2,10 +2,16 @@
 
 The wrapper checks what the kernel takes (one CUDA device, dtypes, lengths,
 contiguity, int32 sizes), launches on PyTorch's current stream and raises if
-the launch was refused.  It allocates nothing: packet state and the tally are
-updated in place, and the caller
-(:func:`cmacionize_torch.ops.amr_traversal.trace_packets_octree`) hands in
-copies of the packet state.
+the launch was refused.  Packet state and the tally are updated in place (the
+caller, :func:`cmacionize_torch.ops.amr_traversal.trace_packets_octree`,
+hands in copies of the packet state).
+
+The kernel ends a packet at a fixed point of its step, sums each run of a
+warp's deposits into one leaf before its atomicAdd, and marches the packets
+in the order of :func:`direction_order` (a key sort made here, whose time is
+part of the call's; the one allocation beside it is the order).  None of
+these changes a packet's final state; the deposits are summed in another
+order.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ NAME = "trace_octree"
 _FLOAT_FIELDS = ("px", "py", "pz", "dx", "dy", "dz", "tau_left", "weight")
 _BOOL_FIELDS = ("active", "absorbed")
 _POINTER_ORDER = ("root", "children", "chi", "tally", "px", "py", "pz", "dx", "dy", "dz",
-                  "tau_left", "weight", "active", "absorbed")
+                  "tau_left", "weight", "active", "absorbed", "order")
+DIRECTION_BUCKETS = 1024  # a side of the cube of direction buckets
 
 
 def check_tensors(name: str, device, arrays: dict, expected) -> None:
@@ -65,6 +72,32 @@ def _launcher():
     return fn
 
 
+def occupancy(device) -> dict:
+    """Registers per thread and blocks of 256 resident per SM of K5, and the
+    SM count of CUDA ``device`` (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    fn = load_library(NAME).cmi_trace_octree_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    values = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = fn(*(ctypes.byref(v) for v in values))
+    if err != 0:
+        raise RuntimeError(f"trace_octree occupancy: CUDA error {err}")
+    return dict(zip(("registers", "blocks_per_sm", "sms"), (v.value for v in values)))
+
+
+def direction_order(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """int32 indices of the packets sorted by their direction's cell in a
+    cube of :data:`DIRECTION_BUCKETS`³ over [-1, 1]³, x major
+    (``torch.argsort``), so that the lanes of a warp march neighbouring rays.
+    A Z-order key over the same cells took longer (PERF.md, section 6)."""
+    side = DIRECTION_BUCKETS
+    cells = [torch.clamp(((d + 1.0) * (0.5 * side)).to(torch.int32), 0, side - 1)
+             for d in (dx, dy, dz)]
+    return torch.argsort((cells[0] * side + cells[1]) * side + cells[2]).to(torch.int32)
+
+
 def trace_octree_cuda(root: torch.Tensor, children: torch.Tensor, chi: torch.Tensor,
                       tally: torch.Tensor, fields: dict, *, coarse_shape, max_level: int,
                       eps: float, max_steps: int) -> None:
@@ -85,11 +118,15 @@ def trace_octree_cuda(root: torch.Tensor, children: torch.Tensor, chi: torch.Ten
     check_tensors("trace_octree_cuda", device, arrays, expected)
     if max(n, C) >= 2**31 or max_steps < 0:
         raise ValueError("trace_octree_cuda: sizes must fit int32, max_steps >= 0")
+    if n == 0:  # no packet: no launch
+        return
     launch = _launcher()
     stream = torch.cuda.current_stream(device).cuda_stream
+    arrays["order"] = direction_order(fields["dx"], fields["dy"], fields["dz"])
     pointers = [arrays[f].data_ptr() for f in _POINTER_ORDER]
     with torch.cuda.device(device):
-        err = launch(*pointers, n, nx, ny, nz, int(max_level), float(eps), int(max_steps), stream)
+        err = launch(*pointers, n, nx, ny, nz, int(max_level), float(eps), int(max_steps),
+                     stream)
     if err != 0:
         raise RuntimeError(f"trace_octree_cuda: CUDA error {err} at launch")
     LAUNCHES[NAME] += 1

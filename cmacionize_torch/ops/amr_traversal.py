@@ -115,6 +115,27 @@ def _wall_distance(pos, lo, size, dirn):
 _STATE_FIELDS = ("px", "py", "pz", "tau_left", "active", "absorbed")
 
 
+def _count_noops(stats, live, step, sub, after, active, deposit, size):
+    """Adds one step of the packets ``live`` (state ``sub`` before it,
+    position and ``tau_left`` ``after`` it) to ``stats``
+    (:func:`_march_reference`): the step is a no-op where nothing changed
+    bit for bit and the deposit is zero.  Its sign is not asked for: where
+    JAX's ``maximum`` and K5's wall distance give +0.0, ``clamp_min`` keeps
+    -0.0, and a tally that starts at +0.0 takes either unchanged.  The
+    step's descent crossed 1 - e internal levels, where the leaf size is
+    0.5·2^e (``frexp``)."""
+    noop = active & (deposit == 0.0)
+    for before, now in zip((sub.px, sub.py, sub.pz, sub.tau_left), after):
+        noop &= before.view(torch.int32) == now.view(torch.int32)
+    stats["packet_steps"] += live.numel()
+    stats["steps"][live] += 1
+    stats["noop_steps"] += noop.sum()
+    stats["noop_descent_levels"] += (1 - torch.frexp(size).exponent)[noop].sum()
+    first = live[noop]
+    first = first[stats["fixed_point_step"][first] < 0]
+    stats["fixed_point_step"][first] = step
+
+
 def _march_reference(root, children, pk, tally, chi_of, tally_index, *,
                      coarse_shape, max_level, max_steps, stats=None):
     """The JAX lockstep loop of ``trace_packets_octree``, step for step, for
@@ -126,16 +147,27 @@ def _march_reference(root, children, pk, tally, chi_of, tally_index, *,
     terminates: the JAX loop masks the others, which changes nothing for
     them, and leaving out their zero deposits changes no tally bit.  A
     packet that stalls on a wall (see the module's notes) then costs one
-    lane, not the whole batch, until ``max_steps``.  With ``stats``,
-    ``stats["packet_steps"]`` receives the packet steps taken and
-    ``stats["descent_levels"]`` the internal levels their descents crossed
-    (device tensors); without it nothing is counted."""
+    lane, not the whole batch, until ``max_steps``.
+
+    With ``stats`` (device tensors; without it nothing is counted):
+    ``"packet_steps"``, the packet steps taken, and ``"descent_levels"``, the
+    internal levels their descents crossed; ``"noop_steps"`` and
+    ``"noop_descent_levels"``, the same for the no-op steps among them,
+    those that leave position, ``tau_left`` and the flags bit for bit as
+    they were and deposit zero (the step is a pure function of that state,
+    so a packet that takes one repeats it until ``max_steps``: a fixed
+    point); ``"fixed_points"``, the packets that reach one; and per packet
+    (int32 [n]) ``"steps"``, the steps it took, and ``"fixed_point_step"``,
+    the steps it took before its first no-op step (-1: none)."""
     nx, ny, nz = coarse_shape
     eps = wall_eps(coarse_shape, max_level)
     max_steps = default_max_steps(coarse_shape, max_level, max_steps)
     if stats is not None:
-        for key in ("packet_steps", "descent_levels"):
+        for key in ("packet_steps", "descent_levels", "noop_steps", "noop_descent_levels"):
             stats[key] = torch.zeros((), dtype=torch.int64, device=tally.device)
+        stats["steps"] = torch.zeros(pk.px.shape, dtype=torch.int32, device=tally.device)
+        stats["fixed_point_step"] = torch.full(pk.px.shape, -1, dtype=torch.int32,
+                                               device=tally.device)
     out = {f: getattr(pk, f).clone() for f in _STATE_FIELDS}
     live = torch.nonzero(pk.active).squeeze(1)
     sub = pk._replace(**{f: v[live] for f, v in pk._asdict().items()})
@@ -154,7 +186,8 @@ def _march_reference(root, children, pk, tally, chi_of, tally_index, *,
         tau_cell = chi * l_exit
         absorbed_now = tau_cell >= sub.tau_left
         l_travel = torch.where(absorbed_now, sub.tau_left / chi, l_exit)
-        tally.index_add_(0, tally_index(sub, leaf), l_travel * sub.weight)
+        deposit = l_travel * sub.weight
+        tally.index_add_(0, tally_index(sub, leaf), deposit.to(tally.dtype))
 
         px = _fma(sub.dx, l_travel, sub.px)
         py = _fma(sub.dy, l_travel, sub.py)
@@ -170,14 +203,12 @@ def _march_reference(root, children, pk, tally, chi_of, tally_index, *,
         qx, qy, qz = _nudged(px, sub.dx, eps), _nudged(py, sub.dy, eps), _nudged(pz, sub.dz, eps)
         inside = ((qx >= 0.0) & (qx < nx) & (qy >= 0.0) & (qy < ny)
                   & (qz >= 0.0) & (qz < nz))
+        tau_left = torch.where(absorbed_now, 0.0, sub.tau_left - tau_cell)
+        active = ~absorbed_now & inside
         if stats is not None:
-            stats["packet_steps"] += live.numel()
-        sub = sub._replace(
-            px=px, py=py, pz=pz,
-            tau_left=torch.where(absorbed_now, 0.0, sub.tau_left - tau_cell),
-            active=~absorbed_now & inside,
-            absorbed=sub.absorbed | absorbed_now,
-        )
+            _count_noops(stats, live, step, sub, (px, py, pz, tau_left), active, deposit, size)
+        sub = sub._replace(px=px, py=py, pz=pz, tau_left=tau_left, active=active,
+                           absorbed=sub.absorbed | absorbed_now)
         step += 1
         done = ~sub.active
         if bool(done.any()):
@@ -189,6 +220,8 @@ def _march_reference(root, children, pk, tally, chi_of, tally_index, *,
             sub = sub._replace(**{f: v[sub.active] for f, v in sub._asdict().items()})
     for f in _STATE_FIELDS:  # packets stopped by max_steps
         out[f][live] = getattr(sub, f)
+    if stats is not None:
+        stats["fixed_points"] = (stats["fixed_point_step"] >= 0).sum()
     return tally, pk._replace(**out)
 
 
@@ -205,8 +238,9 @@ def trace_packets_octree_reference(
     stats: Optional[dict] = None,
 ):
     """Plain PyTorch octree march: Σ ℓ(coarse units)·w is added into
-    ``tally`` [C] in place.  Returns (tally, terminated batch); the batch
-    handed in is not modified."""
+    ``tally`` [C] in place (an f64 tally sums the f32 deposits in f64).
+    Returns (tally, terminated batch); the batch handed in is not
+    modified."""
     return _march_reference(
         root, children, packets, tally,
         lambda pk, leaf: chi_leaf[leaf],

@@ -1,19 +1,22 @@
 """Where a kernel's call goes: per call back to back, on the device alone,
 and on the host step by step.
 
-For K11r (``gather2d``) of :mod:`cmacionize_torch.kernels.gather`, K12s
+For K11 (``gather``) and K11r (``gather2d``) of
+:mod:`cmacionize_torch.kernels.gather`, K12s
 (``sublane_gather``), K12t (``take_along_lanes``), K12r (``row_gather``) and
 K12a (``scatter_add``) of :mod:`cmacionize_torch.kernels.probe_gather`, K13f
 (``fill_first``) of :mod:`cmacionize_torch.kernels.probe_deposit` and K14c
 (``stream_rows``) of :mod:`cmacionize_torch.kernels.probe_cohort`, and beside
-each the one PyTorch call of its function (``tab[hi, lo]``, ``torch.gather``,
+each the one PyTorch call of its function (``tbl[idx]``, ``tab[hi, lo]``,
+``torch.gather``,
 ``torch.take_along_dim``, ``tab[idx]``, ``zeros`` + ``index_put_``,
 ``dep.reshape(-1)[:1].expand(1, 128).clone()``, ``pk.clone()``, K14c's bytes
-bar its sum), at the tools' shapes (``tools/probe_pallas_gather.py``, K11r's
-flat 2D probe among them; ``tools/probe_deposit.py``'s [8, 128] packets;
+bar its sum), at the tools' shapes (``tools/microbench_scatter.py``'s 2^20
+indices into 64³ for K11; ``tools/probe_pallas_gather.py``, K11r's flat 2D
+probe among them; ``tools/probe_deposit.py``'s [8, 128] packets;
 ``tools/probe_cohort_kernel.py``) and at a larger one (2^20 lookups, K11r's
 as 1D rows and lanes into [2048, 128]; K14c twice the tool's 7808 items;
-K13f, which reads one element, none):
+K11, whose tool's size is 2^20, and K13f, which reads one element, none):
 
   (a) ms per call of 50 calls back to back between two CUDA events (the
       figure ``chip_smoke.py:time_cuda`` gives: the longer of the host's
@@ -32,8 +35,8 @@ the ctypes path that the older wrappers use (``kernels/gather.py``:
 launch, the counter) on K12a, which stays on it as the control; those of
 :mod:`kernels.launch` (the wrapper's own checks, the output's allocation, the
 pointers, the raw stream, the current device, the typed ctypes call with and
-(where the launcher takes a count) without its launch, the counter) on K11r,
-K12s, K12t, K12r and K13f.  K14c's calls are
+(where the launcher takes a count) without its launch, the counter) on K11,
+K11r, K12s, K12t, K12r and K13f.  K14c's calls are
 bound by the device, so its host steps are not split; :func:`main` splits
 its device time by the name of each kernel, memset or copy in a
 ``torch.profiler`` window (``measure``, which ``chip_smoke.py`` calls, does
@@ -72,8 +75,22 @@ HBM_BYTES_PER_S = 3.35e12
 STREAM_ROWS_BYTES_PER_ELEMENT = 4 * 31 / 16
 SCATTER_SHAPE = (tool.SCATTER_N // 128, 128)  # K12a's output
 
+MICROBENCH_CELLS = 64**3  # tools/microbench_scatter.py's table of K11
+
+
+def microbench_inputs(device, n: int = LOOKUPS) -> tuple:
+    """K11's arguments as ``tools/microbench_scatter.py:main`` makes them: a
+    table of ones and ``n`` int32 indices from a generator seeded with 0."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(0)
+    idx = torch.randint(0, MICROBENCH_CELLS, (n,), generator=generator, device=device,
+                        dtype=torch.int32)
+    return torch.ones(MICROBENCH_CELLS, device=device), idx
+
+
 # label: (the wrapper, the tool's arguments at its own shapes)
 KERNELS = {
+    "K11": (gather.gather, microbench_inputs),
     "K11r": (gather.gather2d, lambda device: tool.b_flat_gather_2d(device)[1]),
     "K12s": (probe_gather.sublane_gather, lambda device: tool.b_sublane_gather(device)[1]),
     "K12t": (probe_gather.take_along_lanes, lambda device: tool.b_taa_lanes(device)[1]),
@@ -82,13 +99,15 @@ KERNELS = {
     "K13f": (probe_deposit.fill_first, lambda device: march_inputs(device)[:1]),
     "K14c": (probe_cohort.stream_rows, cohort_tool.c_inputs),
 }
-LIBRARY = {"K11r": "tab[hi, lo]", "K12s": "torch.gather", "K12t": "torch.take_along_dim",
-           "K12r": "tab[idx]", "K12a": "zeros + index_put_",
+LIBRARY = {"K11": "tbl[idx]", "K11r": "tab[hi, lo]", "K12s": "torch.gather",
+           "K12t": "torch.take_along_dim", "K12r": "tab[idx]", "K12a": "zeros + index_put_",
            "K13f": "dep.reshape(-1)[:1].expand(1, 128).clone()", "K14c": "pk.clone()"}
 # the kernels on kernels/launch.py whose host steps are split: their
 # launchers, their wrappers' checks (the device index, then the launcher's
 # ints) and output allocations
 NEW_PATH = {
+    "K11": (gather._GATHER, gather.check_gather,
+            lambda tbl, idx: torch.empty_like(idx, dtype=torch.float32)),
     "K11r": (gather._GATHER2D, gather.check_gather2d,
              lambda tab, rows, lanes: torch.empty_like(rows, dtype=torch.float32)),
     "K12s": (probe_gather._SUBLANE_GATHER, probe_gather.check_sublane_gather,
@@ -105,7 +124,8 @@ OLD_PATH = "K12a"  # the control on the ctypes path of kernels/gather.py
 
 def seeded_inputs(label: str, n: int, device, rng) -> tuple:
     """Seeded arguments of the larger size: ``n`` lookups into the probe's
-    table (K12t: ``n`` rows of 128; K11r 1D rows and lanes), the table's first
+    table (K12t: ``n`` rows of 128; K11r 1D rows and lanes; K11 into the
+    microbenchmark's 64³ cells), the table's first
     and last entries among them; K12a ``n`` integer weights added at indices
     with duplicates; K13f ``n`` normal values as [n / 128, 128]; K14c ``n``
     items of [16, 128]."""
@@ -117,6 +137,8 @@ def seeded_inputs(label: str, n: int, device, rng) -> tuple:
         idx[0], idx[-1] = 0, hi - 1
         return torch.tensor(idx.astype(np.int32).reshape(shape), device=device)
 
+    if label == "K11":
+        return table(1, MICROBENCH_CELLS).reshape(-1), lookups(MICROBENCH_CELLS, (n,))
     if label == "K11r":
         flat = lookups(2048 * 128, (n,))
         return table(2048, 128), flat // 128, flat % 128
@@ -178,6 +200,9 @@ def bound_ms(label: str, args: tuple) -> float:
     a, idx = args
     if label == "K12a":
         return 4 * (a.numel() + idx.numel() + tool.SCATTER_N) / HBM_BYTES_PER_S * 1e3
+    if label == "K11":  # 4 bytes of index in and 4 out a lookup
+        sectors = int(torch.unique(idx.long() // 8).numel())
+        return (8 * idx.numel() + 32 * sectors) / HBM_BYTES_PER_S * 1e3
     width = a.shape[1]
     if label == "K12s":
         offsets = idx.long() * width + torch.arange(width, device=idx.device)
@@ -315,8 +340,8 @@ def old_path_steps(args: tuple) -> dict:
 
 
 def new_path_steps(label: str, args: tuple) -> dict:
-    """Each step of the :mod:`kernels.launch` wrapper of K11r, K12s, K12t,
-    K12r or K13f alone, its checks and allocation being the wrapper's own;
+    """Each step of the :mod:`kernels.launch` wrapper of K11, K11r, K12s,
+    K12t, K12r or K13f alone, its checks and allocation being the wrapper's own;
     the typed ctypes call once with no work (a count of 0, where the launcher
     takes one) and once with its launch."""
     launcher, check, alloc = NEW_PATH[label]
@@ -351,9 +376,9 @@ def fmt(values: dict) -> str:
 
 def measure(label: str, size: str, args: tuple, host_calls: int = 10_000) -> dict:
     """(a), (b) and (c) of the kernel's wrapper and of the library call on
-    ``args``, with the split of the wrapper's path (K12a: the old path; K11r,
-    K12s, K12t, K12r, K13f: the new one; K14c: none); prints a line of each
-    and returns them."""
+    ``args``, with the split of the wrapper's path (K12a: the old path; K11,
+    K11r, K12s, K12t, K12r, K13f: the new one; K14c: none); prints a line of
+    each and returns them."""
     wrapper = KERNELS[label][0]
     calls = {"wrapper": lambda: wrapper(*args), LIBRARY[label]: library_call(label, args)}
     host = host_us(calls, host_calls)
@@ -377,9 +402,10 @@ def measure(label: str, size: str, args: tuple, host_calls: int = 10_000) -> dic
     return record
 
 
-# the larger size of each kernel (K13f, which reads one element, has none)
-LARGER = {"K11r": LOOKUPS, "K12s": LOOKUPS, "K12t": LOOKUPS, "K12r": LOOKUPS, "K12a": LOOKUPS,
-          "K13f": None, "K14c": 2 * cohort_tool.NCHUNK * 8}
+# the larger size of each kernel (K11's tool is at 2^20 already; K13f, which
+# reads one element, has none)
+LARGER = {"K11": None, "K11r": LOOKUPS, "K12s": LOOKUPS, "K12t": LOOKUPS, "K12r": LOOKUPS,
+          "K12a": LOOKUPS, "K13f": None, "K14c": 2 * cohort_tool.NCHUNK * 8}
 
 
 def main() -> dict:

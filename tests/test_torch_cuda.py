@@ -1017,6 +1017,147 @@ def test_amr_drivers_on_card(cuda):
     assert bool(torch.isfinite(T).all())
 
 
+def _nudge_grid_inputs(cuda, n=4000):
+    """tests/test_torch_amr.py::test_nudge_rounding_matches_jax's grid (8³,
+    the corner half refined to level 2) and its two packets, the first of
+    which stalls on the wall x = 1, after ``n`` seeded packets over the box;
+    χ per coarse unit 10^U(-1.5, 0.5) per leaf."""
+    from cmacionize_torch.models import amr
+
+    grid = amr.build_amr_grid(GridGeometry((0.0,) * 3, (1.0,) * 3, (8, 8, 8)),
+                              amr.SpatialRefinement((0.0,) * 3, (0.5,) * 3, 2),
+                              lambda p: np.ones(len(p)), max_level=2)
+    rng = np.random.default_rng(21)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pos = rng.uniform(0.5, 7.5, (n, 3))
+    pos[: n // 4] = np.round(pos[: n // 4] * 4) / 4
+    tau = -np.log1p(-rng.random(n)) * 3
+    dx, dy = np.float32(-0.00011920929), np.float32(0.00095367426)
+    pos = np.concatenate([pos, [[1.0, 6.3, 6.55], [3.0 - 1e-3, 7.9999986, 6.55]]])
+    d = np.concatenate([d, [[dx, 1.0, 0.0], [1.0, dy, 0.0]]])
+    tau = np.concatenate([tau, [1e3, 1e3]])
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
+    pk = traversal.make_packets(t(pos), t(d), t(tau), t(rng.uniform(0.5, 1.5, n + 2)), (8, 8, 8))
+    root, children = (torch.tensor(a, device=cuda) for a in grid.octree())
+    chi = t(10 ** rng.uniform(-1.5, 0.5, grid.n_cells))
+    return root, children, chi, pk, dict(coarse_shape=(8, 8, 8), max_level=2)
+
+
+def _k5_and_plain(root, children, chi, pk, march, max_steps=0):
+    """(K5's and the plain version's tally and batch) on one input; K5
+    through the public march, one launch (none for no packets)."""
+    from cmacionize_torch.ops import amr_traversal
+
+    C = chi.numel()
+    before = kernels.LAUNCHES["trace_octree"]
+    tally_k, out_k = amr_traversal.trace_packets_octree(
+        root, children, chi, pk, torch.zeros(C, device=chi.device), max_steps=max_steps,
+        **march)
+    assert kernels.LAUNCHES["trace_octree"] == before + (pk.size > 0)
+    tally_r, out_r = amr_traversal.trace_packets_octree_reference(
+        root, children, chi, pk, torch.zeros(C, device=chi.device), max_steps=max_steps, **march)
+    torch.cuda.synchronize()
+    return (tally_k, out_k), (tally_r, out_r)
+
+
+def _assert_same_states(out_k, out_r):
+    for f in ("px", "py", "pz", "tau_left"):
+        assert torch.equal(getattr(out_k, f).view(torch.int32),
+                           getattr(out_r, f).view(torch.int32)), f
+    for f in ("active", "absorbed"):
+        assert torch.equal(getattr(out_k, f), getattr(out_r, f)), f
+
+
+@pytest.mark.parametrize("max_steps", [0, 1, 2])
+def test_octree_kernel_ends_stalled_packets_as_the_plain_version(cuda, max_steps):
+    # the stalled packet of the nudge test among seeded ones: K5 ends it at
+    # its fixed point, the plain version at the cap, in the same state
+    root, children, chi, pk, march = _nudge_grid_inputs(cuda)
+    (tally_k, out_k), (tally_r, out_r) = _k5_and_plain(root, children, chi, pk, march,
+                                                       max_steps)
+    _assert_same_states(out_k, out_r)
+    assert bool(out_k.active[-2]) and float(out_k.px[-2]) == 1.0
+    assert float(out_k.py[-1]) == np.float32(8.0) - np.float32(2.0**-21)
+    rel_l1 = float((tally_k - tally_r).abs().sum() / tally_r.abs().sum())
+    assert rel_l1 <= 1e-4, rel_l1
+    if max_steps == 0:
+        assert 0 < int(out_k.absorbed.sum()) < pk.size
+
+
+def test_octree_kernel_on_many_waves_of_blocks(cuda):
+    # 2^20 packets on the level-5 grid: many waves of blocks, each of 256
+    # packets in direction order
+    from cmacionize_torch.kernels.trace_octree import occupancy
+
+    grid = _octree_grid()
+    root, children, chi, pk, march = _octree_inputs(grid, 7, 1 << 20, cuda)
+    lanes = occupancy(cuda)
+    assert pk.size > 3 * lanes["blocks_per_sm"] * lanes["sms"] * 256
+    (tally_k, out_k), (tally_r, out_r) = _k5_and_plain(root, children, chi, pk, march)
+    _compare_octree_marches(out_k, out_r, tally_k, tally_r, pk.size)
+    assert 0 < int(out_r.absorbed.sum()) < pk.size
+
+
+def test_octree_kernel_leaves_inactive_packets_as_handed_in(cuda):
+    grid = _octree_grid(max_level=3, zone=0.25)
+    root, children, chi, pk, march = _octree_inputs(grid, 8, 30_000, cuda)
+    frozen = torch.arange(pk.size, device=cuda) % 3 == 1
+    even = torch.arange(pk.size, device=cuda) % 2 == 0
+    pk = pk._replace(active=~frozen, absorbed=frozen & even)
+    (tally_k, out_k), (tally_r, out_r) = _k5_and_plain(root, children, chi, pk, march)
+    _compare_octree_marches(out_k, out_r, tally_k, tally_r, pk.size)
+    for f in ("px", "py", "pz", "tau_left", "active", "absorbed"):
+        assert torch.equal(getattr(out_k, f)[frozen], getattr(pk, f)[frozen]), f
+
+
+@pytest.mark.parametrize("n", [0, 1, 33])
+def test_octree_kernel_on_few_packets(cuda, n):
+    root, children, chi, pk, march = _nudge_grid_inputs(cuda, n=40)
+    pk = pk._replace(**{f: v[-n:] if n else v[:0] for f, v in pk._asdict().items()})
+    (tally_k, out_k), (tally_r, out_r) = _k5_and_plain(root, children, chi, pk, march)
+    _assert_same_states(out_k, out_r)
+    assert float((tally_k - tally_r).abs().sum()) <= 1e-4 * max(float(tally_r.sum()), 1e-30)
+
+
+@pytest.mark.parametrize("max_level", [0, 3, 5, 10])
+def test_octree_kernel_at_each_depth(cuda, max_level):
+    # level 10: a grid far deeper than stromgren_amr's 3 levels, with a chain
+    # of refined cells to the far corner
+    from cmacionize_torch.models import amr
+
+    if max_level == 10:
+        class FarCornerChain:
+            def refine(self, level, centers, volume, nd, fractions):
+                if level >= 10:
+                    return np.zeros(len(centers), bool)
+                return np.all(centers > 1.0 - 1.0 / 16 / (2**level), axis=1)
+
+        grid = amr.build_amr_grid(GridGeometry((0.0,) * 3, (1.0,) * 3, (16, 16, 16)),
+                                  FarCornerChain(), lambda p: np.ones(len(p)), max_level=10)
+        rng = np.random.default_rng(10)
+        n = 4096
+        d = rng.normal(size=(n, 3))
+        d = torch.tensor((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32),
+                         device=cuda)
+        tau = torch.tensor((-np.log1p(-rng.random(n))).astype(np.float32), device=cuda)
+        pk = traversal.make_packets(torch.full((n, 3), 15.95, device=cuda) + 1e-4 * d, d, tau,
+                                    torch.ones(n, device=cuda), (16, 16, 16))
+        root, children = (torch.tensor(a, device=cuda) for a in grid.octree())
+        chi = torch.full((grid.n_cells,), 0.05, device=cuda)
+        march = dict(coarse_shape=(16, 16, 16), max_level=10)
+    elif max_level == 0:
+        grid = amr.build_amr_grid(GridGeometry((0.0,) * 3, (1.0,) * 3, (16, 16, 16)), None,
+                                  lambda p: np.ones(len(p)), max_level=0)
+        root, children, chi, pk, march = _octree_inputs(grid, 11, 30_000, cuda)
+    else:
+        grid = _octree_grid(max_level=max_level, zone=1.0 / 16 if max_level == 5 else 0.25)
+        root, children, chi, pk, march = _octree_inputs(grid, 12, 30_000, cuda)
+    (tally_k, out_k), (tally_r, out_r) = _k5_and_plain(root, children, chi, pk, march)
+    _compare_octree_marches(out_k, out_r, tally_k, tally_r, pk.size)
+    assert int(out_r.absorbed.sum()) > 0
+
+
 # -- K8, K8p: the dust peel-off ------------------------------------------------
 
 
@@ -2095,6 +2236,80 @@ def test_gather2d_launch_path_in_a_cuda_graph(cuda, case):
         torch.cuda.synchronize()
         assert torch.equal(out, tab[rows.long(), lanes.long()])
     assert kernels.LAUNCHES["gather2d"] == 1  # a replay calls no wrapper
+
+
+@pytest.mark.parametrize("n", [0, 1, 8192, 2**20 + 3])
+def test_gather_launch_path_equals_indexing(cuda, n):
+    # K11 on kernels/launch.py: one launch a call, tbl[idx]'s bits with the
+    # table's first and last entries among the indices, an empty index too
+    from cmacionize_torch.kernels import gather
+
+    rng = np.random.default_rng(n + 5)
+    tbl = torch.tensor(rng.normal(size=64**3).astype(np.float32), device=cuda)
+    idx = rng.integers(0, 64**3, n).astype(np.int32)
+    if n:
+        idx[0], idx[-1] = 64**3 - 1, 0
+    idx = torch.tensor(idx, device=cuda)
+    kernels.LAUNCHES.clear()
+    out = gather.gather(tbl, idx)
+    assert kernels.LAUNCHES["gather"] == 1
+    assert out.shape == (n,) and out.dtype == torch.float32 and out.is_contiguous()
+    assert torch.equal(out.view(torch.int32), tbl[idx.long()].view(torch.int32))
+
+
+def test_gather_launch_path_on_a_side_stream_and_in_a_cuda_graph(cuda):
+    from cmacionize_torch.kernels import gather
+
+    rng = np.random.default_rng(19)
+    tbl = torch.tensor(rng.normal(size=64**3).astype(np.float32), device=cuda)
+    idx = torch.tensor(rng.integers(0, 64**3, 2**20).astype(np.int32), device=cuda)
+    ref = tbl[idx.long()].cpu()
+    big = torch.randn((4096, 4096), device=cuda)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(8):
+        big = big @ big / 64.0
+    with torch.cuda.stream(side):
+        host = gather.gather(tbl, idx).cpu()
+    assert torch.equal(host, ref)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gather.gather(tbl, idx)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    kernels.LAUNCHES.clear()
+    with torch.cuda.graph(graph):
+        out = gather.gather(tbl, idx)
+    for _ in range(2):  # new inputs in the captured tensors, then a replay
+        tbl.copy_(torch.tensor(rng.normal(size=64**3).astype(np.float32)))
+        idx.copy_(torch.tensor(rng.integers(0, 64**3, 2**20).astype(np.int32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, tbl[idx.long()])
+    assert kernels.LAUNCHES["gather"] == 1  # a replay calls no wrapper
+
+
+def test_gather_refuses_what_the_kernel_does_not_take(cuda):
+    from cmacionize_torch.kernels import gather
+
+    tbl = torch.zeros(64**3, device=cuda)
+    idx = torch.zeros(1000, dtype=torch.int32, device=cuda)
+    kernels.LAUNCHES.clear()
+    for args, message in (((tbl.double(), idx), "tbl must be a 1D"),
+                          ((tbl.reshape(64, -1), idx), "tbl must be a 1D"),
+                          ((tbl, idx.long()), "idx must be a 1D torch.int32"),
+                          ((tbl, idx.reshape(10, -1)), "idx must be a 1D torch.int32"),
+                          ((tbl, idx.cpu()), "idx must be a 1D torch.int32 tensor on cuda"),
+                          ((tbl[::2], idx), "tbl must be contiguous"),
+                          ((tbl, idx[::2]), "idx must be contiguous")):
+        with pytest.raises(ValueError, match=f"gather: {message}"):
+            gather.gather(*args)
+    huge = torch.empty(2**31, dtype=torch.int32, device=cuda)  # never read
+    with pytest.raises(ValueError, match="gather: sizes must fit int32"):
+        gather.gather(tbl, huge)
+    assert kernels.LAUNCHES["gather"] == 0
+    with pytest.raises(TypeError):  # typed once: three pointers, one int and the stream
+        gather._GATHER(tbl.get_device(), 1, 2)
 
 
 def test_fill_first_launch_path(cuda):

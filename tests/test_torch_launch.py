@@ -1,4 +1,4 @@
-"""The launch path of K11r, K12s, K12t, K12r, K13f and K14c
+"""The launch path of K11, K11r, K12s, K12t, K12r, K13f and K14c
 (``cmacionize_torch/kernels/launch.py``) on the CPU.
 
 The CPU has no card and no ``nvcc``, so what is held here is what a wrapper
@@ -630,17 +630,122 @@ def test_gather2d_and_fill_first_run_the_plain_version_on_cpu_tensors():
     assert gather._GATHER2D.function is None and probe_deposit._FILL_FIRST.function is None
 
 
+# -- K11 ---------------------------------------------------------------------------------------
+
+
+def test_k11_launcher_is_found_and_binds_nothing_at_import():
+    # the signature test above holds every Launcher it finds against its
+    # source (three pointers, the count and the stream); importing the
+    # wrapper and the microbenchmark builds and binds nothing
+    assert "cmacionize_torch.kernels.gather._GATHER" in _launchers()
+    assert (gather._GATHER.library, gather._GATHER.symbol) == ("gather", "cmi_gather")
+    assert gather._GATHER.argtypes == [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    code = (
+        "from cmacionize_torch.kernels import build, gather\n"
+        "from cmacionize_torch.tools import launch_cost, microbench_scatter\n"
+        "assert not build._LIBRARIES\n"
+        "assert gather._GATHER.function is None\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent"}  # no nvcc
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=build.CSRC_DIR.parent.parent, check=False)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _gather_args(n=1000):
+    return torch.zeros(64**3), torch.zeros(n, dtype=I32)
+
+
+K11_WRONG = {
+    "tbl dtype": (lambda tbl, idx: (tbl.double(), idx),
+                  "tbl must be a 1D torch.float32 tensor on cpu; got 1D torch.float64 on cpu"),
+    "tbl dim": (lambda tbl, idx: (tbl.reshape(64, -1), idx),
+                "tbl must be a 1D torch.float32 tensor on cpu; got 2D torch.float32 on cpu"),
+    "tbl contiguity": (lambda tbl, idx: (tbl[::2], idx), "tbl must be contiguous"),
+    "idx dtype": (lambda tbl, idx: (tbl, idx.long()),
+                  "idx must be a 1D torch.int32 tensor on cpu; got 1D torch.int64 on cpu"),
+    "idx dim": (lambda tbl, idx: (tbl, idx.reshape(10, -1)),
+                "idx must be a 1D torch.int32 tensor on cpu; got 2D torch.int32 on cpu"),
+    "idx contiguity": (lambda tbl, idx: (tbl, idx[::2]), "idx must be contiguous"),
+    "idx device": (lambda tbl, idx: (tbl, idx.to("meta")),
+                   "idx must be a 1D torch.int32 tensor on cpu; got 1D torch.int32 on meta"),
+}
+
+
+@pytest.mark.parametrize("which", sorted(K11_WRONG))
+def test_check_gather_names_each_wrong_argument(monkeypatch, which):
+    # the CPU stands in for the card's device, as for K11r: check_pair passes
+    # where both tensors would pass on one card, and names the first wrong
+    # one otherwise
+    make, message = K11_WRONG[which]
+    tbl, idx = make(*_gather_args())
+
+    def on_cpu(label, a_name, a, a_dtype, a_dim, b_name, b, b_dtype, b_dim):
+        if (a.dtype is a_dtype and b.dtype is b_dtype and a.ndim == a_dim and b.ndim == b_dim
+                and a.device == b.device and a.is_contiguous() and b.is_contiguous()):
+            return 0
+        raise ValueError(launch._first_wrong(label, a.device, (
+            (a_name, a, a_dtype, a_dim), (b_name, b, b_dtype, b_dim))))
+
+    monkeypatch.setattr(gather, "check_pair", on_cpu)
+    with pytest.raises(ValueError, match=f"gather: {message}"):
+        gather.check_gather(tbl, idx)
+    assert gather.check_gather(*_gather_args()) == (0, 1000)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_check_gather_refuses_tensors_off_the_card(device):
+    tbl, idx = (t.to(device) for t in _gather_args())
+    with pytest.raises(ValueError, match=r"gather: tbl must be a 1D torch.float32 tensor on a "
+                                         rf"CUDA device; got 1D torch.float32 on {device}"):
+        gather.check_gather(tbl, idx)
+    if device == "meta":  # the wrapper runs the plain version on the CPU only
+        with pytest.raises(ValueError, match="gather: tbl must be .* on a CUDA device"):
+            gather.gather(tbl, idx)
+
+
+@pytest.mark.parametrize("sizes", [(2**31, 8), (64**3, 2**31), (2**31 + 5, 2**31 + 5)])
+def test_check_gather_refuses_sizes_past_int32(monkeypatch, sizes):
+    monkeypatch.setattr(gather, "check_pair", lambda *args: 0)
+    tbl = torch.empty(sizes[0], device="meta")
+    idx = torch.empty(sizes[1], dtype=I32, device="meta")
+    with pytest.raises(ValueError, match="gather: sizes must fit int32"):
+        gather.check_gather(tbl, idx)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2**20, 2**31 - 1])
+def test_check_gather_gives_the_launch_sizes(monkeypatch, n):
+    monkeypatch.setattr(gather, "check_pair", lambda *args: 2)
+    tbl = torch.empty(64**3, device="meta")
+    idx = torch.empty(n, dtype=I32, device="meta")
+    assert gather.check_gather(tbl, idx) == (2, n)
+
+
+def test_gather_runs_the_plain_version_on_cpu_tensors():
+    rng = np.random.default_rng(7)
+    table = rng.normal(size=64**3).astype(np.float32)
+    idx = rng.integers(0, 64**3, 4099).astype(np.int32)
+    idx[:2] = (0, 64**3 - 1)  # the table's first and last entries
+    kernels.LAUNCHES.clear()
+    out = gather.gather(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(out.numpy().view(np.int32), table[idx].view(np.int32))
+    empty = gather.gather(torch.from_numpy(table), torch.zeros(0, dtype=I32))
+    assert empty.shape == (0,) and empty.dtype == F32
+    assert kernels.LAUNCHES["gather"] == 0 and gather._GATHER.function is None
+
+
 # -- tools/launch_cost.py: what it times, on the CPU ----------------------------------------------
 
 
-@pytest.mark.parametrize("label", ["K11r", "K12s", "K12t", "K12r", "K12a", "K13f", "K14c"])
+@pytest.mark.parametrize("label", ["K11", "K11r", "K12s", "K12t", "K12r", "K12a", "K13f",
+                                   "K14c"])
 def test_launch_cost_library_calls_compute_the_wrappers_functions(label):
     # the one PyTorch call timed beside each wrapper computes its function
     # (K14c's pk.clone() moves the same bytes: every row but row 2); on CPU
     # tensors the wrappers run their plain versions and launch nothing
     from cmacionize_torch.tools import launch_cost
 
-    n = {"K11r": 1027, "K12s": 1024, "K12t": 256, "K12r": 512, "K12a": 1024, "K13f": 1024,
+    n = {"K11": 1029, "K11r": 1027, "K12s": 1024, "K12t": 256, "K12r": 512, "K12a": 1024, "K13f": 1024,
          "K14c": 5}[label]
     args = launch_cost.seeded_inputs(label, n, "cpu", np.random.default_rng(len(label) + n))
     wrapper = launch_cost.KERNELS[label][0]
@@ -685,6 +790,14 @@ def test_launch_cost_bounds_count_each_byte_once():
     assert launch_cost.bound_ms("K11r", args) == pytest.approx(
         (12 * n + 4 * 2048 * 128) / 3.35e12 * 1e3)
     assert launch_cost.bound_ms("K11r", args) == pytest.approx(0.004069, abs=5e-7)
+    # K11 at the microbenchmark's 2^20 indices into 64^3: 4 bytes of index in
+    # and 4 out a lookup, and every sector of the 1 MB table (0.002817 ms)
+    tbl, idx = launch_cost.microbench_inputs("cpu")
+    assert idx.dtype == torch.int32 and idx.shape == (1 << 20,) and tbl.shape == (64**3,)
+    assert launch_cost.bound_ms("K11", (tbl, idx)) == pytest.approx(
+        (8 * 2**20 + 4 * 64**3) / 3.35e12 * 1e3)
+    assert launch_cost.bound_ms("K11", (tbl, idx)) == pytest.approx(0.002817, abs=5e-7)
+    assert launch_cost.LARGER["K11"] is None
     # K13f: the one element it copies in, 128 out
     assert launch_cost.bound_ms("K13f", (torch.zeros((8, 128)),)) == pytest.approx(
         516 / 3.35e12 * 1e3)
@@ -694,10 +807,10 @@ def test_launch_cost_bounds_count_each_byte_once():
 def test_launch_cost_splits_each_path_on_its_kernels():
     from cmacionize_torch.tools import launch_cost
 
-    assert set(launch_cost.NEW_PATH) == {"K11r", "K12s", "K12t", "K12r", "K13f"}
+    assert set(launch_cost.NEW_PATH) == {"K11", "K11r", "K12s", "K12t", "K12r", "K13f"}
     assert launch_cost.OLD_PATH == "K12a" and launch_cost.OLD_PATH not in launch_cost.NEW_PATH
     assert set(launch_cost.KERNELS) == set(launch_cost.LIBRARY) == set(launch_cost.LARGER)
-    libraries = {"K11r": "gather", "K13f": "probe_deposit"}
+    libraries = {"K11": "gather", "K11r": "gather", "K13f": "probe_deposit"}
     for label, (launcher, _, _) in launch_cost.NEW_PATH.items():
         assert isinstance(launcher, launch.Launcher)
         assert launcher.library == libraries.get(label, "probe_gather")
