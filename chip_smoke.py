@@ -18,7 +18,9 @@ Phases (any failed check raises, so the script exits non-zero):
 3. kernel parity: K1 against its plain PyTorch version on the card, on the
    same inputs made with numpy from a fixed seed (a 64³ Strömgren-like
    opacity with an ionized cone; 2^17 packets from the centre, then the
-   main path's 1e6), both timed;
+   main path's 1e6): no flag or cell mismatch, identical positions and
+   tau_left, the tally against the plain march summed in f64; both timed,
+   with K1's registers and blocks per SM;
 4. main path: ``benchmarks/stromgren.param`` at full size (64³ cells, 1e6
    packets, 20 iterations) through ParameterFile → HOnlyConfig.from_params →
    HOnlyIonizationSimulation(config, device="cuda").run(), timed, with K1's
@@ -35,16 +37,18 @@ Phases (any failed check raises, so the script exits non-zero):
    RHDSimulation.from_params(..., device="cuda").run(snapshot_callback=...),
    timed, with the K1 and K3 launch counts, conservation, the ionization
    state and the front radius R(t) at the ten outputs against the Spitzer /
-   Hosokawa-Inutsuka band and the JAX package's trajectory; then K1 alone in
-   this (opaque) regime;
+   Hosokawa-Inutsuka band and the JAX package's trajectory; then K1 against
+   its plain version in this (opaque) regime, on the final state and a
+   fresh batch (as in phase 3), and 16 more steps under torch.profiler;
 8. build: K2, K4 (with K4f), K6, K6s, K7, K5 (with K5d), K5s, K8, K8p, K9,
    K10, K11, K12, K13 and K14 (``cmacionize_torch/csrc/{trace_packets_spectral,
    temperature,trace_voronoi,trace_voronoi_spectral,voronoi_flux,
    trace_octree,trace_octree_spectral,peel_off,peel_off_polarized,compact,
    trace_packets_cone,gather,probe_gather,probe_deposit,probe_cohort}.cu``),
    their seconds and ``ptxas -v`` reports;
-9. K2 parity: the spectral march against its plain PyTorch version on the
-   card, on a 64³ lexington-like state made with numpy from a fixed seed
+9. K2 parity (once the AMR grids of phase 21 have arrived from their worker,
+   so that their transfer does not load the host during the timed phases):
+   the spectral march against its plain PyTorch version on the card, on a 64³ lexington-like state made with numpy from a fixed seed
    (χ_H, χ_He, 1e6 packets from the centre in Planck-sampled bins): flags,
    positions, the binned tally and the ion integrals (also against an f64
    product), both timed;
@@ -81,7 +85,9 @@ Phases (any failed check raises, so the script exits non-zero):
 15. K6 parity on that grid: the face-plane march against its plain version
     on the card (an ionized sphere of 0.5 pc in the 3.113e9 m⁻³ gas with an
     escape cone, 5e5 packets from the source, made with numpy from the
-    seed): flag mismatches, positions, tally; both timed;
+    seed): no flag or cell mismatch, identical positions and tau_left, the
+    tally against the plain march summed in f64; both timed, with K6's
+    registers and blocks per SM;
 16. main path: HOnlyVoronoiSimulation on the same grid (starbench_voronoi's
     gas, source and microphysics, 5e5 packets × 20 iterations), the ionized
     volume against the Strömgren volume;
@@ -94,9 +100,9 @@ Phases (any failed check raises, so the script exits non-zero):
     timed, with the K6 and K7 launch counts, the front radius at ten outputs
     against Spitzer / Hosokawa-Inutsuka, the band of
     run_starbench_voronoi.py:83-85 and the mass drift; then 16 more steps
-    under torch.profiler (device time by kernel, idle share), and K6 against
-    its plain version on the last march of one more step (the final χ, long
-    marches): flags, positions, tally; both timed;
+    under torch.profiler (device time by kernel, launches and mean time a
+    launch, idle share), and K6 against its plain version on the last march
+    of one more step (the final χ, long marches), as in phase 15;
 19. main path: MultiFreqVoronoiSimulation (tests/test_multifreq_grids.py's
     configuration at 12000 generators, 1 Lloyd iteration, cut from a
     64³-equivalent grid; 1e6 packets × 10 iterations, 64 bins, 4 re-emission
@@ -273,6 +279,8 @@ from cmacionize_torch.kernels import probe_cohort as probe_cohort_ops
 from cmacionize_torch.kernels import probe_deposit as probe_deposit_ops
 from cmacionize_torch.kernels import probe_gather
 from cmacionize_torch.kernels import trace_octree as trace_octree_ops
+from cmacionize_torch.kernels import trace_packets as trace_packets_ops
+from cmacionize_torch.kernels import trace_voronoi as trace_voronoi_ops
 from cmacionize_torch.kernels.peel_off import peel_off_cuda
 from cmacionize_torch.kernels.peel_off_polarized import peel_off_polarized_cuda
 from cmacionize_torch import constants
@@ -478,10 +486,12 @@ MAX_VORONOI_POSITION_DIFF = 1e-5  # box units, where the flags agree
 MAX_VORONOI_HYDRO_REL_ERR = 1e-5
 
 PARITY_SEED = 1234
-# Tolerances of K1 against the plain version.  Both run the same IEEE f32
-# operations per packet (K1 is built with --fmad=false), so flags and
-# positions should match; the tally differs only by the order in which
-# atomics add, i.e. at f32 round-off.
+# Tolerances of the marches against their plain versions.  Both run the same
+# IEEE f32 operations per packet (the kernels are built with --fmad=false), so
+# flags and positions should match (K1 and K6 are held to identical states);
+# the tally differs only by the order in which the deposits add, i.e. at f32
+# round-off, and is held to the plain march summed in f64 where a kernel sums
+# runs or windows of deposits first (K1, K5, K6).
 MAX_FLAG_MISMATCH_FRACTION = 1e-5
 MAX_POSITION_DIFF = 5e-4  # cells
 MAX_TALLY_REL_L1 = 1e-4
@@ -704,16 +714,22 @@ def roofline(label: str, n_bytes: float, n_ops: float, ops_per_s: float) -> dict
     return {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def kernel_parity(config: HOnlyConfig, device, n_packets: int) -> dict:
-    shape = config.geometry.shape
-    chi, packets = parity_inputs(config, n_packets, device)
+def k1_parity(chi, packets, shape, label: str, escapes: bool = True) -> dict:
+    """K1 against trace_packets_reference on the card: no flag or cell
+    mismatch, identical positions and tau_left; the tally against the plain
+    version's and, as octree_parity holds K5, K1's and the plain f32 tally
+    against the plain march summed in f64 (K1's checked at MAX_TALLY_REL_L1:
+    the plain f32 tally carries its own atomic bias).  The input must have
+    absorbed packets, and escaping ones where ``escapes`` (the opaque
+    starbench regime absorbs all).  Both timed, with K1's registers and
+    blocks per SM and its bound from the plain march's steps."""
     zeros = torch.zeros_like(chi)
-
     tally_k, out_k = traversal.trace_packets(chi, packets, zeros.clone(), shape=shape)
     stats = {}
     tally_r, out_r = traversal.trace_packets_reference(
         chi, packets, zeros.clone(), shape=shape, stats=stats
     )
+    tally_64 = traversal.trace_packets_reference(chi, packets, zeros.double(), shape=shape)[0]
     torch.cuda.synchronize()
 
     n = packets.size
@@ -727,26 +743,31 @@ def kernel_parity(config: HOnlyConfig, device, n_packets: int) -> dict:
         float((getattr(out_k, f) - getattr(out_r, f)).abs().max())
         for f in ("px", "py", "pz")
     )
+    same_state = all(same_bits(getattr(out_k, f), getattr(out_r, f))
+                     for f in ("px", "py", "pz", "tau_left"))
     tally_abs = (tally_k - tally_r).abs()
     tally_rel_l1 = float(tally_abs.sum() / tally_r.abs().sum())
+    rel_64 = [float((t.double() - tally_64).abs().sum() / tally_64.abs().sum())
+              for t in (tally_k, tally_r)]
     n_absorbed = int(out_r.absorbed.sum())
     log(
-        f"parity: {n} packets, {n_absorbed} absorbed / {n - n_absorbed} escaped "
+        f"K1 parity ({label}): {n} packets, {n_absorbed} absorbed / {n - n_absorbed} escaped "
         f"(plain); absorbed/active flag mismatches {flag_mismatch}, cell "
-        f"mismatches {cell_mismatch}, max |position diff| {pos_diff:.3e} cells, "
-        f"tally rel L1 {tally_rel_l1:.3e}, max |tally diff| "
-        f"{float(tally_abs.max()):.3e}"
+        f"mismatches {cell_mismatch}, max |position diff| {pos_diff:.3e} cells, positions "
+        f"and tau_left identical: {same_state}; tally rel L1 {tally_rel_l1:.3e}, max |tally "
+        f"diff| {float(tally_abs.max()):.3e}; against the plain march summed in f64: K1 "
+        f"{rel_64[0]:.3e}, the plain version in f32 {rel_64[1]:.3e}"
     )
-    check(0 < n_absorbed < n, "parity input has both absorbed and escaping packets")
-    check(
-        flag_mismatch <= MAX_FLAG_MISMATCH_FRACTION * n,
-        f"flag mismatches {flag_mismatch} > {MAX_FLAG_MISMATCH_FRACTION} of {n}",
-    )
-    check(pos_diff <= MAX_POSITION_DIFF, f"position diff {pos_diff} > {MAX_POSITION_DIFF}")
+    check(0 < n_absorbed and (n_absorbed < n or not escapes),
+          "parity input has both absorbed and escaping packets")
+    check(flag_mismatch == 0 and cell_mismatch == 0,
+          f"K1 flag mismatches {flag_mismatch}, cell mismatches {cell_mismatch}")
+    check(same_state, "K1's positions and tau_left equal the plain version's")
     check(
         tally_rel_l1 <= MAX_TALLY_REL_L1,
         f"tally rel L1 {tally_rel_l1} > {MAX_TALLY_REL_L1}",
     )
+    check(rel_64[0] <= MAX_TALLY_REL_L1, f"K1's tally rel L1 against f64 {rel_64[0]}")
 
     scratch = zeros.clone()
     ms = time_cuda(
@@ -755,15 +776,17 @@ def kernel_parity(config: HOnlyConfig, device, n_packets: int) -> dict:
     plain_ms = time_cuda(
         lambda: traversal.trace_packets_reference(chi, packets, scratch, shape=shape), 3
     )
+    lanes = trace_packets_ops.occupancy(chi.device)
     log(
-        f"timing at {shape[0]}^3 / {n} packets: K1 {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms per march (CUDA events, incl. the packet-state copy)"
+        f"timing K1 ({label}, {shape}): K1 {ms:.4f} ms, plain {plain_ms:.4f} ms per march "
+        f"(CUDA events, incl. the packet-state copy); K1 "
+        f"{lanes['registers']} registers, {lanes['blocks_per_sm']} blocks of 256 per SM"
     )
     ncell = chi.numel()
     steps = int(stats["packet_steps"])
     # chi read, tally read and written; packets: 11 f32/i32 + 2 flags in,
     # 7 + 2 out
-    bound = roofline(f"K1 ({steps} packet steps)", 12 * ncell + 76 * n,
+    bound = roofline(f"K1 ({label}; {steps} packet steps)", 12 * ncell + 76 * n,
                      OPS_PER_K1_STEP * steps, F32_OPS_PER_S)
     return {
         "max_abs_err": float(tally_abs.max()),
@@ -1020,16 +1043,14 @@ def starbench_main_path(device) -> dict:
     packets = traversal.make_packets(
         torch.stack([px, py, pz], 1), torch.stack([dx, dy, dz], 1), tau, weight,
         sim.geometry.shape)
-    scratch = torch.zeros_like(chi)
-    shape = sim.geometry.shape
-    k1_ms = time_cuda(lambda: traversal.trace_packets(chi, packets, scratch, shape=shape), 20)
-    k1_plain_ms = time_cuda(
-        lambda: traversal.trace_packets_reference(chi, packets, scratch, shape=shape), 3)
-    log(
-        f"timing K1 in the starbench regime (final state, {shape}, {cfg.n_photons} packets): "
-        f"K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms per march (CUDA events)"
-    )
-    return launches, outputs
+    regime = k1_parity(chi, packets, sim.geometry.shape,
+                       f"the starbench regime: the final state, {cfg.n_photons} fresh packets",
+                       escapes=False)
+    del chi, packets
+    profile_window(f"{PROFILED_STEPS} starbench steps at t = {sim.time / MYR:.4f} Myr",
+                   lambda: sim.advance(PROFILED_STEPS, log_every=PROFILED_STEPS + 1),
+                   {"K1": ("trace_packets_kernel",), "K3": ("muscl_",)})
+    return launches, outputs, regime
 
 
 # ------------------------------------------------------------- K2 and K4
@@ -1536,35 +1557,61 @@ def voronoi_march_parity(grid, device) -> dict:
 
 def march_parity(grid, tables, chi_si, packets, label: str) -> dict:
     """K6 against trace_packets_voronoi_reference on the card, on ``chi_si``
-    and ``packets``: flags, positions, tally; both timed, with the bound of
-    the packet steps and real faces the plain march took."""
+    and ``packets``: no flag or cell mismatch, identical positions and
+    tau_left; the tally against the plain version's and, as octree_parity
+    holds K5, K6's and the plain f32 tally against the plain march summed in
+    f64 (K6's checked at MAX_TALLY_REL_L1).  Both timed, with K6's registers
+    and blocks per SM and the bound of the packet steps and real faces the
+    plain march took."""
     C = grid.n_cells
     march = dict(eps=voronoi.march_eps(C), max_steps=voronoi.default_max_steps(C))
+    chi_u = chi_si * grid.scale
     tally_k, out_k = voronoi.trace_packets_voronoi(grid, chi_si, packets, tables=tables)
     stats = {}
     tally_r, out_r = voronoi.trace_packets_voronoi_reference(
-        tables, chi_si * grid.scale, packets, torch.zeros(C, device=chi_si.device),
-        stats=stats, **march)
+        tables, chi_u, packets, torch.zeros(C, device=chi_si.device), stats=stats, **march)
+    tally_64 = voronoi.trace_packets_voronoi_reference(
+        tables, chi_u, packets, torch.zeros(C, dtype=torch.float64, device=chi_si.device),
+        **march)[0] * grid.scale
     torch.cuda.synchronize()
     max_err = compare_voronoi_marches(
         f"K6 parity (starbench_voronoi grid, {label})", out_k, out_r, tally_k,
         tally_r * grid.scale)
+    cell_mismatch = int((out_k.cell != out_r.cell).sum())
+    same_state = all(same_bits(getattr(out_k, f), getattr(out_r, f))
+                     for f in ("pos", "tau_left", "active", "absorbed"))
+    rel_64 = [float((t.double() - tally_64).abs().sum() / tally_64.abs().sum())
+              for t in (tally_k, tally_r * grid.scale)]
+    # the cells this run's packets crossed: those the plain march deposited in
+    visited = tally_64 != 0
+    n_visited = int(visited.sum())
+    visited_faces = int(tables.face_count[visited].sum())
+    log(f"  K6 flags, positions and tau_left identical: {same_state}; tally rel L1 against "
+        f"the plain march summed in f64: K6 {rel_64[0]:.3e}, the plain version in f32 "
+        f"{rel_64[1]:.3e}")
+    check(cell_mismatch == 0 and same_state,
+          f"K6 ({label}): {cell_mismatch} cell mismatches, identical state {same_state}")
+    check(rel_64[0] <= MAX_TALLY_REL_L1, f"K6's tally rel L1 against f64 {rel_64[0]}")
+    del tally_64
 
     n = packets.cell.numel()
     ms = time_cuda(lambda: voronoi.trace_packets_voronoi(grid, chi_si, packets, tables=tables), 20)
     plain_ms = time_cuda(lambda: voronoi.trace_packets_voronoi_reference(
-        tables, chi_si * grid.scale, packets, torch.zeros(C, device=chi_si.device),
-        **march), 1)
+        tables, chi_u, packets, torch.zeros(C, device=chi_si.device), **march), 1)
+    lanes = trace_voronoi_ops.occupancy(chi_si.device)
     log(f"timing K6 ({label}) on {C} cells / {n} packets: K6 {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms per march (CUDA events, incl. the packet-state copy and the "
-        f"tally's scaling)")
+        f"tally's scaling); K6 {lanes['registers']} registers, "
+        f"{lanes['blocks_per_sm']} blocks of 256 per SM")
     steps, faces = int(stats["packet_steps"]), int(stats["face_tests"])
-    K = grid.max_faces
-    # tables (nbr, normals, offsets, shifts) and chi read, the tally read and
+    # of each visited cell: its real faces' packed rows (16 B) and, since a
+    # packet may leave by any of them, their neighbours and shifts (16 B), its
+    # face count, chi and its tally read (padding is never read); the tally
     # written; packets in: pos, dirn, cell, tau, weight, 2 flags; out: pos,
     # cell, tau, 2 flags
-    bound = roofline(f"K6 ({label}; {steps} packet steps, {faces} real faces tested)",
-                     C * K * 32 + 12 * C + 60 * n,
+    bound = roofline(f"K6 ({label}; {steps} packet steps, {faces} real faces tested; "
+                     f"{n_visited} of {C} cells visited, {visited_faces} real faces)",
+                     32 * visited_faces + 12 * n_visited + 4 * C + 60 * n,
                      OPS_PER_VORONOI_FACE * faces + OPS_PER_K6_STEP * steps, F32_OPS_PER_S)
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **bound}
 
@@ -1740,7 +1787,8 @@ def clone_batch(packets):
 def profile_window(label: str, run, groups: dict) -> None:
     """Where the time of ``run()`` goes: device time by kernel
     (torch.profiler), summed over the kernel names of each of ``groups``,
-    against the host clock of the window."""
+    against the host clock of the window; with each group's launches and its
+    mean time a launch over the window (total kernel time / launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1761,12 +1809,16 @@ def profile_window(label: str, run, groups: dict) -> None:
         return
     shares = {name: sum(us for k, us in device_us.items() if any(n in k for n in names)) * 1e-6
               for name, names in groups.items()}
+    counts = {name: sum(e.count for e in averages if any(n in e.key for n in names))
+              for name, names in groups.items()}
     rest = busy - sum(shares.values())
     n_kernels = sum(e.count for e in averages)
     log(f"profile of {label} (torch.profiler, the same process): host clock {wall:.4f} s, "
         f"device busy {busy:.4f} s ({busy / wall:.4f} of the window; idle "
         f"{1 - busy / wall:.4f}); "
-        + ", ".join(f"{name} {t:.4f} s ({t / busy:.4f} of busy)" for name, t in shares.items())
+        + ", ".join(f"{name} {t:.4f} s ({t / busy:.4f} of busy; {counts[name]} launches in "
+                    f"this window, {t / max(counts[name], 1) * 1e3:.4f} ms a launch in it)"
+                    for name, t in shares.items())
         + f", the rest {rest:.4f} s ({rest / busy:.4f}) in {n_kernels} kernel launches in all")
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
     log("  top device time: " + "; ".join(f"{k[:60]} {us * 1e-3:.3f} ms" for k, us in top))
@@ -3639,9 +3691,12 @@ def main() -> None:
             report_build("K1", builds["K1"])
 
             config = HOnlyConfig.from_params(ParameterFile(STROMGREN_PARAM))
-            small = kernel_parity(config, device, 2**17)
+            shape = config.geometry.shape
+            small = k1_parity(*parity_inputs(config, 2**17, device), shape,
+                              f"{shape[0]}^3 / {2**17} packets")
             # the shapes the main path gives K1: 64^3 cells, 1e6 packets
-            parity = kernel_parity(config, device, config.n_photons)
+            parity = k1_parity(*parity_inputs(config, config.n_photons, device), shape,
+                               f"{shape[0]}^3 / {config.n_photons} packets")
             launches, stromgren_volume = main_path(config)
 
             report_build("K3", builds["K3"])
@@ -3651,11 +3706,17 @@ def main() -> None:
                 star.timeline().current_timestep,  # the main path's dt
             )
             del star
-            star_launches, star_outputs = starbench_main_path(device)
+            star_launches, star_outputs, star_regime = starbench_main_path(device)
 
             for label in ("K2", "K4", "K6", "K6s", "K7", "K5", "K5s", "K8", "K8p", "K9",
                           "K10", "K11", "K12", "K13", "K14"):
                 report_build(label, builds[label])
+        # the AMR grids (~1 GB) are unpickled in this process when they
+        # arrive: let them land before the timed phases that follow, which
+        # the faster phases 1-8 would otherwise meet
+        t_wait = time.perf_counter()
+        concurrent.futures.wait([grids["stromgren_amr"], grids["multi-frequency AMR"]])
+        log(f"waited {time.perf_counter() - t_wait:.2f} s for the AMR grids before phase 9")
         spectral_record = spectral_parity(device)
         multifreq_launches = [lexington_archived(device)]
         full_launches, solve_inputs, f64_state = lexington_full(device)
@@ -3732,7 +3793,8 @@ def main() -> None:
                launches + star_launches["trace_packets"] + dust_launches["trace_packets"]
                + pol_launches["trace_packets"] + sharded_launches["trace_packets"]
                + sbs_launches["trace_packets"] + cone_launches["trace_packets"],
-               {**parity, "max_abs_err": max(small["max_abs_err"], parity["max_abs_err"])}),
+               {**parity, "max_abs_err": max(small["max_abs_err"], parity["max_abs_err"],
+                                             star_regime["max_abs_err"])}),
         kernel("trace_packets_spectral", "trace_packets_spectral.cu",
                "cmacionize_tpu/ops/traversal.py:503",
                sum(run.get("trace_packets_spectral", 0) for run in multifreq_launches),

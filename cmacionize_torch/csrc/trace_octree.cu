@@ -44,36 +44,18 @@
 //   tables; a lane reads and writes its packet's state in the packet's own
 //   slot, order[k];
 // - warp deposits: each run of consecutive lanes whose step ends in one leaf
-//   sums its deposits in five shuffles and adds them with one atomicAdd.
+//   sums its deposits in five shuffles and adds them with one atomicAdd
+//   (warp_deposit.cuh, shared with K6).
 
+#include "occupancy.cuh"
 #include "octree_march.cuh"
+#include "warp_deposit.cuh"
 
 namespace {
 
 using namespace cmi_octree;
 
-constexpr unsigned kAll = 0xffffffffu;
-
-// tally[id] += dep for every lane of the warp (all 32 call it; a lane with
-// no packet passes id -1): each run of consecutive lanes with one id adds the
-// sum of its deposits once, a segmented suffix sum in five shuffles, which
-// the run's first lane holds at the end.
-__device__ __forceinline__ void deposit(float* __restrict__ tally, int id,
-                                        float dep, unsigned lane) {
-  const int prev = __shfl_up_sync(kAll, id, 1);
-  const bool head = lane == 0u || prev != id;
-  // the first lane of the next run (2u << 31 wraps to 0, so the mask of the
-  // lanes at or below this one holds for lane 31 too)
-  const unsigned later_heads = __ballot_sync(kAll, head) & ~((2u << lane) - 1u);
-  const int run_end = later_heads != 0u ? __ffs(later_heads) - 1 : 32;
-  float sum = dep;  // after the loop: the sum over lanes [lane, run_end)
-#pragma unroll
-  for (int offset = 1; offset < 32; offset *= 2) {
-    const float other = __shfl_down_sync(kAll, sum, offset);
-    if (static_cast<int>(lane) + offset < run_end) sum += other;
-  }
-  if (head && id >= 0) atomicAdd(tally + id, sum);
-}
+using cmi_warp::kAll;
 
 __global__ void __launch_bounds__(kThreads) trace_octree_kernel(
     const int* __restrict__ root, const int* __restrict__ children,
@@ -135,7 +117,7 @@ __global__ void __launch_bounds__(kThreads) trace_octree_kernel(
         active = false;  // this lane is done; the flag written is the packet's
       }
     }
-    deposit(tally, id, dep, lane);
+    cmi_warp::run_deposit(tally, id, dep, lane);
   }
 }
 
@@ -181,19 +163,8 @@ extern "C" int cmi_trace_octree(const int* root, const int* children,
 // success).
 extern "C" int cmi_trace_octree_occupancy(int* registers, int* blocks_per_sm,
                                           int* sms) {
-  cudaFuncAttributes attributes;
-  int device = 0;
-  cudaError_t err = cudaFuncGetAttributes(&attributes, trace_octree_kernel);
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, trace_octree_kernel, kThreads, 0);
-  }
-  *registers = attributes.numRegs;
-  return static_cast<int>(err);
+  return cmi_occupancy::query(trace_octree_kernel, kThreads, registers,
+                              blocks_per_sm, sms);
 }
 
 // Launches K5d on `stream`; returns cudaGetLastError() (0 on success).

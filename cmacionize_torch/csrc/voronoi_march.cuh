@@ -66,6 +66,37 @@ __device__ __forceinline__ int exit_face(const int* __restrict__ nbr,
   return best_k;
 }
 
+// The exit face of `row` from its packed faces (normal and offset as one
+// float4; K6 reads these, K6s the three rows above): exit_face over the
+// row's first `count` faces with the same operations, so the same face and
+// distance bits.  A face with a zero normal gets n.d = 0 and t = +inf, as
+// padding does there.
+__device__ __forceinline__ int exit_face_packed(const float4* __restrict__ faces,
+                                                int count, int64_t row, int K,
+                                                float px, float py, float pz,
+                                                float dx, float dy, float dz,
+                                                float* t_exit) {
+  const float inf = __int_as_float(0x7f800000);
+  float best = inf;
+  int best_k = 0;
+  const float4* f = faces + row * K;
+  for (int k = 0; k < count; ++k) {
+    const float4 face = __ldg(f + k);
+    const float ndotd = dot3(face.x, face.y, face.z, dx, dy, dz);
+    const float ndotp = dot3(face.x, face.y, face.z, px, py, pz);
+    float t = inf;
+    if (ndotd > kEpsDir) {
+      t = max_nan(face.w - ndotp, 0.0f) / max_nan(ndotd, kEpsDir);
+    }
+    if (t < best || (t != t && best == best)) {
+      best = t;
+      best_k = k;
+    }
+  }
+  *t_exit = best;
+  return best_k;
+}
+
 // One step of the march for a packet that is still active, given its
 // opacity chi (floored here) in the current cell: returns the path length
 // to deposit and updates position, cell, tau_left and the flags.

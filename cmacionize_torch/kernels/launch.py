@@ -28,7 +28,8 @@ a wrong device, dtype, dimension count, shape, contiguity or int32 overflow;
 launch counted in ``kernels.LAUNCHES`` by the wrapper.  There is no fallback:
 a library that cannot be built, or a launch that fails, raises.
 
-Used by K11 and K11r (``kernels/gather.py``), K12s, K12t and K12r
+Used by K1 (``kernels/trace_packets.py``), K6 (``kernels/trace_voronoi.py``),
+K11 and K11r (``kernels/gather.py``), K12s, K12t and K12r
 (``kernels/probe_gather.py``), K13f (``kernels/probe_deposit.py``) and K14c
 (``kernels/probe_cohort.py``); every other kernel keeps its own launch code.
 """
@@ -50,18 +51,20 @@ current_device = getattr(torch._C, "_cuda_getDevice", None)
 
 class Launcher:
     """The ``extern "C"`` launcher ``symbol`` of ``csrc/<library>.cu``, which
-    takes ``n_pointers`` pointers, ``n_ints`` ints and the stream and returns
-    ``cudaGetLastError()``: ``launcher(index, *pointers_and_ints)`` launches
-    on PyTorch's current stream of CUDA device ``index``, with that device
-    current, and raises RuntimeError if the launch fails.  The library is
-    built (on first use), loaded and typed at the first call."""
+    takes ``n_pointers`` pointers, ``n_ints`` ints, ``n_floats`` floats and
+    the stream and returns ``cudaGetLastError()``: ``launcher(index,
+    *pointers_ints_and_floats)`` launches on PyTorch's current stream of CUDA
+    device ``index``, with that device current, and raises RuntimeError if
+    the launch fails.  The library is built (on first use), loaded and typed
+    at the first call."""
 
     __slots__ = ("library", "symbol", "argtypes", "function")
 
-    def __init__(self, library: str, symbol: str, n_pointers: int, n_ints: int):
+    def __init__(self, library: str, symbol: str, n_pointers: int, n_ints: int,
+                 n_floats: int = 0):
         self.library, self.symbol = library, symbol
         self.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
-                         + [ctypes.c_void_p])
+                         + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         self.function = None
 
     def bind(self):
@@ -123,3 +126,19 @@ def _first_wrong(label: str, device, tensors) -> str:
         if not t.is_contiguous():
             return f"{label}: {name} must be contiguous"
     return f"{label}: the arguments must lie on one CUDA device"
+
+
+def kernel_occupancy(library: str, symbol: str, device) -> dict:
+    """Registers per thread and blocks resident per SM of a kernel, and the
+    SM count of CUDA ``device``, from the ``extern "C"`` query ``symbol`` of
+    ``csrc/<library>.cu`` (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; ``csrc/occupancy.cuh``)."""
+    fn = getattr(load_library(library), symbol)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    values = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = fn(*(ctypes.byref(v) for v in values))
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err}")
+    return dict(zip(("registers", "blocks_per_sm", "sms"), (v.value for v in values)))

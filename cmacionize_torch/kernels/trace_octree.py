@@ -22,6 +22,7 @@ import torch
 
 from cmacionize_torch.kernels import LAUNCHES
 from cmacionize_torch.kernels.build import load_library
+from cmacionize_torch.kernels.launch import kernel_occupancy
 
 NAME = "trace_octree"
 
@@ -74,17 +75,8 @@ def _launcher():
 
 def occupancy(device) -> dict:
     """Registers per thread and blocks of 256 resident per SM of K5, and the
-    SM count of CUDA ``device`` (``cudaFuncGetAttributes``,
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    fn = load_library(NAME).cmi_trace_octree_occupancy
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
-    fn.restype = ctypes.c_int
-    values = [ctypes.c_int(0) for _ in range(3)]
-    with torch.cuda.device(device):
-        err = fn(*(ctypes.byref(v) for v in values))
-    if err != 0:
-        raise RuntimeError(f"trace_octree occupancy: CUDA error {err}")
-    return dict(zip(("registers", "blocks_per_sm", "sms"), (v.value for v in values)))
+    SM count of CUDA ``device``."""
+    return kernel_occupancy(NAME, "cmi_trace_octree_occupancy", device)
 
 
 def direction_order(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:

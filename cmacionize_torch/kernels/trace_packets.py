@@ -1,34 +1,35 @@
 """Wrapper of K1, the CUDA packet march (``csrc/trace_packets.cu``).
 
 The wrapper checks what the kernel takes (one CUDA device, dtypes, lengths,
-contiguity), launches on PyTorch's current stream and raises if the launch
-was refused.  It allocates nothing: packet state is updated in place, and
-the caller (:func:`cmacionize_torch.ops.traversal.trace_packets`) hands in
-copies.
+contiguity, int32 sizes) and launches on PyTorch's current stream through
+:mod:`cmacionize_torch.kernels.launch`, which raises if the launch was
+refused.  It allocates nothing: packet state and the tally are updated in
+place, and the caller (:func:`cmacionize_torch.ops.traversal.trace_packets`)
+hands in copies of the packet state.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from cmacionize_torch.kernels import LAUNCHES
-from cmacionize_torch.kernels.build import load_library
+from cmacionize_torch.kernels.launch import Launcher, kernel_occupancy
 
 NAME = "trace_packets"
 
 _FLOAT_FIELDS = ("px", "py", "pz", "dx", "dy", "dz", "tau_left", "weight")
 _INT_FIELDS = ("cx", "cy", "cz")
 _BOOL_FIELDS = ("active", "absorbed")
+_POINTER_ORDER = ("opacity", "tally", "px", "py", "pz", "cx", "cy", "cz", "dx", "dy", "dz",
+                  "tau_left", "weight", "active", "absorbed")
+# then n, nx, ny, nz, the periodic mask and max_steps
+_TRACE_PACKETS = Launcher(NAME, "cmi_trace_packets", len(_POINTER_ORDER), 6)
 
 
-def _launcher():
-    fn = load_library(NAME).cmi_trace_packets
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def occupancy(device) -> dict:
+    """Registers per thread and blocks of 256 resident per SM of K1, and the
+    SM count of CUDA ``device``."""
+    return kernel_occupancy(NAME, "cmi_trace_packets_occupancy", device)
 
 
 def trace_packets_cuda(
@@ -64,16 +65,9 @@ def trace_packets_cuda(
             raise ValueError(f"trace_packets_cuda: {name} must be contiguous")
     if max(n, ncell) >= 2**31 or max_steps < 0:
         raise ValueError("trace_packets_cuda: sizes must fit int32")
+    if n == 0:  # no packet: no launch
+        return
     periodic_mask = sum(1 << axis for axis, p in enumerate(periodic) if p)
-
-    launch = _launcher()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    pointers = [arrays[name].data_ptr() for name in (
-        "opacity", "tally", "px", "py", "pz", "cx", "cy", "cz",
-        "dx", "dy", "dz", "tau_left", "weight", "active", "absorbed",
-    )]
-    with torch.cuda.device(device):
-        err = launch(*pointers, n, nx, ny, nz, periodic_mask, int(max_steps), stream)
-    if err != 0:
-        raise RuntimeError(f"trace_packets_cuda: CUDA error {err} at launch")
+    _TRACE_PACKETS(device.index, *(arrays[name].data_ptr() for name in _POINTER_ORDER),
+                   n, nx, ny, nz, periodic_mask, int(max_steps))
     LAUNCHES[NAME] += 1

@@ -2,25 +2,27 @@
 (``csrc/trace_voronoi.cu``).
 
 The wrapper checks what the kernel takes (one CUDA device, dtypes, lengths,
-contiguity), launches on PyTorch's current stream and raises if the launch
-was refused.  It allocates nothing: packet state and the tally are updated in
-place, and the caller (:func:`cmacionize_torch.models.voronoi.trace_packets_voronoi`)
-hands in copies of the packet state.
+contiguity, int32 sizes, the packed face rows of the tables) and launches on
+PyTorch's current stream through :mod:`cmacionize_torch.kernels.launch`,
+which raises if the launch was refused.  It allocates nothing: packet state
+and the tally are updated in place, and the caller
+(:func:`cmacionize_torch.models.voronoi.trace_packets_voronoi`) hands in
+copies of the packet state.  ``check_march_inputs`` is shared with K6s.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from cmacionize_torch.kernels import LAUNCHES
-from cmacionize_torch.kernels.build import load_library
+from cmacionize_torch.kernels.launch import Launcher, kernel_occupancy
 
 NAME = "trace_voronoi"
 
-_TABLE_POINTERS = ("neighbors", "normals", "offsets", "shifts")
-_PACKET_POINTERS = ("pos", "dirn", "cell", "tau_left", "weight", "active", "absorbed")
+_POINTER_ORDER = ("faces", "face_count", "neighbors", "shifts", "chi", "tally", "pos", "dirn",
+                  "cell", "tau_left", "weight", "active", "absorbed")
+# then n, C, K and max_steps, then eps
+_TRACE_VORONOI = Launcher(NAME, "cmi_trace_voronoi", len(_POINTER_ORDER), 4, 1)
 
 
 def check_march_inputs(name, tables, fields, arrays: dict) -> tuple:
@@ -62,15 +64,10 @@ def check_march_inputs(name, tables, fields, arrays: dict) -> tuple:
     return n, C, K
 
 
-def _launcher():
-    fn = load_library(NAME).cmi_trace_voronoi
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
-                                                           ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return fn
+def occupancy(device) -> dict:
+    """Registers per thread and blocks of 256 resident per SM of K6, and the
+    SM count of CUDA ``device``."""
+    return kernel_occupancy(NAME, "cmi_trace_voronoi_occupancy", device)
 
 
 def trace_voronoi_cuda(tables, chi_u: torch.Tensor, tally: torch.Tensor, fields: dict, *,
@@ -80,20 +77,20 @@ def trace_voronoi_cuda(tables, chi_u: torch.Tensor, tally: torch.Tensor, fields:
     adding ℓ·w (box units) into ``tally[cell]``, in place.  ``chi_u``: [C]
     f32 opacity per box unit."""
     C = tables.neighbors.shape[0] if tables.neighbors.dim() == 2 else -1
+    K = tables.neighbors.shape[1] if tables.neighbors.dim() == 2 else -1
     n, C, K = check_march_inputs(
         "trace_voronoi_cuda", tables, fields,
-        {"chi": (chi_u, torch.float32, C), "tally": (tally, torch.float32, C)},
+        {"faces": (tables.faces, torch.float32, C * K * 4),
+         "face_count": (tables.face_count, torch.int32, C),
+         "chi": (chi_u, torch.float32, C), "tally": (tally, torch.float32, C)},
     )
     if max_steps < 0:
         raise ValueError("trace_voronoi_cuda: max_steps must be >= 0")
-    device = chi_u.device
-    launch = _launcher()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    pointers = [getattr(tables, f).data_ptr() for f in _TABLE_POINTERS]
-    pointers += [chi_u.data_ptr(), tally.data_ptr()]
-    pointers += [fields[f].data_ptr() for f in _PACKET_POINTERS]
-    with torch.cuda.device(device):
-        err = launch(*pointers, n, C, K, float(eps), int(max_steps), stream)
-    if err != 0:
-        raise RuntimeError(f"trace_voronoi_cuda: CUDA error {err} at launch")
+    if tables.faces.data_ptr() % 16:
+        raise ValueError("trace_voronoi_cuda: faces must be 16-byte aligned (one float4 a face)")
+    if n == 0:  # no packet: no launch
+        return
+    arrays = {**tables._asdict(), **fields, "chi": chi_u, "tally": tally}
+    _TRACE_VORONOI(chi_u.device.index, *(arrays[f].data_ptr() for f in _POINTER_ORDER),
+                   n, C, K, int(max_steps), float(eps))
     LAUNCHES[NAME] += 1

@@ -422,6 +422,24 @@ class VoronoiTables(NamedTuple):
     normals: torch.Tensor  # [C, K, 3] f32
     offsets: torch.Tensor  # [C, K] f32
     shifts: torch.Tensor  # [C, K, 3] f32
+    faces: torch.Tensor  # [C, K, 4] f32: K6's packed rows, see packed_faces
+    face_count: torch.Tensor  # [C] int32: the faces of a row up to its last real one
+
+
+def packed_faces(neighbors: np.ndarray, normals: np.ndarray, offsets: np.ndarray):
+    """K6's face rows: ([C, K, 4] f32 (n_x, n_y, n_z, offset) per face, [C]
+    int32 count), the count of a row reaching its last real face (neighbour
+    != -2).  A padding face is packed with a zero normal and offset, so that
+    K6 finds n·d = 0 there and t = +inf, as the -2 test of the plain march
+    gives; the rows of ``build_voronoi_grid`` put their padding last, so the
+    count is the row's real faces and K6's face loop reads no padding."""
+    real = np.asarray(neighbors) != -2
+    faces = np.zeros(real.shape + (4,), np.float32)
+    faces[..., :3] = np.where(real[..., None], normals, 0.0)
+    faces[..., 3] = np.where(real, offsets, 0.0)
+    K = real.shape[1]
+    count = np.where(real.any(1), K - np.argmax(real[:, ::-1], axis=1), 0)
+    return faces, count.astype(np.int32)
 
 
 def voronoi_tables(grid: VoronoiGrid, device) -> VoronoiTables:
@@ -430,9 +448,11 @@ def voronoi_tables(grid: VoronoiGrid, device) -> VoronoiTables:
     def put(a, dtype):
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
+    faces, count = packed_faces(grid.neighbors, grid.normals, grid.offsets)
     return VoronoiTables(
         put(grid.neighbors, torch.int32), put(grid.normals, torch.float32),
         put(grid.offsets, torch.float32), put(grid.shifts, torch.float32),
+        put(faces, torch.float32), put(count, torch.int32),
     )
 
 
@@ -547,7 +567,7 @@ def _march_reference(tables: VoronoiTables, pk, tally, chi_of, tally_index, *,
         l_travel = torch.where(absorbed_now, pk.tau_left / chi_c, t_exit)
 
         deposit = torch.where(pk.active, l_travel * pk.weight, 0.0)
-        tally.index_add_(0, tally_index(pk, cell), deposit)
+        tally.index_add_(0, tally_index(pk, cell), deposit.to(tally.dtype))
 
         nbr = torch.gather(rows_nbr, 1, k_exit[:, None])[:, 0]
         shift = torch.gather(rows_shift, 1, k_exit[:, None, None].expand(-1, 1, 3))[:, 0]
@@ -594,8 +614,9 @@ def trace_packets_voronoi_reference(
     stats: Optional[dict] = None,
 ):
     """Plain PyTorch march in box units: ``chi_u`` [C] opacity per box unit,
-    Σ ℓ·w (box units) added into ``tally`` [C] in place.  Returns (tally,
-    terminated batch); the batch handed in is not modified."""
+    Σ ℓ·w (box units) added into ``tally`` [C] in place (an f64 tally sums
+    the f32 deposits in f64).  Returns (tally, terminated batch); the batch
+    handed in is not modified."""
     return _march_reference(
         tables, packets, tally,
         lambda pk, cell: chi_u[cell],

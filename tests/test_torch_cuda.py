@@ -17,6 +17,7 @@ no JAX, so that it runs where JAX is not installed:
 """
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -2381,3 +2382,291 @@ def test_gather2d_and_fill_first_reject_what_the_kernels_do_not_take(cuda):
         gather._GATHER2D(tab.get_device(), 1, 2)
     with pytest.raises(TypeError):  # two pointers and the stream, not the stream alone
         pd._FILL_FIRST(dep.get_device())
+
+
+# -- K1 and K6: K1's shared-memory window, K6's packed face rows and run-summed deposits ---------
+
+
+def _same_packet_states(out_k, out_r, fields):
+    for f in fields:
+        a, b = getattr(out_k, f), getattr(out_r, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+
+
+def _rel_l1_against_f64(tally, tally_64):
+    return float((tally.double() - tally_64).abs().sum() / tally_64.abs().sum())
+
+
+K1_STATE = ("px", "py", "pz", "cx", "cy", "cz", "tau_left", "active", "absorbed")
+K6_STATE = ("pos", "cell", "tau_left", "active", "absorbed")
+
+
+def _k1_against_plain(chi, pk, shape, periodic=(False, False, False), max_steps=0):
+    """K1 through the public march (one launch, none for no packets) against
+    the plain version: identical states; the tally within 1e-4 of the plain
+    march summed in f64."""
+    march = dict(shape=shape, periodic=periodic, max_steps=max_steps)
+    before = kernels.LAUNCHES["trace_packets"]
+    tally_k, out_k = traversal.trace_packets(chi, pk, torch.zeros_like(chi), **march)
+    assert kernels.LAUNCHES["trace_packets"] == before + (pk.size > 0)
+    tally_r, out_r = traversal.trace_packets_reference(chi, pk, torch.zeros_like(chi), **march)
+    tally_64 = traversal.trace_packets_reference(chi, pk, torch.zeros_like(chi).double(),
+                                                 **march)[0]
+    torch.cuda.synchronize()
+    _same_packet_states(out_k, out_r, K1_STATE)
+    if float(tally_64.abs().sum()) > 0.0:
+        assert _rel_l1_against_f64(tally_k, tally_64) <= 1e-4
+    else:
+        assert float(tally_k.abs().sum()) == 0.0
+    return out_k
+
+
+def _one_cell_packets(shape, n, seed, cuda, sort=False):
+    """n isotropic packets, all from the centre of one cell (the collision
+    case of a point source), in emission order or sorted by direction."""
+    from cmacionize_torch.kernels.trace_octree import direction_order
+
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
+    centre = np.asarray(shape, np.float64) // 2 + 0.5
+    pk = traversal.make_packets(t(np.tile(centre, (n, 1))), t(d), t(-np.log1p(-rng.random(n))),
+                                t(rng.uniform(0.5, 1.5, n)), shape)
+    if sort:
+        order = direction_order(pk.dx, pk.dy, pk.dz).long()
+        pk = type(pk)(*(f[order] for f in pk))
+    return pk
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_k1_on_packets_from_one_cell(cuda, sort):
+    shape = (64, 64, 64)
+    chi, _ = _inputs(3, shape, 1, 30.0, cuda)
+    pk = _one_cell_packets(shape, 300_000, 5, cuda, sort)
+    out = _k1_against_plain(chi, pk, shape)
+    assert 0 < int(out.absorbed.sum()) < pk.size
+
+
+@pytest.mark.parametrize("inside", [0, 1, 128, 256])
+def test_k1_on_blocks_whose_packets_start_in_and_out_of_the_window(cuda, inside):
+    """Each block of 256 packets has its first ``inside`` packets in the grid's
+    centre cell and the rest at seeded places with x < 20 cells, outside the
+    16-cell shared window around that cell (with none inside, the window
+    sits around a scattered packet); a short last block."""
+    shape = (64, 64, 64)
+    chi, _ = _inputs(8, shape, 1, 30.0, cuda)
+    n = 4 * 256 + 100
+    rng = np.random.default_rng(9)
+    position = rng.uniform((0.0, 0.0, 0.0), (20.0, 64.0, 64.0), (n, 3))
+    in_centre = np.arange(n) % 256 < inside
+    position[in_centre] = 32.5
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
+    pk = traversal.make_packets(t(position), t(d), t(-np.log1p(-rng.random(n))),
+                                t(rng.uniform(0.5, 1.5, n)), shape)
+    _k1_against_plain(chi, pk, shape)
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 31, 32, 33, 1000 + 7])
+def test_k1_on_few_packets_and_ragged_warps(cuda, n):
+    shape = (16, 16, 16)
+    chi, pk = _inputs(4, shape, max(n, 1), 3.0, cuda)
+    pk = type(pk)(*(f[:n] for f in pk))
+    _k1_against_plain(chi, pk, shape)
+
+
+def test_k1_on_many_waves_of_blocks(cuda):
+    from cmacionize_torch.kernels.trace_packets import occupancy
+
+    shape = (64, 64, 64)
+    chi, pk = _inputs(6, shape, 1 << 20, 300.0, cuda)
+    lanes = occupancy(cuda)
+    assert pk.size > 3 * lanes["blocks_per_sm"] * lanes["sms"] * 256
+    _k1_against_plain(chi, pk, shape)
+
+
+def test_k1_leaves_inactive_packets_as_handed_in(cuda):
+    shape = (24, 24, 24)
+    chi, pk = _inputs(7, shape, 30_000, 30.0, cuda)
+    frozen = torch.arange(pk.size, device=cuda) % 3 == 1
+    pk = pk._replace(active=~frozen, absorbed=frozen & (torch.arange(pk.size, device=cuda) % 2 == 0))
+    out = _k1_against_plain(chi, pk, shape)
+    for f in K1_STATE:
+        assert torch.equal(getattr(out, f)[frozen], getattr(pk, f)[frozen]), f
+
+
+@pytest.mark.parametrize("max_steps", [1, 2, 5])
+@pytest.mark.parametrize("periodic", [(False, False, False), (True, True, True), (True, False, True)])
+def test_k1_under_a_step_cap_and_periodic_axes(cuda, max_steps, periodic):
+    shape = (16, 16, 16)
+    chi, pk = _inputs(8, shape, 20_000, 0.3, cuda)
+    out = _k1_against_plain(chi, pk, shape, periodic, max_steps)
+    assert bool(out.active.any())  # packets left at the cap
+
+
+@pytest.mark.parametrize("periodic", [(True, True, True), (True, False, True)])
+def test_k1_from_one_cell_on_periodic_axes(cuda, periodic):
+    shape = (24, 16, 20)
+    chi, _ = _inputs(9, shape, 1, 0.3, cuda)
+    _k1_against_plain(chi, _one_cell_packets(shape, 50_000, 10, cuda, sort=True), shape, periodic)
+
+
+def test_k1_wrapper_refuses_on_the_launch_path(cuda):
+    from cmacionize_torch.kernels import trace_packets as k1
+
+    shape = (8, 8, 8)
+    chi, pk = _inputs(1, shape, 64, 1.0, cuda)
+    fields = pk._asdict()
+    march = dict(shape=shape, periodic=(False,) * 3, max_steps=96)
+    kernels.LAUNCHES.clear()
+    for args, message in (
+            ((chi.double(), torch.zeros_like(chi), fields), "opacity must be"),
+            ((chi, torch.zeros(7, device=cuda), fields), "tally must be"),
+            ((chi, torch.zeros_like(chi), dict(fields, cx=pk.cx.long())), "cx must be"),
+            ((chi, torch.zeros_like(chi), dict(fields, px=pk.px.cpu())), "px must be"),
+            ((chi, torch.zeros_like(chi), dict(fields, px=torch.stack([pk.px, pk.py], 1)[:, 0])),
+             "px must be contiguous"),
+            ((chi.cpu(), torch.zeros(512), {k: v.cpu() for k, v in fields.items()}),
+             "needs CUDA tensors")):
+        with pytest.raises(ValueError, match=message):
+            k1.trace_packets_cuda(*args, **march)
+    with pytest.raises(ValueError, match="sizes must fit int32"):
+        k1.trace_packets_cuda(chi, torch.zeros_like(chi), fields, shape=shape,
+                              periodic=(False,) * 3, max_steps=-1)
+    assert kernels.LAUNCHES["trace_packets"] == 0
+    with pytest.raises(TypeError):  # typed once: 15 pointers, 6 ints and the stream
+        k1._TRACE_PACKETS(chi.get_device(), 1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_voronoi_grid(seed, n, periodic):
+    return _voronoi_grid(seed, n, periodic)
+
+
+def _k6_against_plain(grid, chi, pk, max_steps=0):
+    """K6 through the public march (one launch, none for no packets) against
+    the plain version: identical states; the tally within 1e-4 of the plain
+    march summed in f64."""
+    from cmacionize_torch.models import voronoi
+
+    tables = voronoi.voronoi_tables(grid, chi.device)
+    C = grid.n_cells
+    march = dict(eps=voronoi.march_eps(C), max_steps=voronoi.default_max_steps(C, max_steps))
+    before = kernels.LAUNCHES["trace_voronoi"]
+    tally_k, out_k = voronoi.trace_packets_voronoi(grid, chi, pk, max_steps=max_steps,
+                                                   tables=tables)
+    assert kernels.LAUNCHES["trace_voronoi"] == before + (pk.size > 0)
+    chi_u = chi * grid.scale
+    tally_r, out_r = voronoi.trace_packets_voronoi_reference(
+        tables, chi_u, pk, torch.zeros(C, device=chi.device), **march)
+    tally_64 = voronoi.trace_packets_voronoi_reference(
+        tables, chi_u, pk, torch.zeros(C, dtype=torch.float64, device=chi.device), **march)[0]
+    torch.cuda.synchronize()
+    _same_packet_states(out_k, out_r, K6_STATE)
+    if float(tally_64.abs().sum()) > 0.0:
+        assert _rel_l1_against_f64(tally_k / grid.scale, tally_64) <= 1e-4
+    else:
+        assert float(tally_k.abs().sum()) == 0.0
+    return out_k
+
+
+def _k6_one_cell_packets(grid, n, seed, cuda, sort=False):
+    from cmacionize_torch.kernels.trace_octree import direction_order
+    from cmacionize_torch.models import voronoi
+
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pk = voronoi.make_voronoi_packets(grid, np.full((n, 3), 0.5), d, -np.log1p(-rng.random(n)),
+                                      rng.uniform(0.5, 1.5, n), device=cuda)
+    if sort:
+        order = direction_order(*pk.dirn.unbind(1)).long()
+        pk = type(pk)(*(f[order] for f in pk))
+    return pk
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("periodic", [(False, False, False), (True, True, True)])
+def test_k6_on_packets_from_one_cell(cuda, periodic, sort):
+    grid = _cached_voronoi_grid(0, 3000, periodic)
+    chi, _ = _voronoi_packets(grid, 1, 1, cuda)
+    pk = _k6_one_cell_packets(grid, 200_000, 2, cuda, sort)
+    assert int(torch.unique(pk.cell).numel()) == 1
+    out = _k6_against_plain(grid, chi, pk)
+    assert int(out.absorbed.sum()) > 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 31, 33, 1000 + 7])
+def test_k6_on_few_packets_and_ragged_warps(cuda, n):
+    grid = _cached_voronoi_grid(0, 3000, (False, False, False))
+    chi, pk = _voronoi_packets(grid, 3, max(n, 1), cuda)
+    _k6_against_plain(grid, chi, type(pk)(*(f[:n] for f in pk)))
+
+
+def test_k6_on_many_waves_of_blocks(cuda):
+    from cmacionize_torch.kernels.trace_voronoi import occupancy
+
+    grid = _cached_voronoi_grid(0, 3000, (True, True, True))
+    chi, pk = _voronoi_packets(grid, 4, 1 << 20, cuda)
+    lanes = occupancy(cuda)
+    assert pk.size > 3 * lanes["blocks_per_sm"] * lanes["sms"] * 256
+    _k6_against_plain(grid, chi, pk)
+
+
+def test_k6_leaves_inactive_packets_as_handed_in(cuda):
+    grid = _cached_voronoi_grid(0, 3000, (False, False, False))
+    chi, pk = _voronoi_packets(grid, 5, 30_000, cuda)
+    frozen = torch.arange(pk.size, device=cuda) % 3 == 1
+    pk = pk._replace(active=~frozen, absorbed=frozen & (torch.arange(pk.size, device=cuda) % 2 == 0))
+    out = _k6_against_plain(grid, chi, pk)
+    for f in K6_STATE:
+        assert torch.equal(getattr(out, f)[frozen], getattr(pk, f)[frozen]), f
+
+
+@pytest.mark.parametrize("max_steps", [1, 2, 5])
+@pytest.mark.parametrize("periodic", [(False, False, False), (True, True, True)])
+def test_k6_under_a_step_cap(cuda, max_steps, periodic):
+    grid = _cached_voronoi_grid(0, 3000, periodic)
+    chi, pk = _voronoi_packets(grid, 6, 20_000, cuda)
+    out = _k6_against_plain(grid, chi, pk, max_steps)
+    assert bool(out.active.any())
+
+
+def test_k6_wrapper_refuses_on_the_launch_path(cuda):
+    from cmacionize_torch.kernels import trace_voronoi as k6
+    from cmacionize_torch.models import voronoi
+
+    grid = _cached_voronoi_grid(0, 3000, (False, False, False))
+    chi, pk = _voronoi_packets(grid, 7, 64, cuda)
+    tables = voronoi.voronoi_tables(grid, cuda)
+    C = grid.n_cells
+    chi_u, fields = chi * grid.scale, pk._asdict()
+    march = dict(eps=voronoi.march_eps(C), max_steps=40)
+    K = grid.max_faces
+    unaligned = torch.empty(C * K * 4 + 1, device=cuda)[1:].view(C, K, 4)
+    kernels.LAUNCHES.clear()
+    for tbl, chi_, tally, flds, message in (
+            (tables, chi_u.double(), torch.zeros(C, device=cuda), fields, "chi must be"),
+            (tables, chi_u, torch.zeros(C - 1, device=cuda), fields, "tally must be"),
+            (tables._replace(faces=tables.faces[:, :-1]), chi_u, torch.zeros(C, device=cuda),
+             fields, "faces must be"),
+            (tables._replace(face_count=tables.face_count.long()), chi_u,
+             torch.zeros(C, device=cuda), fields, "face_count must be"),
+            (tables._replace(faces=unaligned), chi_u, torch.zeros(C, device=cuda), fields,
+             "16-byte aligned"),
+            (tables, chi_u, torch.zeros(C, device=cuda), dict(fields, cell=pk.cell.long()),
+             "cell must be"),
+            (tables, chi_u, torch.zeros(C, device=cuda),
+             dict(fields, pos=pk.pos.t().contiguous().t()), "pos must be contiguous")):
+        with pytest.raises(ValueError, match=message):
+            k6.trace_voronoi_cuda(tbl, chi_, tally, flds, **march)
+    with pytest.raises(ValueError, match="max_steps"):
+        k6.trace_voronoi_cuda(tables, chi_u, torch.zeros(C, device=cuda), fields, eps=1e-5,
+                              max_steps=-1)
+    assert kernels.LAUNCHES["trace_voronoi"] == 0
+    with pytest.raises(TypeError):  # typed once: 13 pointers, 4 ints, a float and the stream
+        k6._TRACE_VORONOI(chi.get_device(), 1, 2)

@@ -266,8 +266,8 @@ def test_every_launcher_names_a_launcher_of_its_source():
                       for symbol, params in _SIGNATURE.findall(source)}
         assert launcher.symbol in signatures, where
         params = signatures[launcher.symbol]
-        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int if p.startswith("int ") else p
-                 for p in params]
+        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int if p.startswith("int ")
+                 else ctypes.c_float if p.startswith("float ") else p for p in params]
         assert kinds == launcher.argtypes, (where, params)
         assert params[-1] == "void* stream", where
 

@@ -157,6 +157,7 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.models.voronoi
         import cmacionize_torch.models.voronoi_hydro
         import cmacionize_torch.kernels.trace_voronoi
+        import cmacionize_torch.kernels.trace_packets
         import cmacionize_torch.kernels.trace_voronoi_spectral
         import cmacionize_torch.kernels.voronoi_flux
         import cmacionize_torch.models.amr
