@@ -64,7 +64,11 @@ Phases (any failed check raises, so the script exits non-zero):
     physical bands of the Lexington HII20 benchmark;
 12. K4 parity: the temperature balance against its plain PyTorch version on
     the card, on the inputs the full-size run handed to its fourth
-    temperature solve (all cells), both timed;
+    temperature solve (all cells), both timed, with K4's layout (registers,
+    stack and spills from the build's ptxas report, blocks per SM, the lanes
+    a cell) and the share of lanes one thread a cell would keep busy on the
+    plain version's sweeps (as in 12b and the multi-frequency Voronoi and
+    AMR runs' last solves);
 12a. main path: the same full-size lexingtonHII20 run with
     ``TemperatureCalculator: backend: f32-device`` set on the parsed
     parameters (the same seed), so that every temperature solve launches
@@ -278,6 +282,7 @@ from cmacionize_torch.kernels import gather as gather_ops
 from cmacionize_torch.kernels import probe_cohort as probe_cohort_ops
 from cmacionize_torch.kernels import probe_deposit as probe_deposit_ops
 from cmacionize_torch.kernels import probe_gather
+from cmacionize_torch.kernels import temperature as temperature_kernels
 from cmacionize_torch.kernels import trace_octree as trace_octree_ops
 from cmacionize_torch.kernels import trace_packets as trace_packets_ops
 from cmacionize_torch.kernels import trace_voronoi as trace_voronoi_ops
@@ -1356,6 +1361,30 @@ def compare_backends(f64_state: dict, f32_state: dict) -> None:
     check(abs(o32 - o64) <= 1e-4 + 0.05 * abs(o64), f"f32 backend median O_n {o32} vs {o64}")
 
 
+def k4_layout(label: str, kernel: str, n: int, sweeps, sweeps_of: str) -> None:
+    """Log K4's or K4f's layout on the card: registers, stack and spills of
+    both its instantiations (one and three lanes a cell; the build's ptxas
+    report), their blocks per SM, the lanes a cell this solve of ``n`` cells
+    takes, and the share of lanes a launch of one thread a cell in cell
+    order would keep busy on ``sweeps`` (``kernels/temperature.py:
+    lanes_busy``)."""
+    dtype = torch.float64 if kernel == "K4" else torch.float32
+    device = sweeps.device
+    report = temperature_kernels.ptxas_report()
+    for lanes, name in ((1, kernel), (3, f"{kernel} (3 lanes)")):
+        found, r = temperature_kernels.occupancy(device, dtype, lanes), report[name]
+        log(f"  {name}: {r['registers']} registers, {r['stack']} B of stack, "
+            f"{r['spill_stores']} / {r['spill_loads']} B of spill stores / loads; "
+            f"{found['blocks_per_sm']} blocks of {temperature_kernels.THREADS} threads a SM "
+            f"on {found['sms']} SMs")
+    s = sweeps.reshape(-1)
+    log(f"  {label}: {n} cells, {temperature_kernels.lanes_per_cell(n, device, dtype)} lane(s) "
+        f"a cell; lanes busy with one thread a cell in cell order "
+        f"{temperature_kernels.lanes_busy(s):.4f} ({sweeps_of}'s sweeps: mean "
+        f"{float(s.double().mean()):.4f}, max {int(s.max())}, "
+        f"{int((s == int(s.max())).sum())} cells at the max)")
+
+
 def temperature_parity(solve_inputs, label: str) -> dict:
     """K4 against solve_temperature_reference on the card, on every cell of
     the temperature solve whose inputs are ``solve_inputs``; both timed."""
@@ -1383,6 +1412,7 @@ def temperature_parity(solve_inputs, label: str) -> dict:
         f"{same_sweeps:.6f} of cells (max {int(ref.sweeps.max())}, mean "
         f"{float(ref.sweeps.double().mean()):.2f})"
     )
+    k4_layout(label, "K4", T_prev.numel(), ref.sweeps, "the plain version")
     check(match >= MIN_T_MATCH_FRACTION,
           f"K4 ({label}): {match} of cells match, < {MIN_T_MATCH_FRACTION}")
     check(max_rel <= MAX_T_REL_ERR, f"K4 ({label}): max |dT|/T {max_rel} > {MAX_T_REL_ERR}")
@@ -1437,6 +1467,7 @@ def temperature_f32_parity(solve_inputs, label: str) -> dict:
         f"{state['metals']:.3e}; same sweep count in {same_sweeps:.6f} of cells (max "
         f"{int(ref.sweeps.max())}, mean {float(ref.sweeps.double().mean()):.2f})"
     )
+    k4_layout(label, "K4f", T_prev.numel(), ref.sweeps, "the plain version")
     check(match >= MIN_T_MATCH_FRACTION,
           f"K4f ({label}): {match} of cells match, < {MIN_T_MATCH_FRACTION}")
     check(max_rel <= MAX_T_REL_ERR, f"K4f ({label}): max |dT|/T {max_rel} > {MAX_T_REL_ERR}")
@@ -2206,6 +2237,8 @@ def multifreq_amr(grid, device):
         f"(max {int(last_solve['result'].sweeps.max())})")
     roofline(f"K4 (multi-frequency AMR, the last solve; {sweeps} secant sweeps)",
              n_solve * (18 * 8 + 15 * 8 + 4), OPS_PER_K4_SWEEP * sweeps, F64_OPS_PER_S)
+    k4_layout("the multi-frequency AMR's last solve", "K4", n_solve,
+              last_solve["result"].sweeps, "K4 (no plain run at this size)")
     r = np.sqrt((grid.centers**2).sum(-1))
     x = {name: v.cpu().numpy() for name, v in xion.items()}
     T = T.cpu().numpy()

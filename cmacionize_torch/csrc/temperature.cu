@@ -1,18 +1,19 @@
-// K4 and K4f: the per-cell thermal balance, one thread per cell, in f64 (K4)
-// and in scaled f32 (K4f), from one body templated on the scalar type.
+// K4 and K4f: the per-cell thermal balance in f64 (K4) and in scaled f32
+// (K4f), from one body templated on the scalar type.
 //
 // K4 replaces cmacionize_tpu/ops/temperature.py:solve_temperature (the
 // lockstep lax.while_loop log-secant solve; the driver reaches it through
 // solve_temperature_compacted, whose staged width compaction is bookkeeping
-// for the TPU's lockstep loop and is not carried over: a thread simply stops
-// when its cell has converged).  K4f replaces solve_temperature_device (:338),
-// the same algorithm in f32 with every gain and loss coefficient multiplied
-// by DEVICE_SOLVE_SCALE = 1e26 (the backend `TemperatureCalculator: backend:
-// f32-device`), and with the collision strengths interpolated in log T from
-// the JAX package's f32 table (line_cooling._omega_tables) instead of their
-// fit, which cancels in f32.  The chunking of solve_temperature_device_chunked
-// (:376) works around the TPU compile's constant budget and is not carried
-// over.  The plain PyTorch versions are cmacionize_torch/ops/temperature.py:
+// for the TPU's lockstep loop and is not carried over: a lane simply takes
+// the next cell when its cell has converged).  K4f replaces
+// solve_temperature_device (:338), the same algorithm in f32 with every gain
+// and loss coefficient multiplied by DEVICE_SOLVE_SCALE = 1e26 (the backend
+// `TemperatureCalculator: backend: f32-device`), and with the collision
+// strengths interpolated in log T from the JAX package's f32 table
+// (line_cooling._omega_tables) instead of their fit, which cancels in f32.
+// The chunking of solve_temperature_device_chunked (:376) works around the
+// TPU compile's constant budget and is not carried over.  The plain PyTorch
+// versions are cmacionize_torch/ops/temperature.py:
 // solve_temperature_reference and solve_temperature_device_reference.
 //
 // Per cell, up to max_iterations log-secant sweeps; each sweep evaluates the
@@ -51,26 +52,53 @@
 //
 // Tables: the wrapper packs the abundances, the scaled coefficients, the
 // recombination and charge-transfer fits and the line-cooling tables into
-// one buffer of the working precision; each block copies it into shared
-// memory (12.9 KB in f64, 6.5 KB in f32) once.  K4f also reads the f32
-// log-Omega table ([512 nodes][10 x 10 five-level + 3 two-level], 206 KB)
-// from device memory, two rows per evaluation, through the caches.  The
-// layout offsets below match the wrapper's.
+// one buffer of the working precision (kept on the card per configuration);
+// each block copies it into shared memory (12.9 KB in f64, 6.5 KB in f32)
+// once.  K4f also reads the f32 log-Omega table ([512 nodes][10 x 10
+// five-level + 3 two-level], 206 KB) from device memory, two rows per
+// evaluation, through the caches.  The layout offsets below match the
+// wrapper's.
 //
 // What bounds it on an H100: arithmetic and transcendentals (about 300
 // pow/exp/log per balance evaluation, 900 per sweep), not memory: a cell
-// reads 18 and writes 16 values.  Warps diverge because cells need from 1 to
-// 100 sweeps and the H-He loop from 1 to 20 iterations; a warp runs as long
-// as its slowest cell.  Simple by design: the state lives in registers and
-// local memory (spills accepted); sorting cells by expected sweep count or
-// splitting the evaluations across threads is later work.
+// reads 18 and writes 16 values.  Their f64 chains are long and the
+// registers few, so a warp issues seldom; cells need from 1 to 100 sweeps (a
+// cell without gas always 100).  The design (PERF.md §6 has each piece's
+// reading against the one thread a cell of the first port):
+//   * Lanes refill from a work counter.  The grid is persistent: the blocks
+//     the card holds at once (the wrapper's occupancy query), capped at what
+//     n needs.  A lane whose cell froze or reached max_iterations writes the
+//     cell's outputs and takes the next cell index; the lanes of a warp that
+//     want one take them with one atomicAdd (__ballot_sync / __popc, the
+//     first index handed out by __shfl_sync).  The launcher zeroes the
+//     counter on the stream before every launch.  A warp no longer waits
+//     for its slowest cell: one thread a cell kept half the lanes busy.
+//   * Three lanes a cell where the cells do not fill the card's lanes (the
+//     wrapper's choice, kernels/temperature.py:lanes_per_cell): a small
+//     solve is as long as its slowest cell's chain of sweeps, so the three
+//     evaluations of a sweep (1.1T, 0.9T, T) run on three lanes, which
+//     share their gains and losses by __shfl_sync and make the same update.
+//   * State in registers: the balance is inlined once, in a loop over the
+//     three temperatures that keeps only gain and loss from 1.1T and 0.9T;
+//     the 5x5 Gauss-Jordan is unrolled on compile-time indices, its row swap
+//     done by selects that keep torch.argmax's rule (the first row of
+//     largest |value|, NaN counting as largest), and it carries only the
+//     columns right of the pivot, as the plain version does.  A cell's rates
+//     are read from device memory at each evaluation.
+//   * Blocks of 64 threads; K4 with one lane a cell held to 168 registers
+//     (kMinBlocks).
+// No cell's result depends on another cell or on the lanes that ran it, so
+// every output is that of one thread a cell, bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "occupancy.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 64;
+constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kIons = 14;
 constexpr int kMetals = 12;
 constexpr int kFive = 10;
@@ -209,8 +237,8 @@ template <typename R> __device__ R charge_transfer(int table, int ion, R t4, con
 
 // --- ops/ionization.py:hydrogen_helium_neutral_fractions ---------------------
 template <typename R>
-__device__ void hydrogen_helium(R jH, R jHe, R nH, R T, R alphaH, R alphaHe, const R* tab,
-                                R& h0_out, R& he0_out) {
+__device__ __forceinline__ void hydrogen_helium(R jH, R jHe, R nH, R T, R alphaH, R alphaHe,
+                                                const R* tab, R& h0_out, R& he0_out) {
   constexpr R kTiny = Limits<R>::kTiny;
   const R AHe = tab[kAHe];
   const R safe_jH = jH > R(0.0) ? jH : R(1.0);
@@ -275,23 +303,24 @@ __device__ void hydrogen_helium(R jH, R jHe, R nH, R T, R alphaH, R alphaHe, con
 
 // --- ops/ionization.py:metal_ion_fractions -------------------------------------
 template <typename R> struct MetalInputs {
-  const R* j;  // [14] photoionization rates
+  const R* j;  // photoionization rates: j[ion * js]
+  int64_t js;
   R safe_ne, t4, nh0, nhe0, nhp;
   const R* alpha;  // [14] recombination rates (metal slots used)
   const R* tab;
 };
 
 template <typename R>
-__device__ R stage_ratio(const MetalInputs<R>& in, int ion, bool with_ion_H) {
+__device__ __forceinline__ R stage_ratio(const MetalInputs<R>& in, int ion, bool with_ion_H) {
   R denom = in.safe_ne * in.alpha[ion] + in.nh0 * charge_transfer(kCTRecH, ion, in.t4, in.tab);
   denom = denom + in.nhe0 * charge_transfer(kCTRecHe, ion, in.t4, in.tab);
-  R numer = in.j[ion];
+  R numer = in.j[ion * in.js];
   if (with_ion_H) numer = numer + in.nhp * charge_transfer(kCTIonH, ion, in.t4, in.tab);
   return numer / nan_max(denom, Limits<R>::kTiny);
 }
 
 // stage fractions of one element from R(2,1) and the next `n - 1` ratios
-template <typename R> __device__ void chain(R* out, const R* ratios, int n) {
+template <typename R> __device__ __forceinline__ void chain(R* out, const R* ratios, int n) {
   R cumulative[3];
   cumulative[0] = ratios[0];
   for (int k = 1; k < n; ++k) cumulative[k] = ratios[k] * cumulative[k - 1];
@@ -301,10 +330,11 @@ template <typename R> __device__ void chain(R* out, const R* ratios, int n) {
   for (int k = 0; k < n; ++k) out[k] = cumulative[k] * inv;
 }
 
-template <typename R> __device__ void metal_fractions(const MetalInputs<R>& in, R* m) {
+template <typename R>
+__device__ __forceinline__ void metal_fractions(const MetalInputs<R>& in, R* m) {
   constexpr R kTiny = Limits<R>::kTiny;
   R r[3];
-  r[0] = in.j[C_p1] / nan_max(in.safe_ne * in.alpha[C_p1], kTiny);
+  r[0] = in.j[C_p1 * in.js] / nan_max(in.safe_ne * in.alpha[C_p1], kTiny);
   r[1] = stage_ratio(in, C_p2, false);
   chain(m + metal(C_p1), r, 2);
   r[0] = stage_ratio(in, N_n, true);
@@ -314,7 +344,7 @@ template <typename R> __device__ void metal_fractions(const MetalInputs<R>& in, 
   r[0] = stage_ratio(in, O_n, true);
   r[1] = stage_ratio(in, O_p1, false);
   chain(m + metal(O_n), r, 2);
-  r[0] = in.j[Ne_n] / nan_max(in.safe_ne * in.alpha[Ne_n], kTiny);
+  r[0] = in.j[Ne_n * in.js] / nan_max(in.safe_ne * in.alpha[Ne_n], kTiny);
   r[1] = stage_ratio(in, Ne_p1, false);
   chain(m + metal(Ne_n), r, 2);
   r[0] = stage_ratio(in, S_p1, false);
@@ -338,8 +368,10 @@ template <> struct Omega<double> {
     return pow(T, g[0]) *
            (g[1] + g[2] * Tinv + g[3] * logT + g[4] * T * (1.0 + g[5] * pow(T, g[6])));
   }
-  __device__ double five(int ion, int t) const { return fit(tab + kFiveGamma + ion * 70 + 7 * t); }
-  __device__ double two(int ion) const { return fit(tab + kTwoGamma + 7 * ion); }
+  __device__ __forceinline__ double five(int ion, int t) const {
+    return fit(tab + kFiveGamma + ion * 70 + 7 * t);
+  }
+  __device__ __forceinline__ double two(int ion) const { return fit(tab + kTwoGamma + 7 * ion); }
 };
 
 template <> struct Omega<float> {
@@ -358,24 +390,68 @@ template <> struct Omega<float> {
     const float a = __ldg(lo + c);
     return expf(a + frac * (__ldg(hi + c) - a));
   }
-  __device__ float five(int ion, int t) const { return at(ion * 10 + t); }
-  __device__ float two(int ion) const { return at(kFive * 10 + ion); }
+  __device__ __forceinline__ float five(int ion, int t) const { return at(ion * 10 + t); }
+  __device__ __forceinline__ float two(int ion) const { return at(kFive * 10 + ion); }
 };
+
+// The 5x5 augmented system of one five-level ion, rows in registers (or, in
+// the shared-scratch form, in `s`).  Gauss-Jordan with partial pivoting in the
+// plain version's order (line_cooling._gauss_jordan): per column j the first
+// row of largest |value| from j down, NaN counting as largest (torch.argmax),
+// is swapped up by selects; the pivot row is divided by the pivot and every
+// other row r loses f_r times it.  Columns left of the pivot column never
+// reach the solution, so the plain version drops them and so does this.
+template <typename R> __device__ __forceinline__ void gauss_jordan(R (&M)[5][6]) {
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    int p = j;
+    R best = m_fabs(M[j][j]);
+#pragma unroll
+    for (int r = j + 1; r < 5; ++r) {
+      const R c = m_fabs(M[r][j]);
+      const bool take = !is_nan(best) && (is_nan(c) || c > best);
+      best = take ? c : best;
+      p = take ? r : p;
+    }
+#pragma unroll
+    for (int r = j + 1; r < 5; ++r) {
+      const bool swap = p == r;
+#pragma unroll
+      for (int k = j; k < 6; ++k) {
+        const R a = M[j][k], b = M[r][k];
+        M[j][k] = swap ? b : a;
+        M[r][k] = swap ? a : b;
+      }
+    }
+    const R piv = M[j][j];
+#pragma unroll
+    for (int k = j + 1; k < 6; ++k) M[j][k] = M[j][k] / piv;
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      if (r == j) continue;
+      const R f = M[r][j];
+#pragma unroll
+      for (int k = j + 1; k < 6; ++k) M[r][k] = M[r][k] - f * M[j][k];
+    }
+  }
+}
 
 // Σ over the ion's transitions of n_upper A E (solve5x5's order)
 template <typename R>
-__device__ R five_level_cooling(int ion, R Tinv, R prefactor, const Omega<R>& omega,
-                                const R* tab) {
+__device__ __forceinline__ R five_level_cooling(int ion, R Tinv, R prefactor,
+                                                const Omega<R>& omega, const R* tab) {
   const R* A = tab + kFiveA + ion * 10;
   const R* E = tab + kFiveE + ion * 10;
   const R* iw = tab + kFiveInvw + ion * 5;
   R dn[10], up[10];
+#pragma unroll
   for (int t = 0; t < 10; ++t) {
     dn[t] = prefactor * omega.five(ion, t);
     up[t] = dn[t] * m_exp(-E[t] * Tinv);
   }
   enum { T01, T02, T03, T04, T12, T13, T14, T23, T24, T34 };
   R M[5][6];
+#pragma unroll
   for (int k = 0; k < 5; ++k) M[0][k] = R(1.0);
   M[1][0] = up[T01] * iw[0];
   M[1][1] = -(A[T01] + iw[1] * (dn[T01] + up[T12] + up[T13] + up[T14]));
@@ -399,46 +475,19 @@ __device__ R five_level_cooling(int ion, R Tinv, R prefactor, const Omega<R>& om
   M[4][3] = up[T34] * iw[3];
   M[4][4] = -(A[T04] + A[T14] + A[T24] + A[T34] +
               iw[4] * (dn[T04] + dn[T14] + dn[T24] + dn[T34]));
+#pragma unroll
   for (int r = 0; r < 5; ++r) M[r][5] = r == 0 ? R(1.0) : R(0.0);
-
-  // Gauss-Jordan with partial pivoting: the first row of largest |value|,
-  // NaN counting as largest (torch.argmax)
-  for (int j = 0; j < 5; ++j) {
-    int p = j;
-    R best = m_fabs(M[j][j]);
-    for (int r = j + 1; r < 5; ++r) {
-      const R c = m_fabs(M[r][j]);
-      if (!is_nan(best) && (is_nan(c) || c > best)) {
-        best = c;
-        p = r;
-      }
-    }
-    if (p != j) {
-      for (int k = 0; k < 6; ++k) {
-        const R tmp = M[j][k];
-        M[j][k] = M[p][k];
-        M[p][k] = tmp;
-      }
-    }
-    const R piv = M[j][j];
-    R row[6];
-    for (int k = 0; k < 6; ++k) row[k] = M[j][k] / piv;
-    for (int r = 0; r < 5; ++r) {
-      if (r == j) continue;
-      const R f = M[r][j];
-      for (int k = 0; k < 6; ++k) M[r][k] = M[r][k] - f * row[k];
-    }
-    for (int k = 0; k < 6; ++k) M[j][k] = row[k];
-  }
+  gauss_jordan(M);
   constexpr int kUpper[10] = {1, 2, 3, 4, 2, 3, 4, 3, 4, 4};
   R total = M[kUpper[0]][5] * A[0] * E[0];
+#pragma unroll
   for (int t = 1; t < 10; ++t) total = total + M[kUpper[t]][5] * A[t] * E[t];
   return total;
 }
 
 template <typename R>
-__device__ R two_level_cooling(int ion, R Tinv, R prefactor, const Omega<R>& omega,
-                               const R* tab) {
+__device__ __forceinline__ R two_level_cooling(int ion, R Tinv, R prefactor,
+                                               const Omega<R>& omega, const R* tab) {
   const R A = tab[kTwoA + ion], E = tab[kTwoE + ion];
   const R iw0 = tab[kTwoInvw + 2 * ion], iw1 = tab[kTwoInvw + 2 * ion + 1];
   const R cs = prefactor * omega.two(ion);
@@ -453,16 +502,19 @@ template <typename R> struct Balance {
   R metals[kMetals];
 };
 
+// The balance at T of one cell: its rates j[ion * js], its heating
+// integrals hH, hHe and its density nd.
 template <typename R>
-__device__ __noinline__ void balance(R T, const R* j, R hH, R hHe, R nd, const R* tab,
-                                     const float* omega_table, Balance<R>& out) {
+__device__ __forceinline__ void balance(R T, const R* j, int64_t js, R hH, R hHe, R nd,
+                                        const R* tab, const float* omega_table,
+                                        Balance<R>& out) {
   constexpr R kTiny = Limits<R>::kTiny;
   const R AHe = tab[kAHe];
   R alpha[kIons];
   for (int ion = 0; ion < kIons; ++ion) alpha[ion] = recombination_rate(ion, T, tab);
 
   R h0, he0;
-  hydrogen_helium(j[H_n], j[He_n], nd, T, alpha[H_n], alpha[He_n], tab, h0, he0);
+  hydrogen_helium(j[H_n * js], j[He_n * js], nd, T, alpha[H_n], alpha[He_n], tab, h0, he0);
   const R ne = nd * (R(1.0) - h0 + AHe * (R(1.0) - he0));
   const R nhp = nd * (R(1.0) - h0);
   const R nhep = nd * AHe * (R(1.0) - he0);
@@ -486,6 +538,7 @@ __device__ __noinline__ void balance(R T, const R* j, R hH, R hHe, R nd, const R
   // metal ionization
   MetalInputs<R> in;
   in.j = j;
+  in.js = js;
   in.safe_ne = nan_max(ne, R(1e-30));
   in.t4 = T * R(1.0e-4);
   in.nh0 = nd * h0;
@@ -519,9 +572,11 @@ __device__ __noinline__ void balance(R T, const R* j, R hH, R hHe, R nd, const R
   const R prefactor = tab[kCollision] * ne / sqrtT;
   const Omega<R> omega(T, Tinv, logT, tab, omega_table);
   R lines = abund[0] * five_level_cooling(0, Tinv, prefactor, omega, tab);
+#pragma unroll 1
   for (int ion = 1; ion < kFive; ++ion) {
     lines = lines + abund[ion] * five_level_cooling(ion, Tinv, prefactor, omega, tab);
   }
+#pragma unroll
   for (int ion = 0; ion < kTwo; ++ion) {
     lines = lines + abund[kFive + ion] * two_level_cooling(ion, Tinv, prefactor, omega, tab);
   }
@@ -546,111 +601,255 @@ template <typename R> __device__ __forceinline__ R log_ratio(R a, R b) {
                     : (a > R(0.0) ? R(99.0) : R(0.0));
 }
 
+// One cell's inputs and where its secant stands (_secant_start_state, then
+// the loop's T and sweep count); the rest of its state is the last sweep's
+// evaluation at T.
+template <typename R> struct Cell {
+  R hH, hHe, nd, T;
+  int sweeps;
+};
+
 template <typename R>
-__global__ void __launch_bounds__(kThreads) temperature_kernel(
+__device__ __forceinline__ void load_cell(Cell<R>& c, int64_t i, int64_t n, const R* T_init,
+                                          const R* h_in, const R* nd_in) {
+  c.hH = h_in[i];
+  c.hHe = h_in[n + i];
+  c.nd = nd_in[i];
+  const R Ti = T_init[i];
+  c.T = Ti <= R(4000.0) ? R(8000.0) : Ti;
+  c.sweeps = 0;
+}
+
+// The secant update of one sweep from its three evaluations (1.1T, 0.9T
+// and bal0 at T): T moves, bal0 becomes the cell's state (forced where T
+// left the bracket), and the return says whether the cell froze (the
+// reference's top-of-loop exit test, on the values just computed).
+template <typename R>
+__device__ __forceinline__ bool update(Cell<R>& c, R gain1, R loss1, R gain2, R loss2,
+                                       Balance<R>& bal0, const R* tab) {
+  constexpr R kTiny = Limits<R>::kTiny;
+  const R expdiff = log_ratio(gain1, gain2) - log_ratio(loss1, loss2);
+  const bool good = bal0.gain > R(0.0) && expdiff != R(0.0);
+  const R ratio = bal0.loss / nan_max(bal0.gain, kTiny);
+  const R exponent =
+      nan_clamp(tab[kLogBracket] / (good ? expdiff : R(1.0)), R(-50.0), R(50.0));
+  R T_new = good ? c.T * m_exp(exponent * m_log(nan_max(ratio, kTiny))) : R(1.1) * c.T;
+
+  const bool went_cold = T_new < tab[kMinT];
+  const bool went_hot = T_new > R(1e10);
+  T_new = went_cold ? R(500.0) : (went_hot ? R(1e10) : T_new);
+  bal0.h0 = went_cold ? R(1.0) : (went_hot ? R(1e-10) : bal0.h0);
+  bal0.he0 = went_cold ? R(1.0) : (went_hot ? R(1e-10) : bal0.he0);
+  const bool forced = went_cold || went_hot;
+  const R gain = forced ? R(1.0) : bal0.gain;
+  const R loss = forced ? R(1.0) : bal0.loss;
+  c.T = T_new;
+  ++c.sweeps;
+  return m_fabs(gain - loss) <= tab[kEpsilon] * nan_max(gain, kTiny);
+}
+
+// _temperature_fixups, and the cell's outputs; s is the cell's state
+template <typename R>
+__device__ __forceinline__ void store_cell(const Cell<R>& c, const Balance<R>& s, int64_t i,
+                                           int64_t n, const R* j_in, R* T_out, R* h0_out,
+                                           R* he0_out, R* metals_out, int32_t* sweeps_out) {
+  const R jH = j_in[H_n * n + i], jHe = j_in[He_n * n + i];
+  const bool no_jH = jH <= R(0.0);
+  const R h0 = no_jH ? R(1.0) : s.h0;
+  const bool clean = no_jH || h0 <= R(1e-10);
+  T_out[i] = nan_min(c.T, R(30000.0));
+  h0_out[i] = h0;
+  he0_out[i] = jHe <= R(0.0) ? R(1.0) : s.he0;
+#pragma unroll
+  for (int k = 0; k < kMetals; ++k) metals_out[k * n + i] = clean ? R(0.0) : s.metals[k];
+  sweeps_out[i] = c.sweeps;
+}
+
+// The kernel: a warp's lanes in groups of kLanes, each group on one cell at
+// a time.  kLanes = 1: a lane runs the cell's three evaluations in turn;
+// kLanes = 3: the group's lanes run one each (1.1T, 0.9T, T), and every
+// lane of the group takes the three gains and losses by __shfl_sync and
+// makes the same update (lanes 30 and 31 idle).  A group whose cell froze
+// or reached max_iterations stores it (the lane of the evaluation at T)
+// and, with the other groups of its warp that want one, takes the next cell
+// from the counter: one atomicAdd a warp.
+// K4 with one lane a cell is held to 168 registers, so that 6 blocks of 64
+// stay resident on an SM (12 warps against 8 at its natural 220, with 184 B
+// of spill stores): a large solve is as long as its sweeps over the card's
+// warps.  The three-lane form, which serves small solves, is as long as one
+// cell's chain of sweeps, and its spills would lengthen that chain.
+template <typename R, int kLanes>
+constexpr int kMinBlocks = sizeof(R) == 8 && kLanes == 1 ? 6 : 1;
+
+template <typename R, int kLanes>
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<R, kLanes>)) temperature_kernel(
     const R* __restrict__ tables, const float* __restrict__ omega_table,
     const R* __restrict__ T_init, const R* __restrict__ j_in, const R* __restrict__ h_in,
     const R* __restrict__ nd_in, R* __restrict__ T_out, R* __restrict__ h0_out,
     R* __restrict__ he0_out, R* __restrict__ metals_out, int32_t* __restrict__ sweeps_out,
-    int n, int max_iterations) {
-  constexpr R kTiny = Limits<R>::kTiny;
+    unsigned* __restrict__ next_cell, int n, int max_iterations) {
   __shared__ R tab[kTableSize];
   for (int k = threadIdx.x; k < kTableSize; k += blockDim.x) tab[k] = tables[k];
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-
-  R j[kIons];
-  for (int ion = 0; ion < kIons; ++ion) j[ion] = j_in[static_cast<int64_t>(ion) * n + i];
-  const R hH = h_in[i], hHe = h_in[static_cast<int64_t>(n) + i];
-  const R nd = nd_in[i];
-  const R Ti = T_init[i];
-  const R epsilon = tab[kEpsilon], min_T = tab[kMinT];
-
-  // _secant_start_state
-  R T = Ti <= R(4000.0) ? R(8000.0) : Ti;
-  R gain = R(1.0), loss = R(0.0), h0 = R(0.0), he0 = R(0.0);
-  R m[kMetals];
-  for (int k = 0; k < kMetals; ++k) m[k] = R(0.0);
-  int sweeps = 0;
-
-  // _secant_loop: sweep until this cell freezes
-  Balance<R> bal1, bal2, bal0;
-  for (int it = 0; it < max_iterations; ++it) {
-    balance(R(1.1) * T, j, hH, hHe, nd, tab, omega_table, bal1);
-    balance(R(0.9) * T, j, hH, hHe, nd, tab, omega_table, bal2);
-    balance(T, j, hH, hHe, nd, tab, omega_table, bal0);
-    const R expdiff = log_ratio(bal1.gain, bal2.gain) - log_ratio(bal1.loss, bal2.loss);
-    const bool good = bal0.gain > R(0.0) && expdiff != R(0.0);
-    const R ratio = bal0.loss / nan_max(bal0.gain, kTiny);
-    const R exponent =
-        nan_clamp(tab[kLogBracket] / (good ? expdiff : R(1.0)), R(-50.0), R(50.0));
-    R T_new = good ? T * m_exp(exponent * m_log(nan_max(ratio, kTiny))) : R(1.1) * T;
-
-    const bool went_cold = T_new < min_T;
-    const bool went_hot = T_new > R(1e10);
-    T_new = went_cold ? R(500.0) : (went_hot ? R(1e10) : T_new);
-    h0 = went_cold ? R(1.0) : (went_hot ? R(1e-10) : bal0.h0);
-    he0 = went_cold ? R(1.0) : (went_hot ? R(1e-10) : bal0.he0);
-    const bool forced = went_cold || went_hot;
-    gain = forced ? R(1.0) : bal0.gain;
-    loss = forced ? R(1.0) : bal0.loss;
-    for (int k = 0; k < kMetals; ++k) m[k] = bal0.metals[k];
-    T = T_new;
-    ++sweeps;
-    // the reference's top-of-loop exit test, on the values just computed
-    if (m_fabs(gain - loss) <= epsilon * nan_max(gain, kTiny)) break;
+  const unsigned lane = threadIdx.x % 32u;
+  const int e = static_cast<int>(lane) % kLanes;  // this lane's place in its group
+  const int head = static_cast<int>(lane) - e;     // the group's first lane
+  const bool usable = lane < 32u / kLanes * kLanes;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  Cell<R> c;
+  int cell = -1;
+  bool drained = false;  // the counter has passed n: the same in every lane
+  for (;;) {
+    // the groups without a cell take the next indices, one atomic a warp
+    const unsigned want = __ballot_sync(kFullWarp, usable && e == 0 && cell < 0 && !drained);
+    if (want != 0u) {
+      const int leader = __ffs(want) - 1;
+      unsigned first = 0u;
+      if (static_cast<int>(lane) == leader) first = atomicAdd(next_cell, __popc(want));
+      first = __shfl_sync(kFullWarp, first, leader);
+      int taken = -1;
+      if ((want >> lane) & 1u) {
+        const unsigned k = first + __popc(want & lanes_below);
+        if (k < static_cast<unsigned>(n)) taken = static_cast<int>(k);
+      }
+      if constexpr (kLanes > 1) taken = __shfl_sync(kFullWarp, taken, head);
+      if (usable && cell < 0 && taken >= 0) {
+        cell = taken;
+        load_cell(c, cell, n, T_init, h_in, nd_in);
+        if (max_iterations <= 0) {  // no sweep: the start state
+          Balance<R> s;
+          s.h0 = R(0.0);
+          s.he0 = R(0.0);
+#pragma unroll
+          for (int k = 0; k < kMetals; ++k) s.metals[k] = R(0.0);
+          if (e == kLanes - 1) {
+            store_cell(c, s, cell, n, j_in, T_out, h0_out, he0_out, metals_out, sweeps_out);
+          }
+          cell = -1;
+        }
+      }
+      drained = first + __popc(want) >= static_cast<unsigned>(n);
+    }
+    if (drained && __ballot_sync(kFullWarp, cell >= 0) == 0u) break;
+    // the cell's rates are read from device memory at each evaluation
+    // rather than held in 28 registers (f64) across the sweeps
+    const R* j = j_in + cell;
+    // this lane's evaluations of the sweep: all three in turn (1.1T, 0.9T,
+    // then T, whose state the sweep keeps) on one lane a cell, one on three
+    R gain1 = R(0.0), loss1 = R(0.0), gain2 = R(0.0), loss2 = R(0.0);
+    Balance<R> bal;
+    bal.gain = R(0.0);
+    bal.loss = R(0.0);
+    if (cell >= 0) {
+#pragma unroll 1
+      for (int k = e; k < 3; k += kLanes) {
+        const R Te = k == 0 ? R(1.1) * c.T : (k == 1 ? R(0.9) * c.T : c.T);
+        balance(Te, j, n, c.hH, c.hHe, c.nd, tab, omega_table, bal);
+        if (k == 0) {
+          gain1 = bal.gain;
+          loss1 = bal.loss;
+        } else if (k == 1) {
+          gain2 = bal.gain;
+          loss2 = bal.loss;
+        }
+      }
+    }
+    if constexpr (kLanes == 3) {  // every lane of a group takes the group's three
+      gain1 = __shfl_sync(kFullWarp, gain1, head);
+      loss1 = __shfl_sync(kFullWarp, loss1, head);
+      gain2 = __shfl_sync(kFullWarp, gain2, head + 1);
+      loss2 = __shfl_sync(kFullWarp, loss2, head + 1);
+      bal.gain = __shfl_sync(kFullWarp, bal.gain, head + 2);
+      bal.loss = __shfl_sync(kFullWarp, bal.loss, head + 2);
+    }
+    if (cell >= 0 &&
+        (update(c, gain1, loss1, gain2, loss2, bal, tab) || c.sweeps >= max_iterations)) {
+      if (e == kLanes - 1) {
+        store_cell(c, bal, cell, n, j_in, T_out, h0_out, he0_out, metals_out, sweeps_out);
+      }
+      cell = -1;
+    }
   }
-
-  // _temperature_fixups
-  T = nan_min(T, R(30000.0));
-  const bool no_jH = j[H_n] <= R(0.0);
-  h0 = no_jH ? R(1.0) : h0;
-  he0 = j[He_n] <= R(0.0) ? R(1.0) : he0;
-  const bool clean = no_jH || h0 <= R(1e-10);
-  T_out[i] = T;
-  h0_out[i] = h0;
-  he0_out[i] = he0;
-  for (int k = 0; k < kMetals; ++k) {
-    metals_out[static_cast<int64_t>(k) * n + i] = clean ? R(0.0) : m[k];
-  }
-  sweeps_out[i] = sweeps;
 }
 
 template <typename R>
 int launch(const R* tables, const float* omega, const R* T_init, const R* j, const R* h,
-           const R* nd, R* T, R* h0, R* he0, R* metals, int32_t* sweeps, int n,
-           int max_iterations, int table_size, void* stream) {
-  if (table_size != kTableSize) return static_cast<int>(cudaErrorInvalidValue);
+           const R* nd, R* T, R* h0, R* he0, R* metals, int32_t* sweeps, unsigned* next_cell,
+           int n, int max_iterations, int table_size, int lanes, int blocks, void* stream) {
+  if (table_size != kTableSize || (lanes != 1 && lanes != 3) || blocks <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    temperature_kernel<R><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        tables, omega, T_init, j, h, nd, T, h0, he0, metals, sweeps, n, max_iterations);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t zeroed = cudaMemsetAsync(next_cell, 0, sizeof(unsigned), s);
+    if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+    // warps of 32 cells, or of 10 groups of three lanes
+    const int64_t warps = lanes == 3 ? (n + 9) / 10 : (n + 31) / 32;
+    const int64_t needed = (warps * 32 + kThreads - 1) / kThreads;
+    const int grid = static_cast<int>(blocks < needed ? blocks : needed);
+    if (lanes == 3) {
+      temperature_kernel<R, 3><<<grid, kThreads, 0, s>>>(tables, omega, T_init, j, h, nd, T,
+                                                         h0, he0, metals, sweeps, next_cell,
+                                                         n, max_iterations);
+    } else {
+      temperature_kernel<R, 1><<<grid, kThreads, 0, s>>>(tables, omega, T_init, j, h, nd, T,
+                                                         h0, he0, metals, sweeps, next_cell,
+                                                         n, max_iterations);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch K4 (f64) or K4f (f32) on `stream`; each returns cudaGetLastError()
-// (0 on success).  tables: the packed buffer (kTableSize values of the
-// working precision); omega (K4f only): the f32 log-Omega table, kOmegaNodes
-// x kOmegaRow values; T_init, nd, T, h0, he0 and sweeps: n values; j:
-// [14][n]; h: [2][n]; metals: [12][n].
+// Launch K4 (f64) or K4f (f32) on `stream`; each returns the CUDA error (0 on
+// success).  tables: the packed buffer (kTableSize values of the working
+// precision); omega (K4f only): the f32 log-Omega table, kOmegaNodes x
+// kOmegaRow values; T_init, nd, T, h0, he0 and sweeps: n values; j: [14][n];
+// h: [2][n]; metals: [12][n]; next_cell: one unsigned int of scratch, the
+// work counter, zeroed on the stream before the kernel; lanes: 1 or 3 lanes
+// a cell; blocks: the persistent grid of that form (the blocks resident on
+// the card), capped at what n needs.
 extern "C" int cmi_temperature(const double* tables, const double* T_init,
                                const double* j, const double* h, const double* nd,
                                double* T, double* h0, double* he0, double* metals,
-                               int32_t* sweeps, int n, int max_iterations,
-                               int table_size, void* stream) {
-  return launch<double>(tables, nullptr, T_init, j, h, nd, T, h0, he0, metals, sweeps, n,
-                        max_iterations, table_size, stream);
+                               int32_t* sweeps, unsigned* next_cell, int n,
+                               int max_iterations, int table_size, int lanes, int blocks,
+                               void* stream) {
+  return launch<double>(tables, nullptr, T_init, j, h, nd, T, h0, he0, metals, sweeps,
+                        next_cell, n, max_iterations, table_size, lanes, blocks, stream);
 }
 
 extern "C" int cmi_temperature_f32(const float* tables, const float* omega,
                                    const float* T_init, const float* j, const float* h,
                                    const float* nd, float* T, float* h0, float* he0,
-                                   float* metals, int32_t* sweeps, int n,
-                                   int max_iterations, int table_size, void* stream) {
-  return launch<float>(tables, omega, T_init, j, h, nd, T, h0, he0, metals, sweeps, n,
-                       max_iterations, table_size, stream);
+                                   float* metals, int32_t* sweeps, unsigned* next_cell,
+                                   int n, int max_iterations, int table_size, int lanes,
+                                   int blocks, void* stream) {
+  return launch<float>(tables, omega, T_init, j, h, nd, T, h0, he0, metals, sweeps,
+                       next_cell, n, max_iterations, table_size, lanes, blocks, stream);
+}
+
+// The registers a thread of K4 (K4f), with one lane a cell (temperature3:
+// three), takes and its blocks of kThreads resident on one SM of the
+// current device, and that device's SM count; returns the CUDA error (0 on
+// success).
+extern "C" int cmi_temperature_occupancy(int* registers, int* blocks_per_sm, int* sms) {
+  return cmi_occupancy::query(temperature_kernel<double, 1>, kThreads, registers,
+                              blocks_per_sm, sms);
+}
+
+extern "C" int cmi_temperature_f32_occupancy(int* registers, int* blocks_per_sm, int* sms) {
+  return cmi_occupancy::query(temperature_kernel<float, 1>, kThreads, registers,
+                              blocks_per_sm, sms);
+}
+
+extern "C" int cmi_temperature3_occupancy(int* registers, int* blocks_per_sm, int* sms) {
+  return cmi_occupancy::query(temperature_kernel<double, 3>, kThreads, registers,
+                              blocks_per_sm, sms);
+}
+
+extern "C" int cmi_temperature3_f32_occupancy(int* registers, int* blocks_per_sm, int* sms) {
+  return cmi_occupancy::query(temperature_kernel<float, 3>, kThreads, registers,
+                              blocks_per_sm, sms);
 }

@@ -578,6 +578,219 @@ def test_f32_backend_driver_on_card(cuda):
     assert abs((xd["H_n"] < 0.5).sum() - ion.sum()) <= max(0.02 * ion.sum(), 5)
 
 
+
+# ------------------- K4 and K4f: the persistent grid, lanes refilled from a counter
+
+SOLVERS = {
+    "f64": (temperature.solve_temperature, temperature.solve_temperature_reference),
+    "f32": (temperature.solve_temperature_device,
+            temperature.solve_temperature_device_reference),
+}
+
+
+def _compare_to_plain(precision, got, ref):
+    """K4 (f64) or K4f (f32) against its plain version with the tolerances
+    of chip_smoke.py: >= 99% of cells within 1e-9 (f64) or 1e-4 (f32)
+    relative in T, all within 5e-3, >= 99% with the same sweep count; NaN
+    where the plain version has NaN."""
+    if precision == "f32":
+        _compare_f32(got, ref)
+        return
+    both_nan = torch.isnan(got.T) & torch.isnan(ref.T)
+    rel = torch.where(both_nan, 0.0, (got.T - ref.T).abs() / ref.T.abs())
+    rel = torch.nan_to_num(rel, nan=float("inf"))
+    assert float((rel <= 1e-9).double().mean()) >= 0.99
+    assert float(rel.max()) <= 5e-3
+    assert float((got.sweeps == ref.sweeps).double().mean()) >= 0.99
+    for name in ("h0", "he0"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=1e-5,
+                                   atol=1e-9, equal_nan=True)
+    for name, value in ref.metals.items():
+        torch.testing.assert_close(got.metals[name], value, rtol=1e-5, atol=1e-9,
+                                   equal_nan=True)
+
+
+def _fields(solution):
+    """(name, tensor) of every output of a solve, metals included."""
+    return [("T", solution.T), ("h0", solution.h0), ("he0", solution.he0),
+            ("sweeps", solution.sweeps)] + sorted(solution.metals.items())
+
+
+def _assert_same_bits(a, b):
+    """Every output of two solves equal bit for bit, NaN where NaN."""
+    for (name, x), (_, y) in zip(_fields(a), _fields(b)):
+        if x.is_floating_point():
+            bits = torch.int64 if x.dtype == torch.float64 else torch.int32
+            same = (x.view(bits) == y.view(bits)) | (x.isnan() & y.isnan())
+            assert bool(same.all()), name
+        else:
+            assert torch.equal(x, y), name
+
+
+def _take(cells, index):
+    T, j, h, nd = cells
+    return (T[index], {k: v[index] for k, v in j.items()}, (h[0][index], h[1][index]),
+            nd[index])
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_temperature_kernels_give_permuted_outputs_for_permuted_cells(cuda, precision):
+    """No cell's result depends on the lane that ran it or on the cells
+    beside it: the cells permuted give the outputs permuted, bit for bit."""
+    solve, plain = SOLVERS[precision]
+    cells = _thermal_cells(7, 6000, cuda)
+    got = solve(*cells, ABUND, pahfac=1.0)
+    order = torch.from_numpy(np.random.default_rng(3).permutation(6000)).to(cuda)
+    permuted = solve(*_take(cells, order), ABUND, pahfac=1.0)
+    _assert_same_bits(permuted, type(got)(*(
+        value[order] if not isinstance(value, dict) else {k: v[order] for k, v in value.items()}
+        for value in got)))
+    _compare_to_plain(precision, got, plain(*cells, ABUND, pahfac=1.0))
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_temperature_kernels_repeat_bit_for_bit(cuda, precision):
+    """Launches back to back, and one on a side stream, give the same bits:
+    the work counter is zeroed before every launch (a stale one would skip
+    cells and leave their outputs unwritten)."""
+    solve, plain = SOLVERS[precision]
+    cells = _thermal_cells(8, 5000, cuda)
+    first = solve(*cells, ABUND, crfac=0.5)
+    second = solve(*cells, ABUND, crfac=0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        third = solve(*cells, ABUND, crfac=0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    _assert_same_bits(first, second)
+    _assert_same_bits(first, third)
+    _compare_to_plain(precision, first, plain(*cells, ABUND, crfac=0.5))
+
+
+@pytest.mark.parametrize("precision, n", [
+    ("f64", 0), ("f64", 1), ("f64", 31), ("f64", 33), ("f64", 12000), ("f64", 2**18 + 5),
+    ("f32", 0), ("f32", 1), ("f32", 33), ("f32", 12000),
+])
+def test_temperature_kernels_on_few_and_many_cells(cuda, precision, n):
+    """From no cell (no launch) through fewer cells than the card's
+    resident lanes (12000) to more than 2^18, against the plain version, and
+    each cell bit for bit as in a launch over more cells."""
+    solve, plain = SOLVERS[precision]
+    name = "temperature" if precision == "f64" else "temperature_f32"
+    cells = _thermal_cells(9, max(n, 64), cuda)
+    few = _take(cells, slice(0, n))
+    before = kernels.LAUNCHES[name]
+    got = solve(*few, ABUND, pahfac=1.0)
+    assert kernels.LAUNCHES[name] == before + (n > 0)
+    assert got.T.shape == (n,) and got.sweeps.dtype == torch.int32
+    if n == 0:
+        return
+    _compare_to_plain(precision, got, plain(*few, ABUND, pahfac=1.0))
+    if n < 64:
+        whole = solve(*cells, ABUND, pahfac=1.0)
+        _assert_same_bits(got, type(whole)(*(
+            value[:n] if not isinstance(value, dict) else {k: v[:n] for k, v in value.items()}
+            for value in whole)))
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_temperature_kernels_mix_capped_and_one_sweep_cells_in_a_warp(cuda, precision):
+    """Every other cell without gas (all max_iterations sweeps) beside cells
+    that start at their equilibrium (one sweep): each lane's cells keep
+    their own sweep counts and results."""
+    solve, plain = SOLVERS[precision]
+    T, j, h, nd = _thermal_cells(12, 4096, cuda)
+    nd[:64] = 1e8
+    settled = plain(T, j, h, nd, ABUND, pahfac=1.0).T.to(T.dtype)
+    T0 = torch.where(torch.isfinite(settled), settled, T)
+    nd[1::2] = 0.0
+    cells = (T0, j, h, nd)
+    got = solve(*cells, ABUND, pahfac=1.0)
+    ref = plain(*cells, ABUND, pahfac=1.0)
+    assert bool((got.sweeps[1::2] == 100).all())
+    assert float((got.sweeps[0::2] == 1).double().mean()) > 0.5
+    _compare_to_plain(precision, got, ref)
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+@pytest.mark.parametrize("max_iterations", [0, 1])
+def test_temperature_kernels_at_zero_and_one_sweep(cuda, precision, max_iterations):
+    """max_iterations 0 (the start state and the fix-ups, no sweep) and 1."""
+    solve, plain = SOLVERS[precision]
+    cells = _thermal_cells(13, 3000, cuda)
+    got = solve(*cells, ABUND, max_iterations=max_iterations)
+    ref = plain(*cells, ABUND, max_iterations=max_iterations)
+    assert bool((got.sweeps == max_iterations).all())
+    _compare_to_plain(precision, got, ref)
+
+
+def test_temperature_kernel_on_empty_and_cavity_cells(cuda):
+    """K4 on cells without gas (nd = 0), without radiation (j = 0, h = 0)
+    and both, beside ordinary ones, as K4f's test above."""
+    T, j, h, nd = _thermal_cells(5, 1024, cuda)
+    no_light = slice(100, 300)
+    for value in j.values():
+        value[no_light] = 0.0
+    h[0][no_light] = 0.0
+    h[1][no_light] = 0.0
+    nd[200:400] = 0.0
+    got = temperature.solve_temperature(T, j, h, nd, ABUND, pahfac=1.0)
+    ref = temperature.solve_temperature_reference(T, j, h, nd, ABUND, pahfac=1.0)
+    _compare_to_plain("f64", got, ref)
+    assert bool((got.h0[100:200] == 1.0).all()) and bool((got.he0[100:200] == 1.0).all())
+    assert bool((got.metals["O_n"][100:200] == 0.0).all())
+    assert bool((got.sweeps[200:400] == 100).all())
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_temperature_kernels_on_pivot_ties_and_nan(cuda, precision):
+    """Cells whose 5x5 level systems hold tied pivot candidates (no gas:
+    the collisional terms vanish, so columns hold equal zeros) and NaN
+    (infinite density or temperature, or NaN rates: the pivot search takes
+    a NaN as the largest value, as torch.argmax does), beside ordinary
+    cells: the kernel gives the plain version's values, NaN where it has
+    NaN, and never traps."""
+    solve, plain = SOLVERS[precision]
+    T, j, h, nd = _thermal_cells(14, 2048, cuda)
+    nd[64:128] = float("inf")
+    T[128:192] = float("inf")
+    T[192:256] = float("nan")
+    for value in j.values():
+        value[256:320] = float("nan")
+    got = solve(T, j, h, nd, ABUND, pahfac=1.0)
+    ref = plain(T, j, h, nd, ABUND, pahfac=1.0)
+    torch.cuda.synchronize()
+    _compare_to_plain(precision, got, ref)
+    assert torch.equal(got.T.isnan(), ref.T.isnan())
+
+
+def test_temperature_grid_and_tables_are_kept_per_device(cuda):
+    """The persistent grid is the card's resident blocks (from the occupancy
+    query, whose registers are the build report's); the packed tables are
+    copied once per configuration and dtype."""
+    from cmacionize_torch.kernels import temperature as k4
+
+    T, j, h, nd = _thermal_cells(2, 128, cuda)
+    temperature.solve_temperature(T, j, h, nd, ABUND)
+    report = k4.ptxas_report()
+    for dtype, label in ((torch.float64, "K4"), (torch.float32, "K4f")):
+        for lanes, name in ((1, label), (3, f"{label} (3 lanes)")):
+            found = k4.occupancy(cuda, dtype, lanes)
+            assert found["blocks_per_sm"] >= 1 and found["sms"] >= 1
+            assert k4.grid_blocks(cuda, dtype, lanes) == found["blocks_per_sm"] * found["sms"]
+            assert report[name]["registers"] == found["registers"]
+        resident = k4.grid_blocks(cuda, dtype, 1) * k4.THREADS
+        assert k4.lanes_per_cell(resident, cuda, dtype) == 3
+        assert k4.lanes_per_cell(resident + 1, cuda, dtype) == 1
+    kwargs = dict(pahfac=0.0, crfac=0.0, epsilon=1e-3, minimum_ionized_temperature=4000.0,
+                  scale=1.0)
+    a = k4.device_tables(torch.float64, T.device, ABUND, **kwargs)
+    assert k4.device_tables(torch.float64, T.device, dict(ABUND), **kwargs) is a
+    assert k4.device_tables(torch.float64, T.device, ABUND, **dict(kwargs, crfac=0.5)) is not a
+    assert k4.device_omega_table(T.device) is k4.device_omega_table(T.device)
+
+
 # --------------------------------------------- the multi-frequency driver
 
 

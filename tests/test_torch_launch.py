@@ -815,3 +815,50 @@ def test_launch_cost_splits_each_path_on_its_kernels():
         assert isinstance(launcher, launch.Launcher)
         assert launcher.library == libraries.get(label, "probe_gather")
         assert launch_cost.KERNELS[label][0].__module__ == f"cmacionize_torch.kernels.{launcher.library}"
+
+
+# -- K4 and K4f --------------------------------------------------------------------------------
+
+
+def test_k4_launchers_are_found_and_bind_nothing_at_import():
+    # the signature test above holds every Launcher it finds against its
+    # source: K4 eleven pointers (the tables, T, the rates, the heating
+    # integrals, the density, four outputs, the sweeps and the work
+    # counter), K4f one more (the log-Omega table), then n, max_iterations,
+    # the table size, the lanes a cell and the grid; importing the wrapper
+    # and the solve builds and binds nothing
+    from cmacionize_torch.kernels import temperature
+
+    assert {"cmacionize_torch.kernels.temperature._TEMPERATURE",
+            "cmacionize_torch.kernels.temperature._TEMPERATURE_F32"} <= set(_launchers())
+    assert temperature._TEMPERATURE.argtypes == (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    assert temperature._TEMPERATURE_F32.argtypes == (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    code = (
+        "from cmacionize_torch.kernels import build, temperature\n"
+        "from cmacionize_torch.ops import temperature as solve\n"
+        "assert not build._LIBRARIES and not temperature._GRID\n"
+        "assert temperature._TEMPERATURE.function is None\n"
+        "assert temperature._TEMPERATURE_F32.function is None\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent"}  # no nvcc
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=build.CSRC_DIR.parent.parent, check=False)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("symbol, n_pointers", [("cmi_temperature", 11),
+                                                ("cmi_temperature_f32", 12)])
+def test_k4_launcher_passes_lanes_and_grid_on_the_raw_stream(fake_card, symbol, n_pointers):
+    loads, functions, entered = fake_card
+    launcher = launch.Launcher("temperature", symbol, n_pointers, 5)
+    pointers = tuple(range(100, 100 + n_pointers))
+    launcher(0, *pointers, 262144, 100, 1321, 1, 792)
+    launcher(1, *pointers, 12000, 100, 1321, 3, 528)
+    assert loads == ["temperature"] and entered == [1]
+    assert functions[symbol].calls == [pointers + (262144, 100, 1321, 1, 792, 1000),
+                                       pointers + (12000, 100, 1321, 3, 528, 1001)]
+    functions[symbol].code = 1  # cudaErrorInvalidValue: a refused lanes or grid
+    with pytest.raises(RuntimeError, match=f"{symbol}: CUDA error 1 at launch"):
+        launcher(0, *pointers, 10, 100, 1321, 2, 792)
