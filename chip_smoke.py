@@ -144,8 +144,12 @@ Phases (any failed check raises, so the script exits non-zero):
     bound from that solve's sweeps; then one more iteration under
     torch.profiler (K4's own time);
 25. K5s parity on the inputs of that run's first and last source marches:
-    flags, positions, tally, ion integrals; K5d against its plain version on
-    the last generation's absorption sites (identical leaf ids); all timed;
+    every packet's final state identical, tally, ion integrals; the plain
+    version's fixed points and no-op steps (``march_study``), K5s's
+    registers, stack, spills and resident blocks per SM, its bound with and
+    without the no-op steps, and its time on the last iteration's first
+    re-emission generation; K5d against its plain version on the last
+    generation's absorption sites (identical leaf ids); all timed;
 26. main path: dusty_galaxy (models/dusty_galaxy.py's DUSTY_GALAXY_PARAMS,
     built in code with the CLI's keys: 201³ cells, 5e5 photons, 12 orders, a 200 × 200 CCD, θ =
     89.7°) through ParameterFile → dust_config_from_params →
@@ -178,7 +182,9 @@ Phases (any failed check raises, so the script exits non-zero):
     merges of every slab in the first superstep of one more phase-30 step,
     and on every shard of phase 29's first exchange: identical lanes, bits
     and counts; K9c and K9p timed at the starbench shapes, K9c beside a
-    stable argsort and a gather;
+    stable argsort and a gather, K9p on every slab's send and with its host
+    µs per call; the shapes of every K9p call of that step, their mean
+    bound, and K9p's time a launch in phase 30's profiled step;
 32. main path: the cone-marched Strömgren path at full width:
     ``benchmarks/stromgren.param``'s 64³ geometry, gas, source, σ and α
     (HOnlyConfig, as in phase 4), 20 iterations of 2^20 stratified packets
@@ -283,7 +289,9 @@ from cmacionize_torch.kernels import probe_cohort as probe_cohort_ops
 from cmacionize_torch.kernels import probe_deposit as probe_deposit_ops
 from cmacionize_torch.kernels import probe_gather
 from cmacionize_torch.kernels import temperature as temperature_kernels
+from cmacionize_torch.kernels import compact as compact_ops
 from cmacionize_torch.kernels import trace_octree as trace_octree_ops
+from cmacionize_torch.kernels import trace_octree_spectral as trace_octree_spectral_ops
 from cmacionize_torch.kernels import trace_packets as trace_packets_ops
 from cmacionize_torch.kernels import trace_voronoi as trace_voronoi_ops
 from cmacionize_torch.kernels.peel_off import peel_off_cuda
@@ -1837,7 +1845,7 @@ def profile_window(label: str, run, groups: dict) -> None:
     busy = sum(device_us.values()) * 1e-6
     if busy <= 0.0:
         log(f"profile of {label}: the profiler saw no device time (host clock {wall:.4f} s)")
-        return
+        return {}
     shares = {name: sum(us for k, us in device_us.items() if any(n in k for n in names)) * 1e-6
               for name, names in groups.items()}
     counts = {name: sum(e.count for e in averages if any(n in e.key for n in names))
@@ -1853,6 +1861,7 @@ def profile_window(label: str, run, groups: dict) -> None:
         + f", the rest {rest:.4f} s ({rest / busy:.4f}) in {n_kernels} kernel launches in all")
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
     log("  top device time: " + "; ".join(f"{k[:60]} {us * 1e-3:.3f} ms" for k, us in top))
+    return {name: (shares[name], counts[name]) for name in groups}
 
 
 def check_structure(r, xH, xHe, label):
@@ -1872,7 +1881,9 @@ def multifreq_voronoi(grid, device):
     balance; the source marches of the first and the last iteration are kept
     for K6s's parity phase."""
     per_iteration = 1 + MF_ROUNDS
-    keep = {0: "first", per_iteration * (MF_ITERATIONS - 1): "last"}
+    last = per_iteration * (MF_ITERATIONS - 1)
+    # the last iteration's source march and its first re-emission generation
+    keep = {0: "first", last: "last", last + 1: "generation"}
     sim = voronoi.MultiFreqVoronoiSimulation(
         grid, lambda p: np.full(len(np.atleast_2d(p)), MF_DENSITY), device=device,
         source_position=(0.0, 0.0, 0.0), luminosity=MF_LUMINOSITY, n_photons=MF_PHOTONS,
@@ -2191,7 +2202,9 @@ def multifreq_amr(grid, device):
     are kept for the parity phase.  Returns (launches, sim, marches,
     sites)."""
     per_iteration = 1 + MF_ROUNDS
-    keep = {0: "first", per_iteration * (MF_ITERATIONS - 1): "last"}
+    last = per_iteration * (MF_ITERATIONS - 1)
+    # the last iteration's source march and its first re-emission generation
+    keep = {0: "first", last: "last", last + 1: "generation"}
     sim = amr.MultiFreqAMRSimulation(
         grid, uniform_density(MF_DENSITY), device=device, source_position=(0.0, 0.0, 0.0),
         luminosity=MF_LUMINOSITY, n_photons=MFA_PHOTONS, abundances=ABUND, do_temperature=True,
@@ -2255,7 +2268,7 @@ def multifreq_amr(grid, device):
         f"{o_core:.3e}")
     check(4000.0 < T_core < 25000.0, f"multi-frequency AMR median T(r < 2 pc) {T_core}")
     check(o_core < 0.5, f"multi-frequency AMR median O_n(r < 2 pc) {o_core}")
-    check(set(marches) == {"first", "last"} and "last" in sites,
+    check(set(marches) == {"first", "last", "generation"} and "last" in sites,
           "the multi-frequency AMR run's marches and absorption sites were kept")
     profile_window("one more multi-frequency AMR iteration", lambda: sim.run(1),
                    {"K5s": ("trace_octree_spectral_kernel",),
@@ -2263,11 +2276,39 @@ def multifreq_amr(grid, device):
     return launches, sim, marches, sites["last"]
 
 
+def ptxas_layout(library: str, kernel: str) -> dict:
+    """Registers, stack and spill bytes of ``kernel`` from the ptxas report in
+    the build log of ``csrc/<library>.cu``."""
+    found, current = {}, False
+    text = build.library_path(library).with_suffix(".log").read_text()
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            current = kernel in line
+        elif current and "bytes stack frame" in line:
+            numbers = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            found.update(stack=numbers[0], spill_stores=numbers[1], spill_loads=numbers[2])
+        elif current and "Used" in line and "registers" in line:
+            found["registers"] = int(line.split("Used")[1].split()[0])
+            current = False
+    return found
+
+
+def same_states(out_k, out_r) -> int:
+    """Packets whose position, tau_left or flags differ in any bit."""
+    differ = torch.zeros_like(out_r.active)
+    for f in ("px", "py", "pz", "tau_left"):
+        differ |= getattr(out_k, f).view(torch.int32) != getattr(out_r, f).view(torch.int32)
+    for f in ("active", "absorbed"):
+        differ |= getattr(out_k, f) != getattr(out_r, f)
+    return int(differ.sum())
+
+
 def amr_spectral_parity(sim, marches, device) -> dict:
     """K5s against trace_packets_octree_spectral_reference on the card, on
     the inputs of the multi-frequency AMR run's first and last source
-    marches: flags, positions, the binned tally and the ion integrals; both
-    timed on the last."""
+    marches: every final state identical, the binned tally and the ion
+    integrals within their bounds; both timed on the last; K5s's layout and
+    its time on the last iteration's first re-emission generation."""
     grid = sim.grid
     root, children = grid.octree_tables(device)
     C, n_bins = grid.n_cells, sim.n_bins
@@ -2289,26 +2330,50 @@ def amr_spectral_parity(sim, marches, device) -> dict:
                 root, children, chi_h, chi_he, packets, zeros(), stats=stats, **march))
         worst = max(worst, compare_octree_marches(
             f"K5s parity ({label} iteration's source march)", out_k, out_r, tally_k, tally_r))
+        differ = same_states(out_k, out_r)
+        log(f"  packets whose final state differs from the plain version's in any bit: {differ}")
+        check(differ == 0, f"K5s final states differ from the plain version's in {differ}")
         ions_k = traversal.spectral_tallies_to_ion_integrals(tally_k, *weights, C).double()
         ions_r = traversal.spectral_tallies_to_ion_integrals(tally_r, *weights, C).double()
         rel = float(((ions_k - ions_r).abs().sum(1) / ions_r.abs().sum(1).clamp_min(1e-300)).max())
         log(f"  ion integrals rel L1 (worst row) K5s vs plain {rel:.3e}")
         check(rel <= MAX_INTEGRAL_REL_L1, f"K5s ion integrals vs plain {rel}")
-        del tally_k, tally_r, ions_k, ions_r
+        del tally_k, tally_r, ions_k, ions_r, out_k, out_r
+    max_steps = amr_traversal.default_max_steps(march["coarse_shape"], march["max_level"])
+    study = octree_study.march_study(stats, max_steps, "K5s parity input, the last source march")
+    del stats["steps"], stats["fixed_point_step"]
     steps, levels = int(stats["packet_steps"]), int(stats["descent_levels"])
+    noops, noop_levels = int(stats["noop_steps"]), int(stats["noop_descent_levels"])
     scratch = zeros()
     ms = time_cuda(lambda: amr_traversal.trace_packets_octree_spectral(
         root, children, chi_h, chi_he, packets, scratch, **march), 5)
     n = packets.px.numel()
+    occupancy = trace_octree_spectral_ops.occupancy(device)
+    layout = ptxas_layout(trace_octree_spectral_ops.NAME, "trace_octree_spectral_kernel")
     log(f"timing K5s on {C} leaves / {n_bins} bins / {n} packets (the last source march, "
-        f"{steps} packet steps, {levels} descent levels): K5s {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms per march (CUDA events, incl. the packet-state copy; the plain version's one "
-        f"parity call, with its step counting)")
+        f"{steps} packet steps, {levels} descent levels; {noops} no-op steps with {noop_levels} "
+        f"levels, after the fixed points of {study['fixed_points']} packets): K5s {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms per march (CUDA events, incl. the packet-state copy and the "
+        f"order; the plain version's one parity call, with its step counting); K5s "
+        f"{layout.get('registers')} registers, {layout.get('stack')} B of stack, "
+        f"{layout.get('spill_stores')} / {layout.get('spill_loads')} B of spill stores / loads, "
+        f"{occupancy['blocks_per_sm']} blocks of 256 per SM x {occupancy['sms']} SMs")
+    chi_h_g, chi_he_g, generation = marches["generation"]
+    n_active = int(generation.active.sum())
+    gen_ms = time_cuda(lambda: amr_traversal.trace_packets_octree_spectral(
+        root, children, chi_h_g, chi_he_g, generation, scratch, **march), 5)
+    log(f"timing K5s on the last iteration's first re-emission generation: {n_active} of "
+        f"{generation.px.numel()} packets active ({n_active / generation.px.numel():.4f}): "
+        f"{gen_ms:.4f} ms per march (CUDA events, incl. the packet-state copy and the order)")
     # root, children, chi_H and chi_He read, the binned tally read and
     # written; packets in: K5's plus sigma_H, sigma_He, bin; out: K5's
-    bound = roofline(f"K5s ({steps} packet steps, {levels} descent levels)",
-                     octree_bytes(root, children) + 8 * C + 8 * n_bins * C + 64 * n,
-                     OPS_PER_K5S_STEP * steps + OPS_PER_OCTREE_LEVEL * levels, F32_OPS_PER_S)
+    n_bytes = octree_bytes(root, children) + 8 * C + 8 * n_bins * C + 64 * n
+    roofline(f"K5s with the no-op steps ({steps} packet steps, {levels} descent levels)",
+             n_bytes, OPS_PER_K5S_STEP * steps + OPS_PER_OCTREE_LEVEL * levels, F32_OPS_PER_S)
+    # the bound of the record: the steps that some output needs
+    bound = roofline(f"K5s ({steps - noops} packet steps, {levels - noop_levels} descent levels)",
+                     n_bytes, OPS_PER_K5S_STEP * (steps - noops)
+                     + OPS_PER_OCTREE_LEVEL * (levels - noop_levels), F32_OPS_PER_S)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
@@ -2729,21 +2794,20 @@ def sharded_starbench(device, single_outputs):
                            f"({lo / PC:.3f}, {hi / PC:.3f}) pc")
 
     kernels.LAUNCHES.clear()
-    profile_window(f"one sharded starbench step at t = {sim.time / MYR:.4f} Myr",
-                   lambda: sim.advance(1, log_every=10**9),
-                   {"K1": ("trace_packets_kernel",), "K3": ("muscl_",),
-                    "K9c": ("compact_count_kernel<1", "compact_scan_kernel<1",
-                            "compact_scatter_kernel<1"),
-                    "K9p": ("compact_count_kernel<2", "compact_scan_kernel<2",
-                            "compact_scatter_kernel<2")})
+    profiled = profile_window(
+        f"one sharded starbench step at t = {sim.time / MYR:.4f} Myr",
+        lambda: sim.advance(1, log_every=10**9),
+        {"K1": ("trace_packets_kernel",), "K3": ("muscl_",),
+         "K9c": ("compact_count_kernel<1", "compact_scan_kernel<1", "compact_scatter_kernel<1"),
+         "K9p": ("partition_kernel",)})
     log(f"  the profiled step: {sim.supersteps[-1]} supersteps, launches {dict(kernels.LAUNCHES)}")
     # one more step, whose first superstep's sends and merges (the four
     # slabs' K9p and K9c inputs; the copy phase's four K9c calls come first)
-    # are kept for phase 31
+    # are kept for phase 31, and the shape of its every K9p call
     keep = {i: i for i in range(shards)}
     with capturing(parallel_domain, "partition", keep, copy_args) as sends, \
             capturing(parallel_domain, "compact", {shards + i: i for i in range(shards)},
-                      copy_args) as merges:
+                      copy_args) as merges, recording_partitions() as shapes:
         sim.advance(1, log_every=10**9)
     check(len(sends) == shards and len(merges) == shards,
           f"kept {len(sends)} sends and {len(merges)} merges of the first superstep")
@@ -2751,7 +2815,27 @@ def sharded_starbench(device, single_outputs):
     check(all(args[1].numel() == 2 * cfg.n_photons for args, _ in sends.values())
           and all(args[1].numel() == 2 * capacity for args, _ in merges.values()),
           "the kept calls are the first superstep's sends (2W lanes) and merges")
-    return launches, sends, merges
+    return launches, sends, merges, {"shapes": shapes, "profiled": profiled.get("K9p")}
+
+
+@contextlib.contextmanager
+def recording_partitions():
+    """While active, each call of ``parallel_domain.partition`` appends its
+    shape to the yielded list: (lanes, members of each bucket, capacities,
+    the bytes :func:`exchange_bytes` charges it)."""
+    original, shapes = parallel_domain.partition, []
+
+    def wrapper(fields, bucket, capacities, shifts=(None, None)):
+        members = [bucket == 0, bucket == 1]
+        shapes.append((bucket.numel(), [int(m.sum()) for m in members], tuple(capacities),
+                       exchange_bytes(len(fields), members, capacities)))
+        return original(fields, bucket, capacities, shifts)
+
+    parallel_domain.partition = wrapper
+    try:
+        yield shapes
+    finally:
+        parallel_domain.partition = original
 
 
 def exchange_bytes(n_fields: int, members, capacities) -> int:
@@ -2794,11 +2878,13 @@ def argsort_gather(fields, mask, capacity):
     return [f[idx] for f in fields]
 
 
-def exchange_parity(starbench_sends, starbench_merges, stromgren_exchange) -> tuple:
+def exchange_parity(starbench_sends, starbench_merges, stromgren_exchange, step) -> tuple:
     """Phase 31: K9p and K9c against their plain versions on the sharded
     runs' own inputs, every lane and bit and count, and timed at the
     starbench shapes (the slab that sent, and the one that received, the
-    most packets)."""
+    most packets); K9p also on every slab's send, its host µs per call, and
+    the shapes and bound of every K9p call of one step (``step``, from
+    phase 30)."""
     members = {}
     for slab, ((fields, bucket, capacities, shifts), _) in sorted(starbench_sends.items()):
         out = parallel_domain.partition(fields, bucket, capacities, shifts)
@@ -2808,16 +2894,42 @@ def exchange_parity(starbench_sends, starbench_merges, stromgren_exchange) -> tu
     log(f"K9p parity on the last sharded starbench step's first superstep, every slab: "
         f"{bucket.numel()} lanes (exits and pending), buckets of {capacities}, members "
         f"(left, right) per slab {members}: identical in every lane, bit and count")
+    slab_ms = {}
+    for slab, ((fields, bucket, capacities, shifts), _) in sorted(starbench_sends.items()):
+        slab_ms[slab] = time_cuda(
+            lambda: parallel_domain.partition(fields, bucket, capacities, shifts), 50)
+    log("timing K9p on each slab's send (CUDA events, ms per call): "
+        + ", ".join(f"slab {k} {v:.4f}" for k, v in slab_ms.items()))
     slab = max(members, key=lambda k: sum(members[k]))
     (fields, bucket, capacities, shifts), _ = starbench_sends[slab]
-    ms = time_cuda(lambda: parallel_domain.partition(fields, bucket, capacities, shifts), 50)
+    ms = slab_ms[slab]
     plain_ms = time_cuda(
         lambda: parallel_domain.partition_reference(fields, bucket, capacities, shifts), 10)
+    host = launch_cost.host_us(
+        {"K9p": lambda: parallel_domain.partition(fields, bucket, capacities, shifts)}, 2000)
+    device_ms = launch_cost.graph_ms(
+        lambda: parallel_domain.partition(fields, bucket, capacities, shifts))
+    layout = compact_ops.occupancy(bucket.device)
     p_bytes = exchange_bytes(len(fields), [bucket == 0, bucket == 1], capacities)
     log(f"timing K9p on slab {slab}'s {bucket.numel()} lanes ({members[slab]} sent), buckets "
-        f"of {capacities}: K9p {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events)")
+        f"of {capacities}: K9p {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events); on the "
+        f"device alone {device_ms:.4f} ms (a CUDA graph of 50 calls, launch_cost.graph_ms); host "
+        f"{host['K9p']:.3f} us per call (launch_cost.host_us); {layout['registers']} registers, "
+        f"{layout['blocks_per_sm']} blocks of {compact_ops.PARTITION_TILE} a SM x "
+        f"{layout['sms']} SMs, one launch a call")
     p_record = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                 **roofline("K9p", p_bytes, 0.0, F32_OPS_PER_S)}
+    shapes = step["shapes"]
+    sent = np.array([sum(m) for _, m, _, _ in shapes])
+    mean_bytes = float(np.mean([b for *_, b in shapes]))
+    profiled = step["profiled"]
+    log(f"K9p's real calls in one sharded starbench step: {len(shapes)} calls, lanes "
+        f"{sorted({n for n, *_ in shapes})}, capacities {sorted({c for _, _, c, _ in shapes})}, "
+        f"packets sent min / median / max {int(sent.min())} / {float(np.median(sent)):.1f} / "
+        f"{int(sent.max())}; mean bound {mean_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes, "
+        f"{mean_bytes:.6g} B a call); the profiled step's K9p "
+        + (f"{profiled[0] / max(profiled[1], 1) * 1e3:.4f} ms a launch over {profiled[1]} "
+           f"launches" if profiled else "not seen by the profiler"))
 
     received = {}
     for slab, ((mfields, mmask, mcap), _) in sorted(starbench_merges.items()):
@@ -3804,9 +3916,10 @@ def main() -> None:
     del dust_sim, dust_captured, pol_captured
 
     sharded_launches, stromgren_exchange = sharded_stromgren(config, stromgren_volume)
-    sbs_launches, starbench_sends, starbench_merges = sharded_starbench(device, star_outputs)
+    sbs_launches, starbench_sends, starbench_merges, sbs_step = sharded_starbench(
+        device, star_outputs)
     compact_record, partition_record = exchange_parity(
-        starbench_sends, starbench_merges, stromgren_exchange)
+        starbench_sends, starbench_merges, stromgren_exchange, sbs_step)
     del stromgren_exchange, starbench_sends, starbench_merges
 
     cone_sim, cone_x, cone_launches = cone_stromgren(config, device, stromgren_volume)

@@ -18,8 +18,11 @@
 // Beside it: in_range[b][j] = j < count[b], and overflow[b] = max(count[b] -
 // capacity[b], 0).  K9p adds shift[b] to field 0 of bucket b, padding
 // included, as one f32 add (the receiver's frame: px + nx_loc, px - nx_loc).
+// A member goes to its rank r among the members, any other lane g to
+// count + (g - r): no lane but a member can be placed before the bucket's
+// count is known.
 //
-// Design (simple and right first): one lane per thread, 1024 per block.
+// K9c (three launches, one lane per thread, 1024 per block):
 //   1. compact_count_kernel: a warp ballot and popcount per warp, the warp totals
 //      summed in shared memory: members per block and bucket;
 //   2. compact_scan_kernel, one block: the exclusive scan of the block counts, the
@@ -27,19 +30,41 @@
 //   3. compact_scatter_kernel: the same ballot gives a lane's rank inside its warp,
 //      a scan of the 32 warp totals in shared memory its rank inside the
 //      block, the block's offset its global rank r among the members before
-//      it.  A member goes to r, any other lane to count + (g - r); a lane
-//      whose slot is below the capacity writes its fields there.  Threads
-//      past n write the zero padding, and every thread below the capacity
-//      writes its in_range flag.
-// No atomics, so the result is deterministic.
+//      it.  A lane whose slot is below the capacity writes its fields there.
+//      Threads past n write the zero padding, and every thread below the
+//      capacity writes its in_range flag.
 //
-// What bounds it on an H100: bytes.  Each lane reads its code twice and its
-// fields once and writes each of its fields once per bucket it lands in; the
-// three launches and the host's enqueue dominate below ~1e5 lanes.
+// K9p (one launch, partition_kernel): a persistent grid, no more blocks than
+// the card holds at once (the wrapper passes that count from
+// cmi_partition_occupancy), each block a run of consecutive tiles of 256
+// lanes over max(n, capacities); small blocks, so that the lanes that land
+// (a bucket's first capacity lanes, near the front) spread over every SM:
+//   1. each warp counts its lanes' members per bucket in each tile (a
+//      ballot, 1 B a lane) into the wrapper's scratch, and the block its
+//      own;
+//   2. a grid-wide barrier (an arrival counter and a generation word in the
+//      same scratch, kept per device and stream; every block is resident,
+//      so none waits on a block that is not running);
+//   3. each block sums the block counts from L2: the buckets' totals (block
+//      0 writes the counts) and the members before it;
+//   4. each warp on its own, with no block barrier: per tile, the members of
+//      the warps before it from the tile's warp counts (a shuffle scan), its
+//      lanes' ranks from a ballot; a lane reads its fields once, and only
+//      where it lands in some bucket, and writes them to each bucket it
+//      lands in.
+// No atomics on positions, so the result is deterministic.
+//
+// What bounds it on an H100: bytes.  Each lane reads its code and the lanes
+// that land read their fields; each output is written once.  K9c's three
+// launches and the host's enqueue dominate below ~1e5 lanes; K9p's launch,
+// its barrier and its output allocation (one buffer, sliced into views by
+// the wrapper) are what is left of that.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "occupancy.cuh"
 
 namespace {
 
@@ -223,22 +248,206 @@ int launch(const Inputs& in, int n_fields, const int8_t* codes, int n,
   return 0;
 }
 
+// ---------------------------------------------------------------- K9p
+
+constexpr int kPartitionBuckets = 2;
+constexpr int kTile = 256;  // lanes a tile; threads a block of partition_kernel
+constexpr int kTileWarps = kTile / 32;
+
+struct PartitionArgs {
+  const float* field[kMaxFields];
+  const int8_t* codes;
+  float* out[kPartitionBuckets][kMaxFields];
+  bool* in_range[kPartitionBuckets];
+  long long* counts;             // {count, overflow} per bucket
+  unsigned* barrier;             // {arrivals, generation}
+  int* block_counts;             // [bucket][block]
+  int* warp_counts;              // [bucket][tile * kTileWarps + warp]
+  int n, n_fields, n_tiles, tiles_per_block;
+  int capacity[kPartitionBuckets];
+  int has_shift[kPartitionBuckets];
+  float shift[kPartitionBuckets];
+};
+
+// Every block of the grid waits here until all have arrived.  The last to
+// arrive resets the arrivals and moves the generation on; the others spin on
+// the generation they saw before arriving.  Needs every block resident.
+__device__ __forceinline__ void grid_barrier(unsigned* barrier) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* generation = barrier + 1;
+    const unsigned seen = *generation;
+    __threadfence();
+    if (atomicAdd(barrier, 1u) == gridDim.x - 1) {
+      atomicExch(barrier, 0u);
+      __threadfence();
+      atomicAdd(barrier + 1, 1u);
+    } else {
+      while (*generation == seen) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// the sums over the block of two ints that lane 0 of each warp holds (every
+// thread gets them)
+__device__ __forceinline__ void block_sum2(int& a, int& b) {
+  __shared__ int part[kPartitionBuckets][kTileWarps];
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    part[0][warp] = a;
+    part[1][warp] = b;
+  }
+  __syncthreads();
+  a = 0;
+  b = 0;
+#pragma unroll
+  for (int w = 0; w < kTileWarps; ++w) {
+    a += part[0][w];
+    b += part[1][w];
+  }
+  __syncthreads();
+}
+
+// the sums of two ints over the 32 lanes of a warp (every lane gets them)
+__device__ __forceinline__ void warp_sum2(int& a, int& b) {
+  for (int d = 16; d > 0; d >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, d);
+    b += __shfl_xor_sync(0xffffffffu, b, d);
+  }
+}
+
+__global__ void __launch_bounds__(kTile) partition_kernel(PartitionArgs a) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int first = blockIdx.x * a.tiles_per_block;
+  const int last = min(first + a.tiles_per_block, a.n_tiles);
+
+  // 1. each warp's members per bucket in each of the block's tiles, and the
+  //    block's
+  int c0 = 0, c1 = 0;
+  for (int t = first; t < last; ++t) {
+    const int g = t * kTile + threadIdx.x;
+    const int code = g < a.n ? a.codes[g] : -1;
+    const int w0 = __popc(__ballot_sync(0xffffffffu, code == 0));
+    const int w1 = __popc(__ballot_sync(0xffffffffu, code == 1));
+    if (lane == 0) {
+      a.warp_counts[t * kTileWarps + warp] = w0;
+      a.warp_counts[(a.n_tiles + t) * kTileWarps + warp] = w1;
+    }
+    c0 += w0;
+    c1 += w1;
+  }
+  block_sum2(c0, c1);
+  if (threadIdx.x == 0) {
+    a.block_counts[blockIdx.x] = c0;
+    a.block_counts[gridDim.x + blockIdx.x] = c1;
+  }
+  grid_barrier(a.barrier);
+
+  // 2. the buckets' totals and the members before this block, from L2: each
+  //    thread sums its share of the block counts, then the warps and the block
+  int total0 = 0, total1 = 0, before0 = 0, before1 = 0;
+  for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += kTile) {
+    const int v0 = __ldcg(a.block_counts + j);
+    const int v1 = __ldcg(a.block_counts + gridDim.x + j);
+    total0 += v0;
+    total1 += v1;
+    if (j < static_cast<int>(blockIdx.x)) {
+      before0 += v0;
+      before1 += v1;
+    }
+  }
+  warp_sum2(total0, total1);
+  warp_sum2(before0, before1);
+  block_sum2(total0, total1);
+  block_sum2(before0, before1);
+  if (blockIdx.x == 0 && threadIdx.x < kPartitionBuckets) {
+    const int total = threadIdx.x == 0 ? total0 : total1;
+    const long long over = static_cast<long long>(total) - a.capacity[threadIdx.x];
+    a.counts[2 * threadIdx.x] = total;
+    a.counts[2 * threadIdx.x + 1] = over > 0 ? over : 0;
+  }
+
+  // 3. each warp on its own: its lanes' ranks from the warp counts of their
+  //    tile, then each lane's fields to the buckets it lands in
+  const int total[kPartitionBuckets] = {total0, total1};
+  int running[kPartitionBuckets] = {before0, before1};  // members before tile t
+  for (int t = first; t < last; ++t) {
+    const int g = t * kTile + threadIdx.x;
+    const int code = g < a.n ? a.codes[g] : -1;
+    int dest[kPartitionBuckets];
+    bool lands = false;
+#pragma unroll
+    for (int b = 0; b < kPartitionBuckets; ++b) {
+      // lanes 0-7 hold the tile's warp counts; an inclusive scan over them
+      const int count = lane < kTileWarps
+                            ? __ldcg(a.warp_counts + (b * a.n_tiles + t) * kTileWarps + lane)
+                            : 0;
+      int inclusive = count;
+#pragma unroll
+      for (int d = 1; d < kTileWarps; d <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, inclusive, d);
+        if (lane >= d) inclusive += up;
+      }
+      const int warps_before = __shfl_sync(0xffffffffu, inclusive - count, warp);
+      const int tile_total = __shfl_sync(0xffffffffu, inclusive, kTileWarps - 1);
+      const bool flag = code == b;
+      const int r = running[b] + warps_before +
+                    __popc(__ballot_sync(0xffffffffu, flag) & below);  // members before g
+      dest[b] = g >= a.n ? a.capacity[b] : flag ? r : total[b] + (g - r);
+      lands |= dest[b] < a.capacity[b];
+      running[b] += tile_total;
+    }
+    float v[kMaxFields] = {};
+    if (lands) {
+#pragma unroll
+      for (int f = 0; f < kMaxFields; ++f) {
+        if (f < a.n_fields) v[f] = a.field[f][g];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kPartitionBuckets; ++b) {
+      const int cap = a.capacity[b];
+      if (g < a.n) {
+        if (dest[b] < cap) {
+#pragma unroll
+          for (int f = 0; f < kMaxFields; ++f) {
+            if (f < a.n_fields) {
+              a.out[b][f][dest[b]] =
+                  (f == 0 && a.has_shift[b]) ? __fadd_rn(v[f], a.shift[b]) : v[f];
+            }
+          }
+        }
+      } else if (g < cap) {  // the zero padding past the input
+#pragma unroll
+        for (int f = 0; f < kMaxFields; ++f) {
+          if (f < a.n_fields) {
+            a.out[b][f][g] = (f == 0 && a.has_shift[b]) ? __fadd_rn(0.0f, a.shift[b]) : 0.0f;
+          }
+        }
+      }
+      if (g < cap) a.in_range[b][g] = g < total[b];
+    }
+  }
+}
+
 }  // namespace
 
-// K9c (n_buckets = 1, codes a bool mask) and K9p (n_buckets = 2, codes int8
-// buckets).  fields_in: n_fields pointers of n floats; fields_out: n_buckets
-// rows of n_fields pointers (capacities[b] floats each); in_range: n_buckets
-// pointers (capacities[b] bools).  scratch: 2 * n_buckets * ceil(n / 1024) +
-// n_buckets int32, which the wrapper allocates; counts: n_buckets x {count,
-// overflow}, int64.
+// K9c: codes a bool mask, n_buckets = 1.  fields_in: n_fields pointers of n
+// floats; fields_out: n_buckets rows of n_fields pointers (capacities[b]
+// floats each); in_range: n_buckets pointers (capacities[b] bools).
+// scratch: 2 * n_buckets * ceil(n / 1024) + n_buckets int32, which the
+// wrapper allocates; counts: n_buckets x {count, overflow}, int64.
 extern "C" int cmi_compact(const void* const* fields_in, int n_fields,
                            const void* codes, int n, int n_buckets,
                            void* const* fields_out, void* const* in_range,
                            const int* capacities, const float* shifts,
                            const int* has_shift, void* scratch, void* counts,
                            void* stream) {
-  if (n_fields < 1 || n_fields > kMaxFields || n < 0 || n_buckets < 1 ||
-      n_buckets > kMaxBuckets) {
+  if (n_fields < 1 || n_fields > kMaxFields || n < 0 || n_buckets != 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Inputs in = {};
@@ -253,10 +462,69 @@ extern "C" int cmi_compact(const void* const* fields_in, int n_fields,
     out.shift[b] = shifts[b];
     out.has_shift[b] = has_shift[b];
   }
-  const int8_t* c = static_cast<const int8_t*>(codes);
-  int* sc = static_cast<int*>(scratch);
-  long long* cn = static_cast<long long*>(counts);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_buckets == 1) return launch<1, true>(in, n_fields, c, n, out, sc, cn, s);
-  return launch<2, false>(in, n_fields, c, n, out, sc, cn, s);
+  return launch<1, true>(in, n_fields, static_cast<const int8_t*>(codes), n, out,
+                         static_cast<int*>(scratch), static_cast<long long*>(counts),
+                         static_cast<cudaStream_t>(stream));
+}
+
+// K9p in one launch.  f0..f7: the n_fields input fields of n floats (the rest
+// null); codes: n int8 buckets in {-1, 0, 1}; out: one buffer of 32 B of
+// counts (int64 {count, overflow} of bucket 0, then of bucket 1), then the
+// fields, bucket 0's n_fields rows of cap0 floats and bucket 1's of cap1,
+// then in_range, cap0 and cap1 bools.  scratch: 2 + 2 * max_blocks + 16 *
+// ceil(max(n, cap0, cap1) / 256) int32, its first two zero at the first call
+// on a stream and left so by every call; max_blocks: the blocks of
+// partition_kernel the device holds at once (cmi_partition_occupancy).
+extern "C" int cmi_partition(const float* f0, const float* f1, const float* f2,
+                             const float* f3, const float* f4, const float* f5,
+                             const float* f6, const float* f7, const int8_t* codes,
+                             void* out, int* scratch, int n, int n_fields, int cap0,
+                             int cap1, int has_shift0, int has_shift1, int max_blocks,
+                             float shift0, float shift1, void* stream) {
+  if (n_fields < 1 || n_fields > kMaxFields || n < 0 || cap0 < 0 || cap1 < 0 ||
+      max_blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PartitionArgs a = {{f0, f1, f2, f3, f4, f5, f6, f7}};
+  a.codes = codes;
+  a.counts = static_cast<long long*>(out);
+  float* fields = reinterpret_cast<float*>(static_cast<char*>(out) + 32);
+  bool* flags = reinterpret_cast<bool*>(fields + static_cast<int64_t>(n_fields) * (cap0 + cap1));
+  const int caps[kPartitionBuckets] = {cap0, cap1};
+  for (int b = 0; b < kPartitionBuckets; ++b) {
+    for (int f = 0; f < n_fields; ++f) {
+      a.out[b][f] = fields + static_cast<int64_t>(f) * caps[b];
+    }
+    a.in_range[b] = flags;
+    fields += static_cast<int64_t>(n_fields) * caps[b];
+    flags += caps[b];
+  }
+  int width = n > cap0 ? n : cap0;
+  width = width > cap1 ? width : cap1;
+  a.n_tiles = (width + kTile - 1) / kTile;
+  const int most = a.n_tiles < max_blocks ? a.n_tiles : max_blocks;
+  a.tiles_per_block = most > 0 ? (a.n_tiles + most - 1) / most : 0;
+  // no empty block; one block writes the counts of an empty call
+  const int grid =
+      a.tiles_per_block > 0 ? (a.n_tiles + a.tiles_per_block - 1) / a.tiles_per_block : 1;
+  a.barrier = reinterpret_cast<unsigned*>(scratch);
+  a.block_counts = scratch + 2;
+  a.warp_counts = scratch + 2 + 2 * grid;
+  a.n = n;
+  a.n_fields = n_fields;
+  a.capacity[0] = cap0;
+  a.capacity[1] = cap1;
+  a.has_shift[0] = has_shift0;
+  a.has_shift[1] = has_shift1;
+  a.shift[0] = shift0;
+  a.shift[1] = shift1;
+  partition_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The registers a thread of K9p's partition_kernel takes and its blocks of
+// 256 resident on one SM of the current device, and that device's SM count;
+// returns the CUDA error (0 on success).
+extern "C" int cmi_partition_occupancy(int* registers, int* blocks_per_sm, int* sms) {
+  return cmi_occupancy::query(partition_kernel, kTile, registers, blocks_per_sm, sms);
 }

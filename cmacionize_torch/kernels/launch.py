@@ -29,7 +29,8 @@ launch counted in ``kernels.LAUNCHES`` by the wrapper.  There is no fallback:
 a library that cannot be built, or a launch that fails, raises.
 
 Used by K1 (``kernels/trace_packets.py``), K4 and K4f
-(``kernels/temperature.py``), K6 (``kernels/trace_voronoi.py``), K11 and K11r
+(``kernels/temperature.py``), K5s (``kernels/trace_octree_spectral.py``), K6
+(``kernels/trace_voronoi.py``), K9p (``kernels/compact.py``), K11 and K11r
 (``kernels/gather.py``), K12s, K12t and K12r (``kernels/probe_gather.py``),
 K13f (``kernels/probe_deposit.py``) and K14c (``kernels/probe_cohort.py``);
 every other kernel keeps its own launch code.

@@ -4,16 +4,21 @@
 As :mod:`cmacionize_torch.kernels.trace_octree`, with per-packet σ_H, σ_He and
 frequency bin, and a flat [n_bins·C] tally.  Packet state and the tally are
 updated in place; the caller hands in copies of the packet state.
+
+The kernel marches the active packets in the order of :func:`packet_order`
+(a key sort made here, whose time is part of the call's), ends a packet at a
+fixed point of its step and sums each run of a warp's deposits into one
+slot before its atomicAdd.  None of these changes a packet's final state;
+the deposits are summed in another order.  It launches through
+:mod:`cmacionize_torch.kernels.launch`.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from cmacionize_torch.kernels import LAUNCHES
-from cmacionize_torch.kernels.build import load_library
+from cmacionize_torch.kernels.launch import Launcher, kernel_occupancy
 from cmacionize_torch.kernels.trace_octree import check_octree, check_tensors
 
 NAME = "trace_octree_spectral"
@@ -23,17 +28,39 @@ _BOOL_FIELDS = ("active", "absorbed")
 _POINTER_ORDER = ("root", "children", "chi_h", "chi_he", "tally", "px", "py", "pz",
                   "dx", "dy", "dz", "tau_left", "weight", "sig_h", "sig_he", "fbin",
                   "active", "absorbed")
+KEY_BITS = 30  # a packet's key is below 2^KEY_BITS
+INACTIVE_KEY = 2**31 - 1  # above every key: the inactive packets go last
+_LAUNCH = Launcher(NAME, "cmi_trace_octree_spectral", len(_POINTER_ORDER) + 2, 7, 1)
 
 
-def _launcher():
-    fn = load_library(NAME).cmi_trace_octree_spectral
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * len(_POINTER_ORDER) + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return fn
+def occupancy(device) -> dict:
+    """Registers per thread and blocks of 256 resident per SM of K5s, and the
+    SM count of CUDA ``device``."""
+    return kernel_occupancy(NAME, "cmi_trace_octree_spectral_occupancy", device)
+
+
+def bin_direction_key(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor, fbin: torch.Tensor,
+                      n_bins: int) -> torch.Tensor:
+    """int32 key of each packet: its frequency bin, then its direction's cell
+    in a cube over [-1, 1]³, x major, of side 2^((30 - b) // 3) for bins of
+    b bits (256³ for 64 bins), so that the key stays below 2^30."""
+    side = 1 << ((KEY_BITS - max(n_bins - 1, 1).bit_length()) // 3)
+    cells = [torch.clamp(((d + 1.0) * (0.5 * side)).to(torch.int32), 0, side - 1)
+             for d in (dx, dy, dz)]
+    return ((fbin * side + cells[0]) * side + cells[1]) * side + cells[2]
+
+
+def packet_order(fields: dict, n_bins: int) -> tuple:
+    """(order, n_active): int32 indices of the packets, the active ones first,
+    sorted by :func:`bin_direction_key` (``torch.argsort``), then the
+    inactive ones; and the count of active packets (a 0-d int64 tensor, on
+    the packets' device).  The kernel marches ``order[:n_active]``: the lanes
+    of a warp march neighbouring rays of one bin, whose deposits go to one
+    tally plane, and a generation's warps hold only re-emitted packets."""
+    active = fields["active"]
+    key = torch.where(active, bin_direction_key(fields["dx"], fields["dy"], fields["dz"],
+                                                fields["fbin"], n_bins), INACTIVE_KEY)
+    return torch.argsort(key).to(torch.int32), torch.count_nonzero(active)
 
 
 def trace_octree_spectral_cuda(root: torch.Tensor, children: torch.Tensor,
@@ -62,12 +89,10 @@ def trace_octree_spectral_cuda(root: torch.Tensor, children: torch.Tensor,
                  ("chi_h", torch.float32, C), ("chi_he", torch.float32, C),
                  ("tally", torch.float32, n_bins * C)]
     check_tensors("trace_octree_spectral_cuda", device, arrays, expected)
-    launch = _launcher()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    pointers = [arrays[f].data_ptr() for f in _POINTER_ORDER]
-    with torch.cuda.device(device):
-        err = launch(*pointers, n, nx, ny, nz, C, n_bins, int(max_level), float(eps),
-                     int(max_steps), stream)
-    if err != 0:
-        raise RuntimeError(f"trace_octree_spectral_cuda: CUDA error {err} at launch")
+    if n == 0:  # no packet: no launch
+        return
+    order, n_active = packet_order(fields, n_bins)
+    _LAUNCH(chi_h.get_device(), *(arrays[f].data_ptr() for f in _POINTER_ORDER),
+            order.data_ptr(), n_active.data_ptr(), n, nx, ny, nz, C, int(max_level),
+            int(max_steps), float(eps))
     LAUNCHES[NAME] += 1

@@ -2883,3 +2883,205 @@ def test_k6_wrapper_refuses_on_the_launch_path(cuda):
     assert kernels.LAUNCHES["trace_voronoi"] == 0
     with pytest.raises(TypeError):  # typed once: 13 pointers, 4 ints, a float and the stream
         k6._TRACE_VORONOI(chi.get_device(), 1, 2)
+
+
+# ------------------------------------------- K5s redesigned, K9p in one launch
+
+
+def _spectral_batch(pk, seed, n_bins=8, active=None):
+    """A SpectralPacketBatch of ``pk``'s packets with seeded σ_H, σ_He and
+    bins (numpy), and ``active`` as its flags where given."""
+    rng = np.random.default_rng(seed)
+    n, device = pk.size, pk.px.device
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    return traversal.SpectralPacketBatch(
+        *pk[:11], t(rng.uniform(0.5, 6.3, n)), t(rng.uniform(0.0, 7.0, n)),
+        torch.tensor(rng.integers(0, n_bins, n), dtype=torch.int32, device=device),
+        pk.active if active is None else active, pk.absorbed)
+
+
+def _k5s_and_plain(root, children, chi_h, chi_he, pk, march, n_bins=8, max_steps=0):
+    """(K5s's and the plain version's tally and batch) on one input; K5s
+    through the public march, one launch (none for no packets)."""
+    from cmacionize_torch.ops import amr_traversal
+
+    size = n_bins * chi_h.numel()
+    before = kernels.LAUNCHES["trace_octree_spectral"]
+    tally_k, out_k = amr_traversal.trace_packets_octree_spectral(
+        root, children, chi_h, chi_he, pk, torch.zeros(size, device=chi_h.device),
+        n_bins=n_bins, max_steps=max_steps, **march)
+    assert kernels.LAUNCHES["trace_octree_spectral"] == before + (pk.size > 0)
+    tally_r, out_r = amr_traversal.trace_packets_octree_spectral_reference(
+        root, children, chi_h, chi_he, pk, torch.zeros(size, device=chi_h.device),
+        n_bins=n_bins, max_steps=max_steps, **march)
+    torch.cuda.synchronize()
+    return (tally_k, out_k), (tally_r, out_r)
+
+
+def _tally_rel_l1(tally_k, tally_r):
+    return float((tally_k - tally_r).abs().sum()) / max(float(tally_r.abs().sum()), 1e-30)
+
+
+@pytest.mark.parametrize("max_steps", [0, 1, 2])
+def test_octree_spectral_kernel_ends_stalled_packets_as_the_plain_version(cuda, max_steps):
+    # the stalled packet of the nudge test among seeded ones: K5s ends it at
+    # its fixed point, the plain version at the cap, in the same state
+    root, children, chi, pk, march = _nudge_grid_inputs(cuda)
+    spk = _spectral_batch(pk, 31)
+    (tally_k, out_k), (tally_r, out_r) = _k5s_and_plain(
+        root, children, chi, 0.2 * chi, spk, march, max_steps=max_steps)
+    _assert_same_states(out_k, out_r)
+    assert bool(out_k.active[-2]) and float(out_k.px[-2]) == 1.0
+    assert _tally_rel_l1(tally_k, tally_r) <= 1e-4
+    if max_steps == 0:
+        assert 0 < int(out_k.absorbed.sum()) < spk.size
+
+
+@pytest.mark.parametrize("share", [0.03, 0.5])
+def test_octree_spectral_kernel_on_a_generation_mask(cuda, share):
+    # a re-emission generation: the whole batch, the re-emitted lanes active
+    # (a sparse or a half mask over 2^20 packets, many waves of blocks); the
+    # others come back as they were handed in
+    grid = _octree_grid()
+    root, children, chi_h, chi_he, spk, march = _octree_inputs(
+        grid, 12, 1 << 20, cuda, spectral=True)
+    rng = np.random.default_rng(13)
+    active = torch.tensor(rng.uniform(size=spk.size) < share, device=cuda)
+    spk = spk._replace(active=active, absorbed=~active & (torch.arange(spk.size, device=cuda)
+                                                          % 2 == 0))
+    (tally_k, out_k), (tally_r, out_r) = _k5s_and_plain(root, children, chi_h, chi_he, spk,
+                                                        march)
+    _assert_same_states(out_k, out_r)
+    assert _tally_rel_l1(tally_k, tally_r) <= 1e-4
+    frozen = ~active
+    for f in ("px", "py", "pz", "tau_left", "active", "absorbed"):
+        assert torch.equal(getattr(out_k, f)[frozen], getattr(spk, f)[frozen]), f
+    assert 0 < int(out_r.absorbed[active].sum()) <= int(active.sum())
+
+
+def test_octree_spectral_kernel_with_every_lane_inactive(cuda):
+    grid = _octree_grid(max_level=3, zone=0.25)
+    root, children, chi_h, chi_he, spk, march = _octree_inputs(
+        grid, 14, 5000, cuda, spectral=True)
+    spk = spk._replace(active=torch.zeros_like(spk.active))
+    (tally_k, out_k), (tally_r, out_r) = _k5s_and_plain(root, children, chi_h, chi_he, spk,
+                                                        march)
+    _assert_same_states(out_k, out_r)
+    for f in ("px", "py", "pz", "tau_left", "active", "absorbed"):
+        assert torch.equal(getattr(out_k, f), getattr(spk, f)), f
+    assert float(tally_k.abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("n", [0, 1, 33])
+def test_octree_spectral_kernel_on_few_packets(cuda, n):
+    root, children, chi, pk, march = _nudge_grid_inputs(cuda, n=40)
+    pk = pk._replace(**{f: v[-n:] if n else v[:0] for f, v in pk._asdict().items()})
+    spk = _spectral_batch(pk, 15)
+    (tally_k, out_k), (tally_r, out_r) = _k5s_and_plain(root, children, chi, 0.2 * chi, spk,
+                                                        march)
+    _assert_same_states(out_k, out_r)
+    assert float((tally_k - tally_r).abs().sum()) <= 1e-4 * max(float(tally_r.sum()), 1e-30)
+
+
+def test_octree_spectral_occupancy_and_launch_path(cuda):
+    from cmacionize_torch.kernels import trace_octree_spectral as k5s
+
+    layout = k5s.occupancy(cuda)
+    assert layout["registers"] > 0 and layout["blocks_per_sm"] >= 1 and layout["sms"] > 0
+    assert k5s._LAUNCH.function is not None  # bound by the launches above or now
+    with pytest.raises(TypeError):  # typed once: 20 pointers, 7 ints, a float and the stream
+        k5s._LAUNCH(cuda.index or 0, 1, 2)
+
+
+def _partition_inputs(n, members, seed, device):
+    rng = np.random.default_rng(seed)
+    fields = tuple(torch.tensor(rng.standard_normal(n).astype(np.float32), device=device)
+                   for _ in range(8))
+    codes = {"none": np.full(n, -1), "all left": np.zeros(n), "all right": np.ones(n),
+             "mixed": rng.choice([-1, 0, 1], size=n, p=[0.6, 0.25, 0.15])}[members]
+    return fields, torch.tensor(codes.astype(np.int8), device=device)
+
+
+def _assert_same_partition(out, ref):
+    for (f, r, o), (fr, rr, orr) in zip(out, ref, strict=True):
+        assert len(f) == len(fr) and all(_same_bits(a, b) for a, b in zip(f, fr))
+        assert torch.equal(r, rr) and int(o) == int(orr)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 1025, 70_001])
+@pytest.mark.parametrize("members", ["none", "all left", "all right", "mixed"])
+@pytest.mark.parametrize("capacities", ["zero", "past n", "mixed"])
+def test_partition_kernel_edge_cases(cuda, n, members, capacities):
+    """K9p in one launch against partition_reference: every lane, bit and
+    count, with and without the frame shift, and twice for the same bits."""
+    from cmacionize_torch.parallel import domain
+
+    fields, bucket = _partition_inputs(n, members, n + len(members), cuda)
+    caps = {"zero": (0, 0), "past n": (n + 5, n + 2000),
+            "mixed": (n // 3, n + 1)}[capacities]
+    for shifts in ((16.0, -16.0), (None, None), (None, 0.1)):
+        kernels.LAUNCHES.clear()
+        out = domain.partition(fields, bucket, caps, shifts)
+        again = domain.partition(fields, bucket, caps, shifts)
+        assert kernels.LAUNCHES["partition"] == 2
+        ref = domain.partition_reference(fields, bucket, caps, shifts)
+        _assert_same_partition(out, ref)
+        _assert_same_partition(again, out)
+
+
+def test_partition_kernel_with_fewer_fields_and_on_a_side_stream(cuda):
+    from cmacionize_torch.parallel import domain
+
+    fields, bucket = _partition_inputs(300_000, "mixed", 5, cuda)
+    ref = domain.partition_reference(fields[:3], bucket, (90_000, 70_000), (2.0, None))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = domain.partition(fields[:3], bucket, (90_000, 70_000), (2.0, None))
+    torch.cuda.current_stream().wait_stream(side)
+    _assert_same_partition(out, ref)
+    _assert_same_partition(domain.partition(fields[:3], bucket, (90_000, 70_000), (2.0, None)),
+                           ref)
+
+
+def test_partition_kernel_in_a_cuda_graph(cuda):
+    # the first call on the capture's stream makes its scratch inside the
+    # capture, zeroed by each replay; a later call outside takes its own
+    from cmacionize_torch.parallel import domain
+
+    fields, bucket = _partition_inputs(100_000, "mixed", 6, cuda)
+    caps, shifts = (30_000, 30_000), (1.0, -1.0)
+    ref = domain.partition_reference(fields, bucket, caps, shifts)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        domain.partition(fields, bucket, caps, shifts)  # builds and binds outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = domain.partition(fields, bucket, caps, shifts)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    _assert_same_partition(out, ref)
+    _assert_same_partition(domain.partition(fields, bucket, caps, shifts), ref)
+
+
+def test_partition_kernel_occupancy_and_refusals(cuda):
+    from cmacionize_torch.kernels import compact
+
+    layout = compact.occupancy(cuda)
+    assert layout["blocks_per_sm"] >= 1 and layout["sms"] > 0
+    f = torch.zeros(10, device=cuda)
+    codes = torch.zeros(10, dtype=torch.int8, device=cuda)
+    kernels.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="int8"):
+        compact.partition_cuda((f,), codes.bool(), (4, 4))
+    with pytest.raises(ValueError, match="capacities"):
+        compact.partition_cuda((f,), codes, (4, -1))
+    with pytest.raises(ValueError, match="fields"):
+        compact.partition_cuda((f,) * 9, codes, (4, 4))
+    with pytest.raises(ValueError, match="field 0"):
+        compact.partition_cuda((f[:9],), codes, (4, 4))
+    assert kernels.LAUNCHES["partition"] == 0
