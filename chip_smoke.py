@@ -97,8 +97,12 @@ Phases (any failed check raises, so the script exits non-zero):
     volume against the Strömgren volume;
 17. K7 parity on the same grid: the moving-face Godunov update against its
     plain version (a hot rarefied interior, a dense shell, random
-    velocities), second and first order: trial flags, each field, the share
-    of cells with non-zero density and pressure gradients; both timed;
+    velocities), second and first order: trial flags, each field and
+    whether every field and gradient is bit for bit, the share of cells
+    with non-zero density and pressure gradients and of the real faces that
+    touch a flagged cell; both timed, K7 also by kernel, with its four
+    kernels' registers, spills and blocks a SM, and its bound over the real
+    faces beside the old one over all K slots;
 18. main path: starbench_voronoi at full size (5e5 × 10 packets per step,
     1024 steps, static mesh, second order) through VoronoiRHDSimulation.run,
     timed, with the K6 and K7 launch counts, the front radius at ten outputs
@@ -178,10 +182,13 @@ Phases (any failed check raises, so the script exits non-zero):
     step (one host read of the live count each), zero overflow and
     truncation, the mass drift, R(t) at the three outputs reached against
     phase 7's and the band; then one step under torch.profiler;
-31. K9p and K9c parity: on the sends (exits and pending lanes) and the
-    merges of every slab in the first superstep of one more phase-30 step,
-    and on every shard of phase 29's first exchange: identical lanes, bits
-    and counts; K9c and K9p timed at the starbench shapes, K9c beside a
+31. K9p and K9c parity: on the copy-phase compactions, the sends (exits
+    and pending lanes) and the merges (the two received buffers as K9c's
+    segments) of every slab in the first superstep of one more phase-30
+    step, and on every shard of phase 29's first exchange (K9c on its three
+    segments): identical lanes, bits and counts to compact_reference of the
+    concatenation; K9c and K9p timed at the starbench shapes, K9c (a) back
+    to back, (b) on the device alone and (c) its host µs per call beside a
     stable argsort and a gather, K9p on every slab's send and with its host
     µs per call; the shapes of every K9p call of that step, their mean
     bound, and K9p's time a launch in phase 30's profiled step;
@@ -294,6 +301,7 @@ from cmacionize_torch.kernels import trace_octree as trace_octree_ops
 from cmacionize_torch.kernels import trace_octree_spectral as trace_octree_spectral_ops
 from cmacionize_torch.kernels import trace_packets as trace_packets_ops
 from cmacionize_torch.kernels import trace_voronoi as trace_voronoi_ops
+from cmacionize_torch.kernels import voronoi_flux as voronoi_flux_ops
 from cmacionize_torch.kernels.peel_off import peel_off_cuda
 from cmacionize_torch.kernels.peel_off_polarized import peel_off_polarized_cuda
 from cmacionize_torch import constants
@@ -1719,13 +1727,22 @@ def voronoi_flux_parity(grid, device, dt) -> dict:
         for name, a, b in zip(out_r._fields, out_r, out_k):
             check(bool(torch.isfinite(b).all()), f"K7: {name} finite")
             errs[name] = float((a - b).abs().max() / a.abs().max())
+        identical = all(same_bits(a, b) for a, b in zip(out_r, out_k))
         moved = float((out_r.energy - state.energy).abs().max() / state.energy.abs().max())
         text = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        text += f"; every field bit for bit: {identical}"
         if second_order:
             same = bool(torch.equal(stats_k["flag"], stats_r["flag"]))
             grads = stats_k["gradients"].abs().sum(-1) > 0  # [5, C]
             share = [float(g.double().mean()) for g in grads]
-            text += (f"; trial flags identical: {same} ({int(stats_r['flag'].sum())} flagged); "
+            nbr = tables.neighbors
+            real = nbr != -2
+            flag = stats_r["flag"]
+            touching = (flag[:, None] | ((nbr >= 0) & flag[nbr.clamp_min(0).long()])) & real
+            text += (f"; gradients bit for bit: "
+                     f"{same_bits(stats_k['gradients'], stats_r['gradients'])}; trial flags "
+                     f"identical: {same} ({int(flag.sum())} flagged, "
+                     f"{int(touching.sum())} of {int(real.sum())} real faces touch one); "
                      f"cells with non-zero gradients: rho {share[0]:.4f}, vx {share[1]:.4f}, "
                      f"p {share[4]:.4f}")
             check(same, "K7 trial flags differ from the plain version's")
@@ -1743,13 +1760,30 @@ def voronoi_flux_parity(grid, device, dt) -> dict:
     ms = time_cuda(kernel, 50)
     plain_ms = time_cuda(lambda: voronoi_hydro.voronoi_flux_update_reference(
         *tables, state, gen_vel, dt, gamma, True), 3)
+    split = launch_cost.device_split(kernel, 20)
     log(f"timing K7 (second order) on {grid.n_cells} cells: K7 {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms per update (CUDA events)")
+        f"{plain_ms:.4f} ms per update (CUDA events); on the device by kernel (ms a call, "
+        f"torch.profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    report, layout = voronoi_flux_ops.ptxas_report(), voronoi_flux_ops.occupancy(device)
+    log("  K7's layout: " + "; ".join(
+        f"{name}_kernel {report.get(name, {}).get('registers')} registers, "
+        f"{report.get(name, {}).get('stack')} B of stack, "
+        f"{report.get(name, {}).get('spill_stores')} / {report.get(name, {}).get('spill_loads')}"
+        f" B of spill stores / loads"
+        + (f", {layout[name]['blocks_per_sm']} blocks of 256 a SM" if name in layout else "")
+        for name in voronoi_flux_ops.KERNELS))
     C, K = grid.n_cells, grid.max_faces
     faces = int((grid.neighbors != -2).sum())
-    # state in and out; rows: nbr, normals, A/V, two arms; the grid velocity
-    bound = roofline(f"K7 (second order; {faces} real faces)", 40 * C + C * K * 44 + 12 * C,
-                     OPS_PER_K7_FACE * faces + OPS_PER_K7_CELL * C, F32_OPS_PER_S)
+    # state in and out, the grid velocity; of the rows (nbr, normals, A/V,
+    # two arms) only the real faces' bytes: the padding slots' reads are the
+    # kernel's choice, not the function's work
+    ops = OPS_PER_K7_FACE * faces + OPS_PER_K7_CELL * C
+    old = roofline(f"K7 counting all {C} x {K} slots' rows",
+                   40 * C + C * K * 44 + 12 * C, ops, F32_OPS_PER_S)
+    bound = roofline(f"K7 (second order; {faces} real faces' rows)", 40 * C + faces * 44 + 12 * C,
+                     ops, F32_OPS_PER_S)
+    log(f"  K7's bound {bound['bound_ms']:.6f} ms counting the real faces' rows, "
+        f"{old['bound_ms']:.6f} ms counting all K slots")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
@@ -1808,7 +1842,8 @@ def starbench_voronoi(grid, device):
     profile_window(f"{PROFILED_STEPS} starbench_voronoi steps at t = {sim.time / MYR:.4f} Myr",
                    lambda: sim.run(PROFILED_STEPS),
                    {"K6": ("trace_voronoi_kernel",),
-                    "K7": ("gradients_kernel", "trial_kernel", "update_kernel")})
+                    "K7": ("primitives_kernel", "gradients_kernel", "trial_kernel",
+                           "update_kernel")})
     with capturing(voronoi, "trace_packets_voronoi", {SBV_NLOOP - 1: "last"},
                    lambda grid_, chi_si, packets, **kw: (chi_si.clone(), clone_batch(packets))
                    ) as captured:
@@ -2667,6 +2702,29 @@ def copy_exchange(mesh, fields, mask, target, axis, capacity):
             [m.clone() for m in mask], [t.clone() for t in target], axis, capacity)
 
 
+def copy_segments(segments, capacity):
+    """A K9c call's segments (fields, mask) cloned, the fields as the call
+    gave them (a 2-D tensor or a tuple), and its capacity."""
+    def clone(fields):
+        return fields.clone() if torch.is_tensor(fields) else tuple(f.clone() for f in fields)
+    return tuple((clone(f), m.clone()) for f, m in segments), capacity
+
+
+def compact_concatenation(segments, capacity):
+    """compact_reference of the concatenation of ``segments``, the fields
+    stacked as K9c gives them: the plain version of a K9c call."""
+    fields = [torch.cat(rows) for rows in zip(*(f for f, _ in segments))]
+    out, in_range, overflow = parallel_domain.compact_reference(
+        fields, torch.cat([m for _, m in segments]), capacity)
+    return torch.stack(out), in_range, overflow
+
+
+def partition_stacked(fields, bucket, capacities, shifts=(None, None)):
+    """partition_reference with each bucket's fields stacked as K9p gives them."""
+    return [(torch.stack(f), r, o) for f, r, o in
+            parallel_domain.partition_reference(fields, bucket, capacities, shifts)]
+
+
 def sharded_stromgren(config: HOnlyConfig, single_volume: int):
     """Phase 29: stromgren.param through ShardedHOnlyIonizationSimulation on
     (2, 2, 2) tiles, all eight shards on the card."""
@@ -2798,24 +2856,29 @@ def sharded_starbench(device, single_outputs):
         f"one sharded starbench step at t = {sim.time / MYR:.4f} Myr",
         lambda: sim.advance(1, log_every=10**9),
         {"K1": ("trace_packets_kernel",), "K3": ("muscl_",),
-         "K9c": ("compact_count_kernel<1", "compact_scan_kernel<1", "compact_scatter_kernel<1"),
-         "K9p": ("partition_kernel",)})
+         "K9c": ("exchange_kernel<1",), "K9p": ("exchange_kernel<2",)})
     log(f"  the profiled step: {sim.supersteps[-1]} supersteps, launches {dict(kernels.LAUNCHES)}")
-    # one more step, whose first superstep's sends and merges (the four
-    # slabs' K9p and K9c inputs; the copy phase's four K9c calls come first)
-    # are kept for phase 31, and the shape of its every K9p call
+    # one more step, whose copy phase and first superstep (the four slabs'
+    # K9c copy-phase calls first, then their K9p sends and their K9c merges
+    # of the two received buffers) are kept for phase 31, and the shape of
+    # its every K9p call
     keep = {i: i for i in range(shards)}
+    compactions = {**{i: ("copy", i) for i in range(shards)},
+                   **{shards + i: ("merge", i) for i in range(shards)}}
     with capturing(parallel_domain, "partition", keep, copy_args) as sends, \
-            capturing(parallel_domain, "compact", {shards + i: i for i in range(shards)},
-                      copy_args) as merges, recording_partitions() as shapes:
+            capturing(parallel_domain, "compact_segments", compactions,
+                      copy_segments) as kept, recording_partitions() as shapes:
         sim.advance(1, log_every=10**9)
-    check(len(sends) == shards and len(merges) == shards,
-          f"kept {len(sends)} sends and {len(merges)} merges of the first superstep")
+    check(len(sends) == shards and len(kept) == 2 * shards,
+          f"kept {len(sends)} sends and {len(kept)} compactions of the first superstep")
     capacity = parallel_domain.default_capacity(cfg.n_photons)
+    lanes = {label: [m.numel() for _, m in segments] for label, (segments, _) in kept.items()}
     check(all(args[1].numel() == 2 * cfg.n_photons for args, _ in sends.values())
-          and all(args[1].numel() == 2 * capacity for args, _ in merges.values()),
-          "the kept calls are the first superstep's sends (2W lanes) and merges")
-    return launches, sends, merges, {"shapes": shapes, "profiled": profiled.get("K9p")}
+          and all(lanes[("merge", i)] == [capacity, capacity] for i in range(shards))
+          and all(len(lanes[("copy", i)]) == 1 for i in range(shards)),
+          f"the kept calls are the copy phase's, the first superstep's sends (2W lanes) and "
+          f"merges (two received buffers): {lanes}")
+    return launches, sends, kept, {"shapes": shapes, "profiled": profiled.get("K9p")}
 
 
 @contextlib.contextmanager
@@ -2878,7 +2941,7 @@ def argsort_gather(fields, mask, capacity):
     return [f[idx] for f in fields]
 
 
-def exchange_parity(starbench_sends, starbench_merges, stromgren_exchange, step) -> tuple:
+def exchange_parity(starbench_sends, starbench_compactions, stromgren_exchange, step) -> tuple:
     """Phase 31: K9p and K9c against their plain versions on the sharded
     runs' own inputs, every lane and bit and count, and timed at the
     starbench shapes (the slab that sent, and the one that received, the
@@ -2915,7 +2978,7 @@ def exchange_parity(starbench_sends, starbench_merges, stromgren_exchange, step)
         f"of {capacities}: K9p {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events); on the "
         f"device alone {device_ms:.4f} ms (a CUDA graph of 50 calls, launch_cost.graph_ms); host "
         f"{host['K9p']:.3f} us per call (launch_cost.host_us); {layout['registers']} registers, "
-        f"{layout['blocks_per_sm']} blocks of {compact_ops.PARTITION_TILE} a SM x "
+        f"{layout['blocks_per_sm']} blocks of {compact_ops.TILE} a SM x "
         f"{layout['sms']} SMs, one launch a call")
     p_record = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                 **roofline("K9p", p_bytes, 0.0, F32_OPS_PER_S)}
@@ -2931,24 +2994,46 @@ def exchange_parity(starbench_sends, starbench_merges, stromgren_exchange, step)
         + (f"{profiled[0] / max(profiled[1], 1) * 1e3:.4f} ms a launch over {profiled[1]} "
            f"launches" if profiled else "not seen by the profiler"))
 
-    received = {}
-    for slab, ((mfields, mmask, mcap), _) in sorted(starbench_merges.items()):
-        out = [parallel_domain.compact(mfields, mmask, mcap)]
-        ref = [parallel_domain.compact_reference(mfields, mmask, mcap)]
-        compare_compactions(f"K9c (sharded starbench, slab {slab}, the merge)", out, ref)
-        received[slab] = int(mmask.sum())
-    log(f"K9c parity on that superstep's merges, every slab: {mmask.numel()} lanes, capacity "
-        f"{mcap}, received per slab {received}: identical in every lane, bit and count")
+    for label in ("copy", "merge"):
+        counts = {}
+        for (kind, slab), (segments, cap) in sorted(starbench_compactions.items()):
+            if kind != label:
+                continue
+            compare_compactions(f"K9c (sharded starbench, slab {slab}, the {label})",
+                                [parallel_domain.compact_segments(segments, cap)],
+                                [compact_concatenation(segments, cap)])
+            counts[slab] = ([m.numel() for _, m in segments], [int(m.sum()) for _, m in segments])
+        log(f"K9c parity on the {label} calls of that step, every slab ((lanes, members) of each "
+            f"segment per slab {counts}, capacity {cap}): identical in every lane, bit and count "
+            f"to compact_reference of the concatenation")
+    merges = {slab: v for (kind, slab), v in starbench_compactions.items() if kind == "merge"}
+    received = {slab: sum(int(m.sum()) for _, m in segments)
+                for slab, (segments, _) in merges.items()}
     slab = max(received, key=received.get)
-    (mfields, mmask, mcap), _ = starbench_merges[slab]
-    ms = time_cuda(lambda: parallel_domain.compact(mfields, mmask, mcap), 50)
-    plain_ms = time_cuda(lambda: parallel_domain.compact_reference(mfields, mmask, mcap), 10)
-    library_ms = time_cuda(lambda: argsort_gather(mfields, mmask, mcap), 10)
-    log(f"timing K9c on slab {slab}'s merge ({mmask.numel()} lanes, {received[slab]} "
-        f"received, capacity {mcap}): K9c {ms:.4f} ms, plain {plain_ms:.4f} ms, stable "
-        f"argsort + gather {library_ms:.4f} ms (CUDA events)")
+    segments, mcap = merges[slab]
+    whole = ([torch.cat(rows) for rows in zip(*(f for f, _ in segments))],
+             torch.cat([m for _, m in segments]))
+
+    def merge():
+        return parallel_domain.compact_segments(segments, mcap)
+
+    ms = time_cuda(merge, 50)
+    device_ms = launch_cost.graph_ms(merge)
+    host = launch_cost.host_us({"K9c": merge}, 2000)["K9c"]
+    plain_ms = time_cuda(lambda: parallel_domain.compact_reference(*whole, mcap), 10)
+    library_ms = time_cuda(lambda: argsort_gather(*whole, mcap), 10)
+    layout = compact_ops.occupancy(whole[1].device, compact_ops.COMPACT)
+    log(f"timing K9c on slab {slab}'s merge (received buffers of "
+        f"{[m.numel() for _, m in segments]} lanes read in place, {received[slab]} packets "
+        f"received, capacity {mcap}): (a) K9c "
+        f"{ms:.4f} ms a call back to back (CUDA events), (b) {device_ms:.4f} ms on the device "
+        f"alone (a CUDA graph of 50 calls, launch_cost.graph_ms), (c) host {host:.3f} us a call "
+        f"(launch_cost.host_us); plain {plain_ms:.4f} ms (on the concatenation), stable "
+        f"argsort + gather {library_ms:.4f} ms; {layout['registers']} registers, "
+        f"{layout['blocks_per_sm']} blocks of {compact_ops.TILE} a SM x {layout['sms']} SMs, "
+        f"one launch a call")
     c_record = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                **roofline("K9c", exchange_bytes(len(mfields), [mmask], (mcap,)),
+                **roofline("K9c", exchange_bytes(len(whole[0]), [whole[1]], (mcap,)),
                            0.0, F32_OPS_PER_S), "library_ms": library_ms}
 
     # one x exchange of the sharded stromgren run, every shard
@@ -2966,8 +3051,8 @@ def exchange_parity(starbench_sends, starbench_merges, stromgren_exchange, step)
         lanes += int(go_minus.sum() + go_plus.sum())
     kernel_result = domain3d._exchange_axis(mesh, sfields, smask, starget, axis, capacity)
     with contextlib.ExitStack() as stack:
-        stack.enter_context(swapped(domain3d, "partition", parallel_domain.partition_reference))
-        stack.enter_context(swapped(domain3d, "compact", parallel_domain.compact_reference))
+        stack.enter_context(swapped(domain3d, "partition", partition_stacked))
+        stack.enter_context(swapped(domain3d, "compact_segments", compact_concatenation))
         plain_result = domain3d._exchange_axis(mesh, sfields, smask, starget, axis, capacity)
     for i in range(mesh.size):
         compare_compactions(f"K9c (sharded stromgren exchange, shard {i})",
@@ -3916,11 +4001,11 @@ def main() -> None:
     del dust_sim, dust_captured, pol_captured
 
     sharded_launches, stromgren_exchange = sharded_stromgren(config, stromgren_volume)
-    sbs_launches, starbench_sends, starbench_merges, sbs_step = sharded_starbench(
+    sbs_launches, starbench_sends, starbench_compactions, sbs_step = sharded_starbench(
         device, star_outputs)
     compact_record, partition_record = exchange_parity(
-        starbench_sends, starbench_merges, stromgren_exchange, sbs_step)
-    del stromgren_exchange, starbench_sends, starbench_merges
+        starbench_sends, starbench_compactions, stromgren_exchange, sbs_step)
+    del stromgren_exchange, starbench_sends, starbench_compactions
 
     cone_sim, cone_x, cone_launches = cone_stromgren(config, device, stromgren_volume)
     cone_record = cone_parity(cone_sim, cone_x, device)

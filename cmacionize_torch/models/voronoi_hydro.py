@@ -209,8 +209,11 @@ def voronoi_flux_update_reference(
     [C,K] f32 A_face/V_cell (1/m); ``face_rel`` [C,K,3] f32 face point − cell
     generator (m); ``nbr_rel`` [C,K,3] f32 neighbour − cell generator (m);
     ``gen_vel`` [C,3] f32 grid velocity; ``dt`` rounded to f32.  With
-    ``stats``, ``stats["flag"]`` receives the trial flags (second order) and
-    ``stats["gradients"]`` the limited gradients [5, C, 3].
+    ``stats``, ``stats["flag"]`` receives the trial flags (second order),
+    ``stats["gradients"]`` the limited gradients [5, C, 3], and
+    ``stats["trial_products"]`` (second order) and ``stats["products"]``
+    each face's five fluxes times A/V * active * dt [C, K, 5] of the trial
+    and of the final pass, whose sums in face order the update takes.
     """
     dt = float(np.float32(dt))
     rho, vx, vy, vz, p = primitives_from_conserved(state, None, gamma)
@@ -323,7 +326,9 @@ def voronoi_flux_update_reference(
     w_n = torch.where(is_cell, 0.5 * (gvn + gvn_nbr), 0.0)
     wA = area_over_vol * (is_cell | is_wall).to(area_over_vol.dtype) * dt
 
-    def deltas(rhoL, uL, ut1L, ut2L, pL, rhoR, uR, ut1R, ut2R, pR):
+    def products(rhoL, uL, ut1L, ut2L, pL, rhoR, uR, ut1R, ut2R, pR):
+        """[C, K, 5]: each face's mass, momentum (x, y, z) and energy flux
+        times A/V * active * dt."""
         flux = riemann.hllc_flux(
             rhoL, uL - w_n, ut1L, ut2L, pL,
             rhoR, uR - w_n, ut1R, ut2R, pR,
@@ -335,17 +340,21 @@ def voronoi_flux_update_reference(
         f_un = f_un + w_n * f_rho
         # rotate momentum flux back to xyz
         fm = f_un[..., None] * n + f_ut1[..., None] * t1 + f_ut2[..., None] * t2
-        return (
-            -_ksum(f_rho * wA),
-            torch.stack([-_ksum(fm[..., a] * wA) for a in range(3)], -1),
-            -_ksum(f_e * wA),
-        )
+        return torch.stack([f_rho * wA, *(fm[..., a] * wA for a in range(3)), f_e * wA], -1)
+
+    def deltas(*states, key=None):
+        x = products(*states)
+        if stats is not None and key is not None:
+            stats[key] = x
+        return (-_ksum(x[..., 0]), torch.stack([-_ksum(x[..., 1 + a]) for a in range(3)], -1),
+                -_ksum(x[..., 4]))
 
     if second_order:
         # trial second-order update → flag cells it would strongly drain;
         # then recompute with first-order states on every face touching a
         # flagged cell (symmetric, so conservation is untouched)
-        d2 = deltas(rhoL2, uL2, ut1L2, ut2L2, pL2, rhoR2, uR2, ut1R2, ut2R2, pR2)
+        d2 = deltas(rhoL2, uL2, ut1L2, ut2L2, pL2, rhoR2, uR2, ut1R2, ut2R2, pR2,
+                    key="trial_products")
         rho2 = state.rho + d2[0]
         e2 = state.energy + d2[2]
         flag = ((rho2 < 0.25 * state.rho) | (e2 < 0.25 * state.energy)
@@ -361,11 +370,11 @@ def voronoi_flux_update_reference(
             pick(rhoL1, rhoL2), pick(uL1, uL2), pick(ut1L1, ut1L2),
             pick(ut2L1, ut2L2), pick(pL1, pL2),
             pick(rhoR1, rhoR2), pick(uR1, uR2), pick(ut1R1, ut1R2),
-            pick(ut2R1, ut2R2), pick(pR1, pR2),
+            pick(ut2R1, ut2R2), pick(pR1, pR2), key="products",
         )
     else:
         d_rho, d_mom, d_energy = deltas(
-            rhoL1, uL1, ut1L1, ut2L1, pL1, rhoR1, uR1, ut1R1, ut2R1, pR1)
+            rhoL1, uL1, ut1L1, ut2L1, pL1, rhoR1, uR1, ut1R1, ut2R1, pR1, key="products")
     return VoronoiHydroState(
         rho=state.rho + d_rho,
         mom_x=state.mom_x + d_mom[:, 0],

@@ -15,7 +15,9 @@ global live count per superstep.  The march with exit state is
 :func:`~cmacionize_torch.ops.traversal.trace_packets` (K1 on the card),
 whose returned batch carries each packet's final state.  The send side of an
 exchange is K9p (:func:`partition`), the re-compaction of the received
-lanes K9c (:func:`compact`); on CPU tensors both run their plain versions.
+lanes K9c (:func:`compact_segments`, which reads the two received buffers in
+place); on CPU tensors both run their plain versions.  A carry and a buffer
+hold the packet fields as the rows of one [8, W] tensor.
 
 Not ported: the sharded spectral trace (``make_domain_spectral_trace``),
 ``make_domain_rhd_step``'s optional physics (gravity, masks, inflow) and its
@@ -30,7 +32,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from cmacionize_torch import constants
-from cmacionize_torch.kernels.compact import compact_cuda, partition_cuda
+from cmacionize_torch.kernels.compact import compact_segments_cuda, partition_cuda
 from cmacionize_torch.models import sources
 from cmacionize_torch.ops import hydro as hydro_mod
 from cmacionize_torch.ops import ionization, traversal
@@ -72,14 +74,57 @@ def compact_reference(fields, mask: torch.Tensor, capacity: int):
     return out, in_range, overflow
 
 
+def compact_segments_reference(segments, capacity: int):
+    """Plain form of K9c on segments: each lane of the concatenation of
+    ``segments`` ((fields, mask) each) placed where the kernel places it,
+    without forming the concatenation.  A member goes to its rank r among
+    the members before it, any other lane g to count + (g - r); the lanes
+    placed at or past ``capacity`` are dropped and the rest of the output is
+    zero.  The same function as :func:`compact_reference` of the
+    concatenation.
+
+    Returns (fields [n_fields, capacity], in_range [capacity] bool,
+    overflow)."""
+    masks = [mask for _, mask in segments]
+    count = sum(torch.sum(m, dtype=torch.int64) for m in masks)
+    first = torch.stack(list(segments[0][0]))
+    out = first.new_zeros((first.shape[0], capacity))
+    lanes_before, members_before = 0, 0
+    for fields, mask in segments:
+        n = mask.shape[0]
+        g = lanes_before + torch.arange(n, device=mask.device)
+        rank = members_before + torch.cumsum(mask, 0) - mask.long()
+        dest = torch.where(mask, rank, count + g - rank)
+        lands = dest < capacity
+        out[:, dest[lands]] = torch.stack(list(fields))[:, lands]
+        lanes_before += n
+        members_before = members_before + torch.sum(mask, dtype=torch.int64)
+    in_range = torch.arange(capacity, device=out.device) < count
+    return out, in_range, torch.clamp_min(count - capacity, 0)
+
+
+def compact_segments(segments, capacity: int):
+    """Compact the concatenation of ``segments`` ((fields, mask) each, 1 to
+    3; fields a [n_fields, n] tensor or a sequence of [n] ones): the members
+    first, then the other lanes, each part in order, truncated or padded to
+    ``capacity`` (see :func:`compact_reference`).  CPU tensors run the plain
+    version on the concatenation; CUDA tensors launch K9c
+    (``kernels.compact.compact_segments_cuda``), which reads the segments in
+    place and counts its launches in ``kernels.LAUNCHES["compact"]``.
+
+    Returns (fields [n_fields, capacity], in_range, overflow)."""
+    if segments[0][1].device.type == "cpu":
+        fields = [torch.cat(rows) for rows in zip(*(f for f, _ in segments))]
+        out, in_range, overflow = compact_reference(
+            fields, torch.cat([m for _, m in segments]), capacity)
+        return torch.stack(out), in_range, overflow
+    return compact_segments_cuda(segments, capacity)
+
+
 def compact(fields, mask: torch.Tensor, capacity: int):
     """Gather the members of ``mask`` to the front, truncate or pad to
-    ``capacity`` (see :func:`compact_reference`).  CPU tensors run the plain
-    version; CUDA tensors launch K9c (``kernels.compact.compact_cuda``),
-    which counts its launches in ``kernels.LAUNCHES["compact"]``."""
-    if mask.device.type == "cpu":
-        return compact_reference(fields, mask, capacity)
-    return compact_cuda(fields, mask, capacity)
+    ``capacity``: :func:`compact_segments` of one segment."""
+    return compact_segments(((fields, mask),), capacity)
 
 
 def partition_reference(fields, bucket: torch.Tensor, capacities, shifts=(None, None)):
@@ -97,11 +142,13 @@ def partition_reference(fields, bucket: torch.Tensor, capacities, shifts=(None, 
 
 def partition(fields, bucket: torch.Tensor, capacities, shifts=(None, None)):
     """The send side of one exchange: bucket 0 (minus) and bucket 1 (plus)
-    compacted into their buffers in one pass.  CPU tensors run
-    :func:`partition_reference`; CUDA tensors launch K9p
-    (``kernels.compact.partition_cuda``, ``kernels.LAUNCHES["partition"]``)."""
+    compacted into their buffers in one pass, [(fields [n_fields, capacity],
+    in_range, overflow)].  CPU tensors run :func:`partition_reference`;
+    CUDA tensors launch K9p (``kernels.compact.partition_cuda``,
+    ``kernels.LAUNCHES["partition"]``)."""
     if bucket.device.type == "cpu":
-        return partition_reference(fields, bucket, capacities, shifts)
+        return [(torch.stack(f), in_range, overflow) for f, in_range, overflow
+                in partition_reference(fields, bucket, capacities, shifts)]
     return partition_cuda(fields, bucket, capacities, shifts)
 
 
@@ -227,11 +274,13 @@ def _device_slab_mc_loop(
         live = [_count(active[i] | pend_l[i] | pend_r[i]) for i in shards]
         return int(mesh.psum(live, axis)[0])  # the superstep's one host read
 
+    pad = W - 2 * capacity  # the merge compacts only where the buffers overfill the carry
     step = 0
     while step < max_supersteps and n_live() > 0:
         sends = []
         for i in shards:
-            px, py, pz, dxv, dyv, dzv, tau, w = carry[i]
+            rows = tuple(carry[i])
+            px, py, pz, dxv, dyv, dzv, tau, w = rows
             cy = torch.clamp(torch.floor(py).to(torch.int32), 0, ny - 1)
             cz = torch.clamp(torch.floor(pz).to(torch.int32), 0, nz - 1)
             cx_in = torch.clamp(torch.floor(px).to(torch.int32), 0, nx_loc - 1)
@@ -262,31 +311,27 @@ def _device_slab_mc_loop(
             n_esc[i] = n_esc[i] + _count(esc_t) + _count(esc_p)
 
             exch = tuple(
-                torch.cat([getattr(ex, name), f])
-                for name, f in zip(PACKET_FIELDS, carry[i])
-            )
+                torch.cat([getattr(ex, name), f]) for name, f in zip(PACKET_FIELDS, rows))
             bucket = bucket_codes(torch.cat([go_l_t, go_l_p]), torch.cat([go_r_t, go_r_p]))
             # shift the local x coordinate into the receiver's frame
             (send_l, mask_l, ov_l), (send_r, mask_r, ov_r) = partition(
                 exch, bucket, (capacity, capacity), (float(nx_loc), float(-nx_loc)))
             n_over[i] = n_over[i] + ov_l + ov_r
-            sends.append(((*send_l, mask_l), (*send_r, mask_r)))
+            sends.append(((send_l, mask_l), (send_r, mask_r)))
 
         recv_r = mesh.ppermute([s[1] for s in sends], axis, 1)
         recv_l = mesh.ppermute([s[0] for s in sends], axis, -1)
         # the wrap-around lanes of the circular permute carry only inactive
         # padding (go_l / go_r exclude the domain's edges)
         for i in shards:
-            merged = tuple(torch.cat([a, b]) for a, b in zip(recv_r[i][:-1], recv_l[i][:-1]))
-            merged_mask = torch.cat([recv_r[i][-1], recv_l[i][-1]])
             # restore the fixed carry width (only the exchange buffers are
-            # narrow)
-            pad = W - merged[0].shape[0]
+            # narrow): the received lanes padded, or compacted into it
             if pad > 0:
-                merged = tuple(torch.cat([f, f.new_zeros(pad)]) for f in merged)
-                merged_mask = torch.cat([merged_mask, merged_mask.new_zeros(pad)])
+                (f_r, m_r), (f_l, m_l) = recv_r[i], recv_l[i]
+                merged = torch.cat([f_r, f_l, f_r.new_zeros((f_r.shape[0], pad))], 1)
+                merged_mask = torch.cat([m_r, m_l, m_r.new_zeros(pad)])
             else:
-                merged, merged_mask, ov_m = compact(merged, merged_mask, W)
+                merged, merged_mask, ov_m = compact_segments((recv_r[i], recv_l[i]), W)
                 n_over[i] = n_over[i] + ov_m
             carry[i] = merged
             # multi-hop routing: a packet emitted several slabs away keeps

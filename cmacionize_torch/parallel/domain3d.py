@@ -12,7 +12,8 @@ owner.
 
 One exchange (:func:`_exchange_axis`) is K9p (the minus and plus send
 buffers in one pass), ``ppermute``, and K9c (keep, then the lanes received
-from minus, then those from plus, re-compacted to the carry width).
+from minus, then those from plus, re-compacted to the carry width; the
+three segments read in place).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from cmacionize_torch.parallel.domain import (
     _count,
     _diagnostics,
     bucket_codes,
-    compact,
+    compact_segments,
     default_capacity,
     partition,
 )
@@ -44,12 +45,13 @@ def make_mesh_3d(tiling: Tuple[int, int, int], devices=None) -> LocalMesh:
 def _exchange_axis(mesh, fields, mask, target, axis, capacity):
     """One bidirectional face exchange along a mesh axis.
 
-    ``fields``: per shard a tuple of [N] packet fields (global coordinates);
+    ``fields``: per shard the [N] packet fields (global coordinates), a
+    tuple or the rows of one [8, N] tensor;
     ``mask``: per shard the [N] lanes to forward; ``target``: per shard each
     lane's tile coordinate on ``axis``.  Lanes with target below the shard's
     coordinate go to the minus neighbour, above it to the plus neighbour, the
     rest stay.  Returns (fields, mask, overflow) per shard, the carry
-    re-compacted to its width N."""
+    re-compacted to its width N (fields as [8, N])."""
     my = mesh.axis_index(axis)
     sends, keeps = [], []
     for i in range(mesh.size):
@@ -58,19 +60,13 @@ def _exchange_axis(mesh, fields, mask, target, axis, capacity):
         keeps.append(mask[i] & ~go_minus & ~go_plus)
         sends.append(partition(fields[i], bucket_codes(go_minus, go_plus),
                                (capacity, capacity)))
-    recv_from_minus = mesh.ppermute(
-        [(*s[1][0], s[1][1]) for s in sends], axis, 1)
-    recv_from_plus = mesh.ppermute(
-        [(*s[0][0], s[0][1]) for s in sends], axis, -1)
+    recv_from_minus = mesh.ppermute([s[1][:2] for s in sends], axis, 1)
+    recv_from_plus = mesh.ppermute([s[0][:2] for s in sends], axis, -1)
     out_fields, out_mask, overflow = [], [], []
     for i in range(mesh.size):
         n_carry = mask[i].shape[0]
-        merged = tuple(
-            torch.cat([k, a, b])
-            for k, a, b in zip(fields[i], recv_from_minus[i][:-1], recv_from_plus[i][:-1])
-        )
-        merged_mask = torch.cat([keeps[i], recv_from_minus[i][-1], recv_from_plus[i][-1]])
-        f, m, ov_c = compact(merged, merged_mask, n_carry)
+        f, m, ov_c = compact_segments(
+            ((fields[i], keeps[i]), recv_from_minus[i], recv_from_plus[i]), n_carry)
         (_, _, ov_m), (_, _, ov_p) = sends[i]
         out_fields.append(f)
         out_mask.append(m)

@@ -3085,3 +3085,264 @@ def test_partition_kernel_occupancy_and_refusals(cuda):
     with pytest.raises(ValueError, match="field 0"):
         compact.partition_cuda((f[:9],), codes, (4, 4))
     assert kernels.LAUNCHES["partition"] == 0
+
+
+# -- K9c on segments and K7 a thread a face slot -------------------------------------------
+
+
+def _segments(sizes, share, seed, device, form="rows"):
+    """Segments (fields, mask) of the given lanes, 8 fields each: rows of one
+    [8, n] tensor, a strided view of a wider one, or a tuple; fields from a
+    normal draw, -0.0 in field 0 of a tenth of the lanes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in sizes:
+        values = rng.standard_normal((8, n)).astype(np.float32)
+        values[0, : n // 10] = -0.0
+        if form == "strided":
+            wide = torch.zeros((8, n + 7), device=device)
+            wide[:, 3:3 + n] = torch.tensor(values, device=device)
+            fields = wide[:, 3:3 + n]
+        else:
+            fields = torch.tensor(values, device=device)
+            if form == "tuple":
+                fields = tuple(f.clone() for f in fields)
+        mask = torch.tensor(rng.uniform(size=n) < share, device=device)
+        out.append((fields, mask))
+    return out
+
+
+def _plain_of_segments(segments, capacity):
+    from cmacionize_torch.parallel import domain
+
+    fields = [torch.cat(rows) for rows in zip(*(f for f, _ in segments))]
+    return domain.compact_reference(fields, torch.cat([m for _, m in segments]), capacity)
+
+
+@pytest.mark.parametrize("sizes", [(0,), (1,), (1000,), (1025, 70_001), (0, 300, 0),
+                                   (40_000, 1, 33_333), (531_250, 531_250)])
+@pytest.mark.parametrize("share", [0.0, 0.01, 0.5, 1.0])
+@pytest.mark.parametrize("cap", ["below", "equal", "above"])
+def test_compact_segments_kernel_equals_plain_version(cuda, sizes, share, cap):
+    """K9c on 1-3 segments read in place against compact_reference of their
+    concatenation: every lane, bit and count; the output one [8, capacity]
+    view of one buffer."""
+    from cmacionize_torch.parallel import domain
+
+    segments = _segments(sizes, share, sum(sizes) + int(100 * share), cuda)
+    n = sum(sizes)
+    capacity = {"below": n // 3, "equal": n, "above": n + 777}[cap]
+    kernels.LAUNCHES.clear()
+    out, in_range, over = domain.compact_segments(segments, capacity)
+    assert kernels.LAUNCHES["compact"] == 1
+    ref, ref_range, ref_over = _plain_of_segments(segments, capacity)
+    assert out.shape == (8, capacity) and all(_same_bits(a, b) for a, b in zip(out, ref))
+    assert torch.equal(in_range, ref_range) and int(over) == int(ref_over)
+    plain = domain.compact_segments_reference(segments, capacity)
+    assert all(_same_bits(a, b) for a, b in zip(plain[0], ref))
+
+
+@pytest.mark.parametrize("form", ["tuple", "strided"])
+def test_compact_segments_kernel_takes_tuples_and_strided_rows(cuda, form):
+    from cmacionize_torch.parallel import domain
+
+    segments = _segments((5000, 3000, 77), 0.2, 9, cuda, form)
+    segments[1] = _segments((3000,), 0.2, 10, cuda, "rows")[0]  # forms mixed
+    out = domain.compact_segments(segments, 6000)
+    ref = _plain_of_segments(segments, 6000)
+    assert all(_same_bits(a, b) for a, b in zip(out[0], ref[0]))
+    assert torch.equal(out[1], ref[1]) and int(out[2]) == int(ref[2])
+
+
+def test_compact_segments_kernel_on_partition_views_with_shifted_padding(cuda):
+    """The slab merge's inputs: two K9p buckets (capacity past the input, so
+    field 0 of the padding carries the frame shift) as K9c's segments."""
+    from cmacionize_torch.parallel import domain
+
+    fields, bucket = _partition_inputs(20_000, "mixed", 11, cuda)
+    sends = domain.partition(fields, bucket, (30_000, 30_000), (16.0, -16.0))
+    segments = [(f, m) for f, m, _ in sends]
+    for capacity in (10_000, 50_000, 60_000, 70_000):
+        out = domain.compact_segments(segments, capacity)
+        ref = _plain_of_segments(segments, capacity)
+        assert all(_same_bits(a, b) for a, b in zip(out[0], ref[0]))
+        assert torch.equal(out[1], ref[1]) and int(out[2]) == int(ref[2])
+
+
+def test_compact_segments_kernel_on_a_side_stream_and_in_a_cuda_graph(cuda):
+    from cmacionize_torch.parallel import domain
+
+    segments = _segments((100_000, 90_000), 0.3, 12, cuda)
+    ref = _plain_of_segments(segments, 150_000)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = domain.compact_segments(segments, 150_000)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = domain.compact_segments(segments, 150_000)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    for got in (first, out, domain.compact_segments(segments, 150_000)):
+        assert all(_same_bits(a, b) for a, b in zip(got[0], ref[0]))
+        assert torch.equal(got[1], ref[1]) and int(got[2]) == int(ref[2])
+
+
+def test_compact_segments_kernel_occupancy_and_refusals(cuda):
+    from cmacionize_torch.kernels import compact
+
+    layout = compact.occupancy(cuda, compact.COMPACT)
+    assert layout["blocks_per_sm"] >= 1 and layout["sms"] > 0
+    (f, m), = _segments((10,), 0.5, 13, cuda)
+    kernels.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="segments"):
+        compact.compact_segments_cuda([(f, m)] * 4, 4)
+    with pytest.raises(ValueError, match="8 fields"):
+        compact.compact_segments_cuda([(f, m), (f[:3], m)], 4)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        compact.compact_segments_cuda([(f.t().contiguous().t(), m)], 4)
+    with pytest.raises(ValueError, match="capacity"):
+        compact.compact_segments_cuda([(f, m)], -1)
+    assert kernels.LAUNCHES["compact"] == 0
+
+
+def _flux_inputs(cuda, n=2000, seed=4, si=True, dt=1.6e11, periodic=(False, False, False)):
+    from cmacionize_torch.models import voronoi_hydro
+
+    grid = _voronoi_grid(seed, n, periodic, si=si)
+    state, gen_vel, gamma = _voronoi_hydro_inputs(grid, 5, si, cuda)
+    return grid, voronoi_hydro.hydro_tables(grid, cuda), state, gen_vel, gamma, dt
+
+
+@pytest.mark.parametrize("dt", [2e10, 1.6e11, 1.6e12, 1.6e13])
+@pytest.mark.parametrize("second_order", [True, False])
+def test_voronoi_flux_kernel_rows_with_first_order_faces(cuda, dt, second_order):
+    """K7 against its plain version from few to most rows flagged (the update
+    redoes the rows with a first-order face): identical flags, gradients and
+    every field within 1e-5 of their max, and the same bits on a second
+    call."""
+    from cmacionize_torch.models import voronoi_hydro
+
+    grid, tables, state, gen_vel, gamma, dt = _flux_inputs(cuda, dt=dt)
+    stats_k, stats_r = {}, {}
+    out_k = voronoi_hydro.voronoi_flux_update(*tables, state, gen_vel, dt, gamma, second_order,
+                                              stats=stats_k)
+    out_r = voronoi_hydro.voronoi_flux_update_reference(*tables, state, gen_vel, dt, gamma,
+                                                        second_order, stats=stats_r)
+    torch.cuda.synchronize()
+    if second_order:
+        assert torch.equal(stats_k["flag"], stats_r["flag"])
+        for g_k, g_r in zip(stats_k["gradients"], stats_r["gradients"]):
+            assert float((g_k - g_r).abs().max()) <= 1e-5 * max(float(g_r.abs().max()), 1e-30)
+    for name, a, b in zip(out_r._fields, out_r, out_k):
+        err = float((a - b).abs().max() / a.abs().max())
+        assert err <= 1e-5, (name, err)
+    again = voronoi_hydro.voronoi_flux_update(*tables, state, gen_vel, dt, gamma, second_order)
+    assert all(_same_bits(a, b) for a, b in zip(out_k, again))
+
+
+def test_voronoi_flux_kernel_on_a_side_stream_and_two_grids(cuda):
+    from cmacionize_torch.models import voronoi_hydro
+
+    small = _flux_inputs(cuda, n=300, seed=6)
+    big = _flux_inputs(cuda, n=3000, seed=7, si=False, dt=2e-3, periodic=(True, True, True))
+    refs = [voronoi_hydro.voronoi_flux_update_reference(*t, s, g, dt, gm, True)
+            for _, t, s, g, gm, dt in (small, big)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs = [voronoi_hydro.voronoi_flux_update(*t, s, g, dt, gm, True)
+                for _, t, s, g, gm, dt in (big, small, big)]
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, (refs[1], refs[0], refs[1])):
+        for a, b in zip(ref, out):
+            assert float((a - b).abs().max() / a.abs().max()) <= 1e-5
+
+
+def test_voronoi_flux_kernel_layout_and_wide_rows(cuda):
+    from cmacionize_torch.kernels import voronoi_flux
+    from cmacionize_torch.models import voronoi_hydro
+
+    grid, tables, state, gen_vel, gamma, dt = _flux_inputs(cuda, n=500, seed=8)
+    voronoi_hydro.voronoi_flux_update(*tables, state, gen_vel, dt, gamma, True)
+    report, layout = voronoi_flux.ptxas_report(), voronoi_flux.occupancy(cuda)
+    assert set(report) == set(voronoi_flux.KERNELS)
+    assert all(r["registers"] > 0 for r in report.values())
+    assert all(v["blocks_per_sm"] >= 1 for v in layout.values())
+    # rows padded to 64 and to 256 slots give the same update
+    ref = voronoi_hydro.voronoi_flux_update(*tables, state, gen_vel, dt, gamma, True)
+    for K in (64, 256):
+        pad = K - tables.neighbors.shape[1]
+        wide = voronoi_hydro.HydroTables(
+            torch.nn.functional.pad(tables.neighbors, (0, pad), value=-2),
+            torch.nn.functional.pad(tables.normals, (0, 0, 0, pad)),
+            torch.nn.functional.pad(tables.area_over_vol, (0, pad)),
+            torch.nn.functional.pad(tables.face_rel, (0, 0, 0, pad)),
+            torch.nn.functional.pad(tables.nbr_rel, (0, 0, 0, pad)))
+        out = voronoi_hydro.voronoi_flux_update(*wide, state, gen_vel, dt, gamma, True)
+        plain = voronoi_hydro.voronoi_flux_update_reference(*wide, state, gen_vel, dt, gamma,
+                                                            True)
+        for a, b, c in zip(ref, out, plain):
+            assert float((a - b).abs().max() / a.abs().max()) <= 1e-5
+            assert float((c - b).abs().max() / c.abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="at most 256"):
+        wider = torch.nn.functional.pad(tables.neighbors, (0, 257 - tables.neighbors.shape[1]),
+                                        value=-2)
+        voronoi_flux.voronoi_flux_update_cuda(
+            wider, *(torch.nn.functional.pad(t, (0, 0, 0, 257 - t.shape[1])) if t.dim() == 3
+                     else torch.nn.functional.pad(t, (0, 257 - t.shape[1]))
+                     for t in tables[1:]), state, gen_vel, dt, gamma=gamma)
+
+
+@pytest.mark.parametrize("received", [0, 4952])
+def test_compact_segments_kernel_at_the_slab_merge(cuda, received):
+    """K9c at the sharded starbench's merge: two K9p buckets of 531,250
+    lanes (members first, then other lanes, field 0 in the receiver's frame)
+    compacted into the 1e6-lane carry, against compact_reference of their
+    concatenation."""
+    from cmacionize_torch.parallel import domain
+
+    n, cap, W = 2_000_000, 531_250, 1_000_000
+    rng = np.random.default_rng(received)
+    fields = torch.tensor(rng.standard_normal((8, n)).astype(np.float32), device=cuda)
+    codes = np.full(n, -1, np.int8)
+    codes[rng.choice(n, received, replace=False)] = 1
+    sends = domain.partition(fields, torch.tensor(codes, device=cuda), (cap, cap),
+                             (16.0, -16.0))
+    segments = [(sends[1][0], sends[1][1]), (sends[0][0], sends[0][1])]
+    kernels.LAUNCHES.clear()
+    out = domain.compact_segments(segments, W)
+    assert kernels.LAUNCHES["compact"] == 1 and out[0].shape == (8, W)
+    ref = _plain_of_segments(segments, W)
+    assert all(_same_bits(a, b) for a, b in zip(out[0], ref[0]))
+    assert torch.equal(out[1], ref[1]) and int(out[2]) == int(ref[2]) == 0
+    assert int(out[1].sum()) == received
+
+
+def test_voronoi_flux_kernel_on_the_starbench_voronoi_grid(cuda):
+    """K7 at the main path's shape: the starbench_voronoi grid (40000
+    generators from seed 42, 2 Lloyd iterations, K = 25), a shell state,
+    second and first order, against its plain version."""
+    from cmacionize_torch.models import voronoi, voronoi_hydro
+
+    geometry = GridGeometry((-1.256 * PC,) * 3, (2.512 * PC,) * 3, (32, 32, 32))
+    grid = voronoi.build_voronoi_grid(geometry, np.random.default_rng(42).random((40000, 3)),
+                                      num_lloyd=2)
+    state, gen_vel, gamma = _voronoi_hydro_inputs(grid, 9, True, cuda)
+    tables = voronoi_hydro.hydro_tables(grid, cuda)
+    for second_order in (True, False):
+        stats_k, stats_r = {}, {}
+        out_k = voronoi_hydro.voronoi_flux_update(*tables, state, gen_vel, 4.3453e9, gamma,
+                                                  second_order, stats=stats_k)
+        out_r = voronoi_hydro.voronoi_flux_update_reference(*tables, state, gen_vel, 4.3453e9,
+                                                            gamma, second_order, stats=stats_r)
+        torch.cuda.synchronize()
+        if second_order:
+            assert torch.equal(stats_k["flag"], stats_r["flag"])
+        for name, a, b in zip(out_r._fields, out_r, out_k):
+            assert bool(torch.isfinite(b).all()), name
+            assert float((a - b).abs().max() / a.abs().max()) <= 1e-5, name

@@ -193,6 +193,7 @@ def test_import_leaves_jax_out():
         import cmacionize_torch.tools.probe_cohort_kernel
         import cmacionize_torch.kernels.launch
         import cmacionize_torch.tools.launch_cost
+        import cmacionize_torch.tools.turns
         # the atomic tables are read by path, not through cmacionize_tpu.data
         import torch
         cmacionize_torch.data.load("verner_photo.npz")
