@@ -30,8 +30,12 @@ Phases (any failed check raises, so the script exits non-zero):
 6. K3 parity: the MUSCL-Hancock step against its plain PyTorch version on
    the card at 64³, on a starbench-like state made with numpy from a fixed
    seed (a hot ionized bubble, an outward shell, a Sod-like jump along x),
-   for HLLC and Exact with reflective and with periodic/outflow walls, both
-   timed;
+   for HLLC and Exact with reflective and with periodic/outflow walls: (P)
+   from padded primitives against the plain version, and (U), the main
+   path's, which forms the primitives and ghosts itself, bit for bit against
+   the primitives and padding in torch and (P); (U), (P) and the plain
+   version timed, with K3's registers, shared memory and blocks per SM and
+   its bound beside the one counted before K3 was one launch;
 7. main path: ``benchmarks/starbench.param`` at full size (64³ cells, 10 ×
    1e6 packets per step, 2048 steps to 0.141 Myr) through
    RHDSimulation.from_params(..., device="cuda").run(snapshot_callback=...),
@@ -39,7 +43,9 @@ Phases (any failed check raises, so the script exits non-zero):
    state and the front radius R(t) at the ten outputs against the Spitzer /
    Hosokawa-Inutsuka band and the JAX package's trajectory; then K1 against
    its plain version in this (opaque) regime, on the final state and a
-   fresh batch (as in phase 3), and 16 more steps under torch.profiler;
+   fresh batch (as in phase 3), and 16 more steps under torch.profiler,
+   with the device launches a step and K3's device time a launch against
+   their targets;
 8. build: K2, K4 (with K4f), K6, K6s, K7, K5 (with K5d), K5s, K8, K8p, K9,
    K10, K11, K12, K13 and K14 (``cmacionize_torch/csrc/{trace_packets_spectral,
    temperature,trace_voronoi,trace_voronoi_spectral,voronoi_flux,
@@ -50,8 +56,10 @@ Phases (any failed check raises, so the script exits non-zero):
    so that their transfer does not load the host during the timed phases):
    the spectral march against its plain PyTorch version on the card, on a 64³ lexington-like state made with numpy from a fixed seed
    (χ_H, χ_He, 1e6 packets from the centre in Planck-sampled bins): flags,
-   positions, the binned tally and the ion integrals (also against an f64
-   product), both timed;
+   cells, positions and tau_left bit for bit, the binned tally and the ion
+   integrals (also against an f64 product), both timed, with K2's registers
+   and blocks per SM and its bound from the tally slots deposited in beside
+   the one counted over the whole binned tally;
 10. main path: ``benchmarks/lexingtonHII20.param`` at the archived budget
     (32³, 1e6 packets × 10 iterations) through ParameterFile →
     MultiFreqConfig.from_params → MultiFreqIonizationSimulation(...,
@@ -61,7 +69,11 @@ Phases (any failed check raises, so the script exits non-zero):
     packets × 20 iterations, 128 bins, 8 re-emission generations, the
     temperature balance from iteration 3 on), timed per phase, with the K2
     and K4 launch counts, the re-emitted packets, the secant sweeps and the
-    physical bands of the Lexington HII20 benchmark;
+    physical bands of the Lexington HII20 benchmark, one more iteration
+    under torch.profiler, then K2 against its plain version on the inputs
+    of the run's first and last source marches and its last iteration's
+    first generation (flags, cells, positions and tau_left bit for bit, the
+    tally and the ion integrals), K2 timed on each beside its bound;
 12. K4 parity: the temperature balance against its plain PyTorch version on
     the card, on the inputs the full-size run handed to its fourth
     temperature solve (all cells), both timed, with K4's layout (registers,
@@ -115,11 +127,14 @@ Phases (any failed check raises, so the script exits non-zero):
     configuration at 12000 generators, 1 Lloyd iteration, cut from a
     64³-equivalent grid; 1e6 packets × 10 iterations, 64 bins, 4 re-emission
     generations, the temperature balance), its structure checks and the K6s
-    and K4 launch counts;
+    and K4 launch counts, then one more iteration under torch.profiler;
 20. K6s parity: the spectral face-plane march against its plain version on
-    the inputs of that run's first and last source marches: flags,
-    positions, tally, ion integrals; both timed; then K4 against its plain
-    version on the inputs of that run's last temperature solve, both timed;
+    the inputs of that run's first and last source marches and its last
+    iteration's first generation: flags, cells, positions and tau_left bit
+    for bit, tally, ion integrals; both timed on the last source march, K6s
+    on the generation, with its bound over the real faces of the cells the
+    march visits; then K4 against its plain version on the inputs of that
+    run's last temperature solve, both timed;
 21. grids: the two AMR hierarchies and their octree tables, built on the
     host in a worker process: leaves per level, whether the dense owner map
     was left out (``owner is None``: the octree path), host seconds;
@@ -292,6 +307,7 @@ from cmacionize_torch import kernels
 from cmacionize_torch.device import describe, require_cuda
 from cmacionize_torch.kernels import build
 from cmacionize_torch.kernels import gather as gather_ops
+from cmacionize_torch.kernels import hydro_step as hydro_step_ops
 from cmacionize_torch.kernels import probe_cohort as probe_cohort_ops
 from cmacionize_torch.kernels import probe_deposit as probe_deposit_ops
 from cmacionize_torch.kernels import probe_gather
@@ -299,6 +315,7 @@ from cmacionize_torch.kernels import temperature as temperature_kernels
 from cmacionize_torch.kernels import compact as compact_ops
 from cmacionize_torch.kernels import trace_octree as trace_octree_ops
 from cmacionize_torch.kernels import trace_octree_spectral as trace_octree_spectral_ops
+from cmacionize_torch.kernels import trace_packets_spectral as trace_packets_spectral_ops
 from cmacionize_torch.kernels import trace_packets as trace_packets_ops
 from cmacionize_torch.kernels import trace_voronoi as trace_voronoi_ops
 from cmacionize_torch.kernels import voronoi_flux as voronoi_flux_ops
@@ -387,8 +404,11 @@ F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
 OPS_PER_K1_STEP = 35  # 3 wall distances, the exit, absorption, deposit, advance, snap, checks
 OPS_PER_K2_STEP = 38  # K1's step with chi_H sigma_H + chi_He sigma_He
+OPS_PER_K3_PRIMITIVES = 12  # a padded cell's primitives from its conserved state
 OPS_PER_K3_PREDICT_CELL = 200  # 15 limited slopes, the half-step prediction
-OPS_PER_K3_CELL = 700  # 6 faces: states, HLLC, accumulation
+OPS_PER_K3_FACE = 115  # the face's two states, HLLC, the two cells' accumulation
+K3_TARGET_MS = 0.030  # K3 (U) at 64^3 HLLC, device time a step
+STARBENCH_TARGET_LAUNCHES = 860  # device launches of a starbench step
 # K4, f64, counted from temperature.cu's body with every data-dependent
 # branch at its cheapest, so that the count is a lower one (pow as log + exp,
 # 40).  One balance evaluation:
@@ -915,11 +935,15 @@ def hydro_parity_state(geometry, device):
 
 
 def hydro_parity(device, geometry, gamma, dt) -> dict:
-    """K3 against hydro_step_padded_reference on the card; both timed.
+    """K3 on the card: (P) against hydro_step_padded_reference, and (U), the
+    main path's, against the primitives and padding in torch and (P), bit for
+    bit; both timed, with K3's registers, shared memory and blocks a SM.
 
-    Returns the HLLC (main path) times and, as ``max_abs_err``, the largest
-    max |Δ| of any conserved field in units of that field's largest
-    magnitude (the fields' SI scales differ by ten orders)."""
+    Returns the main path's HLLC times ((U), and its plain version: the
+    primitives, the padding and hydro_step_padded_reference) and, as
+    ``max_abs_err``, the largest max |Δ| of any conserved field in units of
+    that field's largest magnitude (the fields' SI scales differ by ten
+    orders)."""
     w = hydro_parity_state(geometry, device)
     u = hydro.conserved_from_primitives(w, gamma)
     cell = (float(geometry.cell_size[0]),) * 3
@@ -937,19 +961,27 @@ def hydro_parity(device, geometry, gamma, dt) -> dict:
             kwargs = dict(cell_size=cell, gamma=gamma, riemann_solver=solver)
             out_k = hydro.hydro_step_padded(u, wp, dt, **kwargs)
             out_r = hydro.hydro_step_padded_reference(u, wp, dt, **kwargs)
+            # (U) forms the primitives from u itself: it is held against (P)
+            # on the primitives and padding torch forms from u
+            out_u = hydro.hydro_step(u, dt, boundaries=boundaries, **kwargs)
+            out_p = hydro.hydro_step_padded(u, hydro.pad_primitives(
+                hydro.primitives_from_conserved(u, gamma), boundaries), dt, **kwargs)
             torch.cuda.synchronize()
             errs = {}
             for name, a, b in zip(out_r._fields, out_r, out_k):
                 check(bool(torch.isfinite(b).all()), f"K3 {solver} {wall}: {name} finite")
                 errs[name] = float((a - b).abs().max() / a.abs().max())
+            same = [same_bits(a, b) for a, b in zip(out_u, out_p)]
             moved = float((out_r.energy - u.energy).abs().max() / u.energy.abs().max())
             log(
                 f"K3 parity {solver}, {wall} walls, {geometry.shape}, gamma {gamma}: "
-                "max |diff| / max |field| "
+                "(P) max |diff| / max |field| "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                + f" (the step moved the energy by {moved:.3e} of its max)"
+                + f" (the step moved the energy by {moved:.3e} of its max); (U) bit for bit "
+                f"(P) after the primitives and padding in torch: {same}"
             )
             check(moved > 0.0, "the parity step changed the state")
+            check(all(same), f"K3 (U) {solver} {wall}: fields identical to (P) {same}")
             for name, err in errs.items():
                 check(
                     err <= MAX_HYDRO_REL_ERR[solver],
@@ -957,21 +989,41 @@ def hydro_parity(device, geometry, gamma, dt) -> dict:
                 )
             worst = max(worst, *errs.values())  # the JSON's max_abs_err
             if wall == "reflective":  # the main path's walls
-                ms = time_cuda(lambda: hydro.hydro_step_padded(u, wp, dt, **kwargs), 50)
-                plain_ms = time_cuda(
-                    lambda: hydro.hydro_step_padded_reference(u, wp, dt, **kwargs), 5
-                )
+                ms = time_cuda(lambda: hydro.hydro_step(u, dt, boundaries=boundaries, **kwargs),
+                               50)
+                padded_ms = time_cuda(lambda: hydro.hydro_step_padded(u, wp, dt, **kwargs), 50)
+                plain_ms = time_cuda(lambda: hydro.hydro_step_padded_reference(
+                    u, hydro.pad_primitives(hydro.primitives_from_conserved(u, gamma),
+                                            boundaries), dt, **kwargs), 5)
                 log(
-                    f"timing K3 {solver} at {geometry.shape}: K3 {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms per step (CUDA events; padding excluded)"
+                    f"timing K3 {solver} at {geometry.shape}: (U) {ms:.4f} ms, (P) "
+                    f"{padded_ms:.4f} ms, plain (primitives, padding, step) {plain_ms:.4f} ms "
+                    "per step (CUDA events)"
+                    + (f"; K3 (U) target <= {K3_TARGET_MS} ms: "
+                       f"{'met' if ms <= K3_TARGET_MS else 'missed'}" if solver == "HLLC" else "")
                 )
                 timings[solver] = (ms, plain_ms)
+    lanes = hydro_step_ops.occupancy(device)
+    for form, kernel in (("u", "hydro_step_kernelILb1ELb0E"), ("p", "hydro_step_kernelILb0ELb0E")):
+        layout = ptxas_layout("hydro_step", kernel)
+        log(f"K3 ({form.upper()}, HLLC): {lanes[form]['registers']} registers, "
+            f"{layout.get('smem', 0)} B of shared memory, {layout.get('stack', 0)} B stack, "
+            f"{layout.get('spill_stores', 0)} / {layout.get('spill_loads', 0)} B spilled, "
+            f"{lanes[form]['blocks_per_sm']} blocks a SM on {lanes[form]['sms']} SMs "
+            f"(a brick of {' x '.join(map(str, hydro_step_ops.BRICK))} cells, a thread a "
+            "cell, a block)")
     ms, plain_ms = timings["HLLC"]
     nx, ny, nz = geometry.shape
     n, n1 = nx * ny * nz, (nx + 2) * (ny + 2) * (nz + 2)
     padded = (nx + 4) * (ny + 4) * (nz + 4)
-    bound = roofline("K3 (HLLC)", 4 * 5 * (padded + 2 * n),
-                     OPS_PER_K3_PREDICT_CELL * n1 + OPS_PER_K3_CELL * n, F32_OPS_PER_S)
+    faces = 3 * n + ny * nz + nx * nz + nx * ny
+    # the old bound: the padded primitives in, the state in and out, 6 faces a cell
+    roofline("K3 (HLLC) as counted before one launch (padded primitives, 6 faces a cell)",
+             4 * 5 * (padded + 2 * n), OPS_PER_K3_PREDICT_CELL * n1 + 2 * OPS_PER_K3_FACE * n * 3,
+             F32_OPS_PER_S)
+    bound = roofline(f"K3 (HLLC, (U)): the state in and out, {faces} faces once each",
+                     4 * 5 * 2 * n, OPS_PER_K3_PRIMITIVES * padded + OPS_PER_K3_PREDICT_CELL * n1
+                     + OPS_PER_K3_FACE * faces, F32_OPS_PER_S)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
@@ -1068,9 +1120,15 @@ def starbench_main_path(device) -> dict:
                        f"the starbench regime: the final state, {cfg.n_photons} fresh packets",
                        escapes=False)
     del chi, packets
-    profile_window(f"{PROFILED_STEPS} starbench steps at t = {sim.time / MYR:.4f} Myr",
-                   lambda: sim.advance(PROFILED_STEPS, log_every=PROFILED_STEPS + 1),
-                   {"K1": ("trace_packets_kernel",), "K3": ("muscl_",)})
+    shares = profile_window(
+        f"{PROFILED_STEPS} starbench steps at t = {sim.time / MYR:.4f} Myr",
+        lambda: sim.advance(PROFILED_STEPS, log_every=PROFILED_STEPS + 1),
+        {"K1": ("trace_packets_kernel",), "K3": ("hydro_step_kernel",)},
+        steps=PROFILED_STEPS, target_launches=STARBENCH_TARGET_LAUNCHES)
+    if shares:
+        k3_ms = shares["K3"][0] / max(shares["K3"][1], 1) * 1e3
+        log(f"  K3 {k3_ms:.4f} ms a launch on the device in these steps (target <= "
+            f"{K3_TARGET_MS} ms: {'met' if k3_ms <= K3_TARGET_MS else 'missed'})")
     return launches, outputs, regime
 
 
@@ -1207,6 +1265,13 @@ def spectral_parity(device) -> dict:
     check(tally_rel_l1 <= MAX_TALLY_REL_L1, f"K2 tally rel L1 {tally_rel_l1}")
     check(integral_kr <= MAX_TALLY_REL_L1, f"K2 ion integrals vs plain {integral_kr}")
     check(integral_64 <= MAX_INTEGRAL_REL_L1, f"ion integrals vs f64 product {integral_64}")
+    identical = same_spectral_states(out_k, out_r)
+    lanes = trace_packets_spectral_ops.occupancy(device)
+    layout = ptxas_layout("trace_packets_spectral", "trace_packets_spectral_kernel")
+    log(f"  K2 flags, cells, positions and tau_left identical: {identical}; K2 "
+        f"{lanes['registers']} registers, {layout.get('stack', 0)} B stack, "
+        f"{lanes['blocks_per_sm']} blocks of 256 a SM")
+    check(identical, "K2 flags, cells, positions and tau_left identical to the plain version's")
 
     scratch = zeros.clone()
     ms = time_cuda(
@@ -1221,9 +1286,71 @@ def spectral_parity(device) -> dict:
     steps = int(stats["packet_steps"])
     # chi_H, chi_He read; the binned tally read and written; packets: 14
     # f32/i32 + 2 flags in, 7 + 2 out
-    bound = roofline(f"K2 ({steps} packet steps)", 8 * ncell + 8 * n_bins * ncell + 88 * n,
+    roofline(f"K2 ({steps} packet steps) as counted before, the whole binned tally",
+             8 * ncell + 8 * n_bins * ncell + 88 * n, OPS_PER_K2_STEP * steps, F32_OPS_PER_S)
+    bound = roofline(f"K2 ({steps} packet steps)",
+                     spectral_bytes(tally_r, ncell, n, int(packets.active.sum())),
                      OPS_PER_K2_STEP * steps, F32_OPS_PER_S)
     return {"max_abs_err": float(tally_abs.max()), "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def spectral_bytes(tally, ncell: int, n: int, n_active: int) -> int:
+    """The bytes a K2 march must move: chi_H and chi_He of the cells the plain
+    march deposited in, each tally slot it deposited in read and written, 88 B
+    in and out per active packet and the flag of each inactive one."""
+    cells = int((tally.reshape(-1, ncell) != 0).any(0).sum())
+    return 8 * cells + 8 * int((tally != 0).sum()) + 88 * n_active + (n - n_active)
+
+
+def same_spectral_states(out_k, out_r) -> bool:
+    """Flags, cells, positions and tau_left of two spectral batches bit for bit."""
+    return all(same_bits(getattr(out_k, f), getattr(out_r, f))
+               for f in ("px", "py", "pz", "cx", "cy", "cz", "tau_left", "active", "absorbed"))
+
+
+def spectral_run_parity(sim, marches) -> dict:
+    """K2 against trace_packets_spectral_reference on the card, on the inputs
+    of the lexington run's first and last source marches and of the last
+    iteration's first re-emission generation: flags, cells, positions and
+    tau_left bit for bit, the tally and the ion integrals within
+    MAX_TALLY_REL_L1; K2 timed on each (CUDA events, the state copy
+    included), with each march's bound."""
+    ncell = sim.geometry.n_cells
+    weights = (sim._sigma_table32, sim._heating32)
+    worst, times = 0.0, {}
+    for label in ("first", "last", "generation"):
+        chi_h, chi_he, packets, march = marches[label]
+        zeros = torch.zeros(march["n_bins"] * ncell, device=chi_h.device)
+        tally_k, out_k = traversal.trace_packets_spectral(chi_h, chi_he, packets, zeros.clone(),
+                                                          **march)
+        stats = {}
+        tally_r, out_r = traversal.trace_packets_spectral_reference(
+            chi_h, chi_he, packets, zeros.clone(), stats=stats, **march)
+        torch.cuda.synchronize()
+        identical = same_spectral_states(out_k, out_r)
+        rel = float((tally_k - tally_r).abs().sum() / tally_r.abs().sum().clamp_min(1e-300))
+        ions_k = traversal.spectral_tallies_to_ion_integrals(tally_k, *weights, ncell).double()
+        ions_r = traversal.spectral_tallies_to_ion_integrals(tally_r, *weights, ncell).double()
+        ions = float(((ions_k - ions_r).abs().sum(1)
+                      / ions_r.abs().sum(1).clamp_min(1e-300)).max())
+        n_active = int(packets.active.sum())
+        ms = time_cuda(lambda: traversal.trace_packets_spectral(chi_h, chi_he, packets, zeros,
+                                                                **march), 10)
+        steps = int(stats["packet_steps"])
+        bound = roofline(f"K2 on the lexington run's {label} march ({n_active} active, "
+                         f"{steps} packet steps)",
+                         spectral_bytes(tally_r, ncell, packets.size, n_active),
+                         OPS_PER_K2_STEP * steps, F32_OPS_PER_S)
+        log(f"K2 parity on the lexington run's {label} march ({n_active} of {packets.size} "
+            f"active): flags, cells, positions and tau_left identical {identical}; tally rel L1 "
+            f"{rel:.3e}, ion integrals rel L1 (worst row) {ions:.3e}; K2 {ms:.4f} ms (bound "
+            f"{bound['bound_ms']:.6f} ms)")
+        check(identical, f"K2 on the {label} march: states identical to the plain version's")
+        check(rel <= MAX_TALLY_REL_L1 and ions <= MAX_TALLY_REL_L1,
+              f"K2 on the {label} march: tally {rel}, ion integrals {ions}")
+        worst = max(worst, float((tally_k - tally_r).abs().max()))
+        times[label] = ms
+    return {"max_abs_err": worst, **times}
 
 
 def run_multifreq(sim: MultiFreqIonizationSimulation, label: str):
@@ -1287,10 +1414,18 @@ def lexington_full(device, backend: str = "f64-host"):
     sim = lexington_simulation(device, temperature_backend=backend)
     solve = "solve_temperature_device" if backend == "f32-device" else "solve_temperature"
     label = f"lexingtonHII20 at full size ({backend})"
-    with capturing(multifreq_simulation.temperature, solve, {3: "fourth"},
-                   copy_solve) as captured:
-        xion, T, wall, launches = run_multifreq(sim, label)
     cfg = sim.config
+    per_iteration = 1 + cfg.n_reemission_rounds
+    last = per_iteration * (cfg.n_iterations - 1)
+    # the f64 run's first and last source marches and the last iteration's
+    # first generation, for K2's parity on the main path's inputs
+    keep = {0: "first", last: "last", last + 1: "generation"} if backend == "f64-host" else {}
+    with capturing(multifreq_simulation.temperature, solve, {3: "fourth"},
+                   copy_solve) as captured, \
+            capturing(traversal, "trace_packets_spectral", keep,
+                      lambda chi_h, chi_he, packets, tally2d, **kw: (
+                          chi_h.clone(), chi_he.clone(), clone_batch(packets), kw)) as marches:
+        xion, T, wall, launches = run_multifreq(sim, label)
     log("  per iteration: transport s, solve s, re-emitted packets per generation")
     for k, ((t_tr, t_sv), counts) in enumerate(zip(sim.phase_seconds, sim.reemitted)):
         log(f"  {k + 1:2d}  {t_tr:.4f}  {t_sv:.4f}  {counts.tolist()}")
@@ -1353,7 +1488,8 @@ def lexington_full(device, backend: str = "f64-host"):
     profile_window(f"one more iteration of {label}", lambda: sim.run(sim.iteration + 1),
                    {"K2": ("trace_packets_spectral_kernel",),
                     "K4f" if backend == "f32-device" else "K4": ("temperature_kernel",)})
-    return launches, captured["fourth"], {"T": T, **x}
+    run_record = spectral_run_parity(sim, marches) if keep else None
+    return launches, captured["fourth"], {"T": T, **x}, run_record
 
 
 def compare_backends(f64_state: dict, f32_state: dict) -> None:
@@ -1858,11 +1994,14 @@ def clone_batch(packets):
     return type(packets)(*(f.clone() for f in packets))
 
 
-def profile_window(label: str, run, groups: dict) -> None:
+def profile_window(label: str, run, groups: dict, steps: int = 0,
+                   target_launches: float = 0.0) -> None:
     """Where the time of ``run()`` goes: device time by kernel
     (torch.profiler), summed over the kernel names of each of ``groups``,
     against the host clock of the window; with each group's launches and its
-    mean time a launch over the window (total kernel time / launches)."""
+    mean time a launch over the window (total kernel time / launches).  With
+    ``steps``, the device's launches a step of the window, against
+    ``target_launches`` where that is given."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1894,6 +2033,11 @@ def profile_window(label: str, run, groups: dict) -> None:
                     f"this window, {t / max(counts[name], 1) * 1e3:.4f} ms a launch in it)"
                     for name, t in shares.items())
         + f", the rest {rest:.4f} s ({rest / busy:.4f}) in {n_kernels} kernel launches in all")
+    if steps:
+        per_step = n_kernels / steps
+        log(f"  {per_step:.1f} device launches a step over {steps} steps"
+            + (f" (target <= {target_launches:g}: "
+               f"{'met' if per_step <= target_launches else 'missed'})" if target_launches else ""))
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
     log("  top device time: " + "; ".join(f"{k[:60]} {us * 1e-3:.3f} ms" for k, us in top))
     return {name: (shares[name], counts[name]) for name in groups}
@@ -1962,21 +2106,25 @@ def multifreq_voronoi(grid, device):
         f"xHe<0.5 {int((xHe < 0.5).sum())}; median T inside 2 pc {T_core:.1f} K")
     check(4000.0 < T_core < 25000.0, f"median T(r < 2 pc) {T_core}")
     check("last solve" in solves, "the multi-frequency Voronoi run's last temperature solve")
+    profile_window("one more multi-frequency Voronoi iteration", lambda: sim.run(1),
+                   {"K6s": ("trace_voronoi_spectral_kernel",), "K4": ("temperature_kernel",)})
     return launches, sim, captured, solves["last solve"]
 
 
 def voronoi_spectral_parity(sim, captured, device) -> dict:
     """K6s against trace_packets_voronoi_spectral_reference on the card, on
-    the inputs of the multi-frequency run's first and last source marches:
-    flags, positions, the binned tally and the ion integrals; both timed on
-    the last."""
+    the inputs of the multi-frequency run's first and last source marches and
+    of its last iteration's first re-emission generation: flags, cells,
+    positions and tau_left bit for bit, the binned tally and the ion
+    integrals; both timed on the last source march and K6s on the
+    generation."""
     grid = sim.grid
-    C, K, n_bins = grid.n_cells, grid.max_faces, sim.n_bins
+    C, n_bins = grid.n_cells, sim.n_bins
     tables = sim._tables
     march = dict(eps=voronoi.march_eps(C), max_steps=voronoi.default_max_steps(C))
     weights = (sim._sigma_table32, sim._heating32)
     worst = 0.0
-    for label in ("first", "last"):
+    for label in ("first", "last", "generation"):
         chi_h, chi_he, packets = captured[label]
         tally_k, out_k = voronoi.trace_packets_voronoi_spectral(
             grid, chi_h, chi_he, packets, n_bins=n_bins, tables=tables)
@@ -1987,13 +2135,25 @@ def voronoi_spectral_parity(sim, captured, device) -> dict:
         torch.cuda.synchronize()
         tally_k, tally_r = tally_k.reshape(-1), tally_r * grid.scale
         worst = max(worst, compare_voronoi_marches(
-            f"K6s parity ({label} iteration's source march)", out_k, out_r, tally_k, tally_r))
+            f"K6s parity (the {label} march, {int(packets.active.sum())} of {packets.size} "
+            f"active)", out_k, out_r, tally_k, tally_r))
+        identical = torch.equal(out_k.cell, out_r.cell) and all(
+            same_bits(getattr(out_k, f), getattr(out_r, f))
+            for f in ("pos", "tau_left", "active", "absorbed"))
         ions_k = traversal.spectral_tallies_to_ion_integrals(tally_k, *weights, C).double()
         ions_r = traversal.spectral_tallies_to_ion_integrals(tally_r, *weights, C).double()
         rel = float(((ions_k - ions_r).abs().sum(1) / ions_r.abs().sum(1).clamp_min(1e-300)).max())
-        log(f"  ion integrals rel L1 (worst row) K6s vs plain {rel:.3e}")
+        log(f"  flags, cells, positions and tau_left identical {identical}; ion integrals rel "
+            f"L1 (worst row) K6s vs plain {rel:.3e}")
+        check(identical, f"K6s ({label} march): states identical to the plain version's")
         check(rel <= MAX_TALLY_REL_L1, f"K6s ion integrals vs plain {rel}")
-    steps, faces = int(stats["packet_steps"]), int(stats["face_tests"])
+        if label == "last":
+            steps, faces = int(stats["packet_steps"]), int(stats["face_tests"])
+            source = (chi_h, chi_he, packets, tally_r)
+    generation = captured["generation"]
+    gen_ms = time_cuda(lambda: voronoi.trace_packets_voronoi_spectral(
+        grid, *generation, n_bins=n_bins, tables=tables), 20)
+    chi_h, chi_he, packets, tally_r = source
     ms = time_cuda(lambda: voronoi.trace_packets_voronoi_spectral(
         grid, chi_h, chi_he, packets, n_bins=n_bins, tables=tables), 20)
     plain_ms = time_cuda(lambda: voronoi.trace_packets_voronoi_spectral_reference(
@@ -2001,13 +2161,22 @@ def voronoi_spectral_parity(sim, captured, device) -> dict:
         torch.zeros(n_bins * C, device=device), **march), 1)
     n = packets.cell.numel()
     log(f"timing K6s on {C} cells / {n_bins} bins / {n} packets (the last source march): K6s "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms per march (CUDA events, incl. the packet-state "
-        f"copy and the tally's scaling)")
-    # tables, chi_H and chi_He read, the binned tally read and written;
-    # packets in: K6's plus sigma_H, sigma_He, bin; out: K6's
-    bound = roofline(f"K6s ({steps} packet steps, {faces} real faces tested)",
-                     C * K * 32 + 8 * C + 8 * n_bins * C + 72 * n,
-                     OPS_PER_VORONOI_FACE * faces + OPS_PER_K6S_STEP * steps, F32_OPS_PER_S)
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms per march; the generation (its "
+        f"{int(generation[2].active.sum())} active packets) {gen_ms:.4f} ms (CUDA events, incl. "
+        f"the packet-state copy and the tally's scaling)")
+    # of each visited cell (one the plain march deposited in): its real faces'
+    # rows (normal, offset, neighbour, shift: 32 B a face), chi_H and chi_He;
+    # each tally slot deposited in, read and written; packets in: pos, dirn,
+    # cell, tau, weight, sigma_H, sigma_He, bin, 2 flags; out: pos, cell, tau,
+    # 2 flags
+    visited = (tally_r.reshape(n_bins, C) != 0).any(0)
+    n_visited = int(visited.sum())
+    visited_faces = int(tables.face_count[visited].sum())
+    bound = roofline(f"K6s ({steps} packet steps, {faces} real faces tested; {n_visited} of "
+                     f"{C} cells visited, {visited_faces} real faces)",
+                     32 * visited_faces + 8 * n_visited + 8 * int((tally_r != 0).sum())
+                     + 72 * n, OPS_PER_VORONOI_FACE * faces + OPS_PER_K6S_STEP * steps,
+                     F32_OPS_PER_S)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
@@ -2312,8 +2481,8 @@ def multifreq_amr(grid, device):
 
 
 def ptxas_layout(library: str, kernel: str) -> dict:
-    """Registers, stack and spill bytes of ``kernel`` from the ptxas report in
-    the build log of ``csrc/<library>.cu``."""
+    """Registers, stack, spill and static shared memory bytes of ``kernel``
+    from the ptxas report in the build log of ``csrc/<library>.cu``."""
     found, current = {}, False
     text = build.library_path(library).with_suffix(".log").read_text()
     for line in text.splitlines():
@@ -2324,6 +2493,8 @@ def ptxas_layout(library: str, kernel: str) -> dict:
             found.update(stack=numbers[0], spill_stores=numbers[1], spill_loads=numbers[2])
         elif current and "Used" in line and "registers" in line:
             found["registers"] = int(line.split("Used")[1].split()[0])
+            if "bytes smem" in line:
+                found["smem"] = int(line.split("bytes smem")[0].split()[-1])
             current = False
     return found
 
@@ -2855,7 +3026,7 @@ def sharded_starbench(device, single_outputs):
     profiled = profile_window(
         f"one sharded starbench step at t = {sim.time / MYR:.4f} Myr",
         lambda: sim.advance(1, log_every=10**9),
-        {"K1": ("trace_packets_kernel",), "K3": ("muscl_",),
+        {"K1": ("trace_packets_kernel",), "K3": ("hydro_step_kernel",),
          "K9c": ("exchange_kernel<1",), "K9p": ("exchange_kernel<2",)})
     log(f"  the profiled step: {sim.supersteps[-1]} supersteps, launches {dict(kernels.LAUNCHES)}")
     # one more step, whose copy phase and first superstep (the four slabs'
@@ -3949,12 +4120,12 @@ def main() -> None:
         log(f"waited {time.perf_counter() - t_wait:.2f} s for the AMR grids before phase 9")
         spectral_record = spectral_parity(device)
         multifreq_launches = [lexington_archived(device)]
-        full_launches, solve_inputs, f64_state = lexington_full(device)
+        full_launches, solve_inputs, f64_state, spectral_run_record = lexington_full(device)
         multifreq_launches.append(full_launches)
         temperature_record = temperature_parity(
             solve_inputs, "lexingtonHII20 64^3, the fourth solve")
         del solve_inputs
-        f32_launches, f32_inputs, f32_state = lexington_full(device, "f32-device")
+        f32_launches, f32_inputs, f32_state, _ = lexington_full(device, "f32-device")
         multifreq_launches.append(f32_launches)
         compare_backends(f64_state, f32_state)
         temperature_f32_record = temperature_f32_parity(
@@ -4029,7 +4200,8 @@ def main() -> None:
         kernel("trace_packets_spectral", "trace_packets_spectral.cu",
                "cmacionize_tpu/ops/traversal.py:503",
                sum(run.get("trace_packets_spectral", 0) for run in multifreq_launches),
-               spectral_record),
+               {**spectral_record, "max_abs_err": max(
+                   spectral_record["max_abs_err"], spectral_run_record["max_abs_err"])}),
         kernel("hydro_step", "hydro_step.cu", "cmacionize_tpu/ops/hydro.py:353",
                star_launches["hydro_step"] + sbs_launches["hydro_step"], hydro_record),
         kernel("temperature", "temperature.cu", "cmacionize_tpu/ops/temperature.py:283",

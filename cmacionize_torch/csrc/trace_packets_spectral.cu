@@ -33,10 +33,14 @@
 // tally of 134 MB at 64^3 x 128 bins, which does not fit the 50 MB L2, so
 // the atomics go to HBM unless packets of one bin crowd the same cells.
 // Atomics contend at the source cells, and warps diverge as packets
-// terminate.  Sorting packets by bin or privatising the tally per block are
-// later work.
+// terminate.  K5s's pieces, tried here (PERF.md, section 6), did not pay:
+// run-summed warp deposits took more registers (55 against 40) and time on
+// the generations, and an order of the active packets, by bin or by bin and
+// direction, made the march slower and added a sort.  Privatising the tally
+// per block is untried.
 
 #include "cartesian_march.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -113,4 +117,13 @@ extern "C" int cmi_trace_packets_spectral(
         periodic_mask, max_steps);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The registers a thread of K2 takes and its blocks resident on one SM of the
+// current device, and that device's SM count; returns the CUDA error (0 on
+// success).
+extern "C" int cmi_trace_packets_spectral_occupancy(int* registers, int* blocks_per_sm,
+                                                    int* sms) {
+  return cmi_occupancy::query(trace_packets_spectral_kernel, cart::kThreads, registers,
+                              blocks_per_sm, sms);
 }

@@ -32,7 +32,7 @@
 //   row's faces up to its last real one; the face loop reads one 16-byte load
 //   per face and stops at the count, since a padding face has t = +inf, which
 //   the strict < of the least distance never picks.  The neighbour and shift
-//   rows are read for the exit face only.  K6s keeps the three separate rows;
+//   rows are read for the exit face only.  K6s reads the same rows;
 // - warp deposits: each run of consecutive lanes whose step ends in one cell
 //   sums its deposits in five shuffles and adds them with one atomicAdd
 //   (warp_deposit.cuh, shared with K5); on the first step every lane of a

@@ -31,46 +31,15 @@ __device__ __forceinline__ float dot3(float nx, float ny, float nz, float x,
   return __fmaf_rn(nz, z, __fmaf_rn(ny, y, nx * x));
 }
 
-// The exit face of `cell`: the first face of least distance t_k (a strict <,
-// as jnp.argmin and torch.min pick; a NaN distance wins, as there), with
-//   t_k = max(off - n.p, 0) / max(n.d, 1e-12)  where n.d > 1e-12, nbr != -2,
-//   t_k = +inf                                   elsewhere.
-// A cell row where every t_k is +inf gives face 0 at +inf.
-__device__ __forceinline__ int exit_face(const int* __restrict__ nbr,
-                                         const float* __restrict__ normals,
-                                         const float* __restrict__ offsets,
-                                         int64_t row, int K, float px, float py,
-                                         float pz, float dx, float dy, float dz,
-                                         float* t_exit) {
-  const float inf = __int_as_float(0x7f800000);
-  float best = inf;
-  int best_k = 0;
-  const int* nb = nbr + row * K;
-  const float* n = normals + row * K * 3;
-  const float* off = offsets + row * K;
-  for (int k = 0; k < K; ++k) {
-    const float nx = __ldg(n + 3 * k), ny = __ldg(n + 3 * k + 1),
-                nz = __ldg(n + 3 * k + 2);
-    const float ndotd = dot3(nx, ny, nz, dx, dy, dz);
-    const float ndotp = dot3(nx, ny, nz, px, py, pz);
-    float t = inf;
-    if (ndotd > kEpsDir && __ldg(nb + k) != -2) {
-      t = max_nan(__ldg(off + k) - ndotp, 0.0f) / max_nan(ndotd, kEpsDir);
-    }
-    if (t < best || (t != t && best == best)) {
-      best = t;
-      best_k = k;
-    }
-  }
-  *t_exit = best;
-  return best_k;
-}
-
 // The exit face of `row` from its packed faces (normal and offset as one
-// float4; K6 reads these, K6s the three rows above): exit_face over the
-// row's first `count` faces with the same operations, so the same face and
-// distance bits.  A face with a zero normal gets n.d = 0 and t = +inf, as
-// padding does there.
+// float4, VoronoiTables.faces): the first face of least distance t_k among
+// the row's first `count` faces (a strict <, as jnp.argmin and torch.min
+// pick; a NaN distance wins, as there), with
+//   t_k = max(off - n.p, 0) / max(n.d, 1e-12)  where n.d > 1e-12,
+//   t_k = +inf                                   elsewhere.
+// A face with a zero normal (padding) gets n.d = 0 and t = +inf, as the plain
+// march's -2 test gives, so the same face and distance bits; a row where
+// every t_k is +inf gives face 0 at +inf.
 __device__ __forceinline__ int exit_face_packed(const float4* __restrict__ faces,
                                                 int count, int64_t row, int K,
                                                 float px, float py, float pz,

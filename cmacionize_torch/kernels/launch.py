@@ -28,8 +28,9 @@ a wrong device, dtype, dimension count, shape, contiguity or int32 overflow;
 launch counted in ``kernels.LAUNCHES`` by the wrapper.  There is no fallback:
 a library that cannot be built, or a launch that fails, raises.
 
-Used by K1 (``kernels/trace_packets.py``), K4 and K4f
-(``kernels/temperature.py``), K5s (``kernels/trace_octree_spectral.py``), K6
+Used by K1 (``kernels/trace_packets.py``), K2
+(``kernels/trace_packets_spectral.py``), K3 (``kernels/hydro_step.py``), K4
+and K4f (``kernels/temperature.py``), K5s (``kernels/trace_octree_spectral.py``), K6
 (``kernels/trace_voronoi.py``), K7 (``kernels/voronoi_flux.py``), K9c and K9p
 (``kernels/compact.py``), K11 and K11r
 (``kernels/gather.py``), K12s, K12t and K12r (``kernels/probe_gather.py``),

@@ -2,20 +2,20 @@
 (``csrc/trace_packets_spectral.cu``).
 
 The wrapper checks what the kernel takes (one CUDA device, dtypes, lengths,
-contiguity), launches on PyTorch's current stream and raises if the launch
-was refused.  It allocates nothing: packet state and the tally are updated in
-place, and the caller (:func:`cmacionize_torch.ops.traversal.trace_packets_spectral`)
-hands in copies of the packet state.
+contiguity, int32 sizes) and launches on PyTorch's current stream through
+:mod:`cmacionize_torch.kernels.launch`, which raises if the launch was
+refused.  Packet state and the tally are updated in place, and the caller
+(:func:`cmacionize_torch.ops.traversal.trace_packets_spectral`) hands in
+copies of the packet state.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from cmacionize_torch.kernels import LAUNCHES
-from cmacionize_torch.kernels.build import load_library
+from cmacionize_torch.kernels.launch import Launcher, kernel_occupancy
+from cmacionize_torch.kernels.trace_octree import check_tensors
 
 NAME = "trace_packets_spectral"
 
@@ -27,16 +27,14 @@ _POINTER_ORDER = (
     "dx", "dy", "dz", "tau_left", "weight", "sig_h", "sig_he", "fbin",
     "active", "absorbed",
 )
+# then n, nx, ny, nz, n_bins, the periodic mask and max_steps
+_LAUNCH = Launcher(NAME, "cmi_trace_packets_spectral", len(_POINTER_ORDER), 7)
 
 
-def _launcher():
-    fn = load_library(NAME).cmi_trace_packets_spectral
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * len(_POINTER_ORDER) + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return fn
+def occupancy(device) -> dict:
+    """Registers per thread and blocks of 256 resident per SM of K2, and the
+    SM count of CUDA ``device``."""
+    return kernel_occupancy(NAME, "cmi_trace_packets_spectral_occupancy", device)
 
 
 def trace_packets_spectral_cuda(
@@ -55,9 +53,6 @@ def trace_packets_spectral_cuda(
     in place."""
     nx, ny, nz = (int(s) for s in shape)
     ncell = nx * ny * nz
-    device = chi_h.device
-    if device.type != "cuda":
-        raise ValueError(f"trace_packets_spectral_cuda needs CUDA tensors, got {device}")
     n = fields["px"].numel()
     expected = [(name, torch.float32, n) for name in _FLOAT_FIELDS]
     expected += [(name, torch.int32, n) for name in _INT_FIELDS]
@@ -67,26 +62,13 @@ def trace_packets_spectral_cuda(
         ("tally", torch.float32, n_bins * ncell),
     ]
     arrays = {"chi_h": chi_h, "chi_he": chi_he, "tally": tally, **fields}
-    for name, dtype, length in expected:
-        t = arrays[name]
-        if t.device != device or t.dtype != dtype or t.numel() != length:
-            raise ValueError(
-                f"trace_packets_spectral_cuda: {name} must be {dtype} of {length} "
-                f"elements on {device}; got {t.dtype} of {t.numel()} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"trace_packets_spectral_cuda: {name} must be contiguous")
+    check_tensors("trace_packets_spectral_cuda", chi_h.device, arrays, expected)
+    # the slot fbin·ncell + cell is int32 arithmetic, as in the JAX march
     if max(n, n_bins * ncell) >= 2**31 or max_steps < 0 or n_bins < 1:
         raise ValueError("trace_packets_spectral_cuda: sizes must fit int32")
+    if n == 0:  # no packet: no launch
+        return
     periodic_mask = sum(1 << axis for axis, p in enumerate(periodic) if p)
-
-    launch = _launcher()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    pointers = [arrays[name].data_ptr() for name in _POINTER_ORDER]
-    with torch.cuda.device(device):
-        err = launch(
-            *pointers, n, nx, ny, nz, n_bins, periodic_mask, int(max_steps), stream
-        )
-    if err != 0:
-        raise RuntimeError(f"trace_packets_spectral_cuda: CUDA error {err} at launch")
+    _LAUNCH(chi_h.get_device(), *(arrays[name].data_ptr() for name in _POINTER_ORDER),
+            n, nx, ny, nz, n_bins, periodic_mask, int(max_steps))
     LAUNCHES[NAME] += 1

@@ -26,7 +26,8 @@ _TRACE_VORONOI = Launcher(NAME, "cmi_trace_voronoi", len(_POINTER_ORDER), 4, 1)
 
 
 def check_march_inputs(name, tables, fields, arrays: dict) -> tuple:
-    """Check the tensors a face-plane march takes; returns (P, C, K).
+    """Check the tensors a face-plane march takes (the packed face rows, the
+    neighbour and shift rows, the packet fields); returns (P, C, K).
 
     ``arrays`` maps further names to (tensor, dtype, expected numel)."""
     nbr = tables.neighbors
@@ -38,9 +39,9 @@ def check_march_inputs(name, tables, fields, arrays: dict) -> tuple:
     C, K = nbr.shape
     n = fields["cell"].numel()
     expected = {
+        "faces": (tables.faces, torch.float32, C * K * 4),
+        "face_count": (tables.face_count, torch.int32, C),
         "neighbors": (nbr, torch.int32, C * K),
-        "normals": (tables.normals, torch.float32, C * K * 3),
-        "offsets": (tables.offsets, torch.float32, C * K),
         "shifts": (tables.shifts, torch.float32, C * K * 3),
         "pos": (fields["pos"], torch.float32, 3 * n),
         "dirn": (fields["dirn"], torch.float32, 3 * n),
@@ -59,8 +60,10 @@ def check_march_inputs(name, tables, fields, arrays: dict) -> tuple:
             )
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
-    if max(n * 3, C * K * 3) >= 2**31:
+    if max(n * 3, C * K * 4) >= 2**31:
         raise ValueError(f"{name}: sizes must fit int32")
+    if tables.faces.data_ptr() % 16:
+        raise ValueError(f"{name}: faces must be 16-byte aligned (one float4 a face)")
     return n, C, K
 
 
@@ -77,17 +80,12 @@ def trace_voronoi_cuda(tables, chi_u: torch.Tensor, tally: torch.Tensor, fields:
     adding ℓ·w (box units) into ``tally[cell]``, in place.  ``chi_u``: [C]
     f32 opacity per box unit."""
     C = tables.neighbors.shape[0] if tables.neighbors.dim() == 2 else -1
-    K = tables.neighbors.shape[1] if tables.neighbors.dim() == 2 else -1
     n, C, K = check_march_inputs(
         "trace_voronoi_cuda", tables, fields,
-        {"faces": (tables.faces, torch.float32, C * K * 4),
-         "face_count": (tables.face_count, torch.int32, C),
-         "chi": (chi_u, torch.float32, C), "tally": (tally, torch.float32, C)},
+        {"chi": (chi_u, torch.float32, C), "tally": (tally, torch.float32, C)},
     )
     if max_steps < 0:
         raise ValueError("trace_voronoi_cuda: max_steps must be >= 0")
-    if tables.faces.data_ptr() % 16:
-        raise ValueError("trace_voronoi_cuda: faces must be 16-byte aligned (one float4 a face)")
     if n == 0:  # no packet: no launch
         return
     arrays = {**tables._asdict(), **fields, "chi": chi_u, "tally": tally}

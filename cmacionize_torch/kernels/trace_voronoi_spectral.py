@@ -3,35 +3,31 @@ graph (``csrc/trace_voronoi_spectral.cu``).
 
 As :mod:`cmacionize_torch.kernels.trace_voronoi`, with per-packet σ_H, σ_He
 and frequency bin, and a flat [n_bins·C] tally.  Packet state and the tally
-are updated in place; the caller hands in copies of the packet state.
+are updated in place; the caller hands in copies of the packet state.  It
+launches through :mod:`cmacionize_torch.kernels.launch`.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from cmacionize_torch.kernels import LAUNCHES
-from cmacionize_torch.kernels.build import load_library
+from cmacionize_torch.kernels.launch import Launcher, kernel_occupancy
 from cmacionize_torch.kernels.trace_voronoi import check_march_inputs
 
 NAME = "trace_voronoi_spectral"
 
-_TABLE_POINTERS = ("neighbors", "normals", "offsets", "shifts")
-_PACKET_POINTERS = ("pos", "dirn", "cell", "tau_left", "weight", "sig_h", "sig_he", "fbin",
-                    "active", "absorbed")
+_POINTER_ORDER = ("faces", "face_count", "neighbors", "shifts", "chi_h", "chi_he", "tally",
+                  "pos", "dirn", "cell", "tau_left", "weight", "sig_h", "sig_he", "fbin",
+                  "active", "absorbed")
+# then n, C, K and max_steps, then eps
+_LAUNCH = Launcher(NAME, "cmi_trace_voronoi_spectral", len(_POINTER_ORDER), 4, 1)
 
 
-def _launcher():
-    fn = load_library(NAME).cmi_trace_voronoi_spectral
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                                           ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return fn
+def occupancy(device) -> dict:
+    """Registers per thread and blocks of 256 resident per SM of K6s, and the
+    SM count of CUDA ``device``."""
+    return kernel_occupancy(NAME, "cmi_trace_voronoi_spectral_occupancy", device)
 
 
 def trace_voronoi_spectral_cuda(tables, chi_h_u: torch.Tensor, chi_he_u: torch.Tensor,
@@ -54,17 +50,14 @@ def trace_voronoi_spectral_cuda(tables, chi_h_u: torch.Tensor, chi_he_u: torch.T
             "fbin": (fields["fbin"], torch.int32, n),
         },
     )
+    # the slot fbin·C + cell is int32 arithmetic, as in the JAX march
     if n_bins < 1 or max_steps < 0 or n_bins * C >= 2**31:
         raise ValueError("trace_voronoi_spectral_cuda: n_bins >= 1, max_steps >= 0, "
                          "n_bins * C must fit int32")
-    device = chi_h_u.device
-    launch = _launcher()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    pointers = [getattr(tables, f).data_ptr() for f in _TABLE_POINTERS]
-    pointers += [chi_h_u.data_ptr(), chi_he_u.data_ptr(), tally.data_ptr()]
-    pointers += [fields[f].data_ptr() for f in _PACKET_POINTERS]
-    with torch.cuda.device(device):
-        err = launch(*pointers, n, C, K, n_bins, float(eps), int(max_steps), stream)
-    if err != 0:
-        raise RuntimeError(f"trace_voronoi_spectral_cuda: CUDA error {err} at launch")
+    if n == 0:  # no packet: no launch
+        return
+    arrays = {**tables._asdict(), **fields, "chi_h": chi_h_u, "chi_he": chi_he_u,
+              "tally": tally}
+    _LAUNCH(chi_h_u.get_device(), *(arrays[f].data_ptr() for f in _POINTER_ORDER),
+            n, C, K, int(max_steps), float(eps))
     LAUNCHES[NAME] += 1

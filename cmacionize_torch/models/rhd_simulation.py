@@ -368,10 +368,8 @@ class RHDSimulation:
     def _step(self, u, neutral_fraction, dt, do_radiation: bool = True):
         cfg = self.config
         if do_radiation and cfg.nloop > 0:
-            number_density = _div(
-                hydro.primitives_from_conserved(u, cfg.gamma).rho,
-                constants.PROTON_MASS,
-            )
+            # the floored density of primitives_from_conserved, alone
+            number_density = _div(torch.clamp_min(u.rho, hydro.RHO_FLOOR), constants.PROTON_MASS)
             neutral_fraction = self._radiation_update(number_density, neutral_fraction)
             u = self._two_temperature_coupling(u, neutral_fraction)
         u = hydro.hydro_step(

@@ -12,8 +12,11 @@ inflow / outflow).  State is a NamedTuple of ``[nx, ny, nz]`` f32 tensors.
 :func:`hydro_step_padded` dispatches on the device: CPU tensors go through
 the plain PyTorch version :func:`hydro_step_padded_reference`, CUDA tensors
 through K3, the hand-written kernel in ``csrc/hydro_step.cu``.  There is no
-fallback between the two.  Padding stays here in plain torch, so that a
-domain-decomposed halo exchange can hand K3 its ghosts later.
+fallback between the two.  On CUDA tensors :func:`hydro_step` hands K3 the
+conserved state and the ghost map of its walls (:func:`ghost_map`), and K3
+forms the primitives and the ghosts itself in the same launch; with inflow
+ghosts (data, not indices) it pads here and takes the padded path, as a
+domain-decomposed halo exchange does.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from cmacionize_torch import constants
-from cmacionize_torch.kernels.hydro_step import hydro_step_cuda
+from cmacionize_torch.kernels.hydro_step import hydro_step_conserved_cuda, hydro_step_cuda
 from cmacionize_torch.ops import riemann
 from cmacionize_torch.ops.riemann import _div
 
@@ -155,6 +158,53 @@ def pad_primitives(
                 inflow_lo=lo_val, inflow_hi=hi_val,
             )
     return Primitives(*fields)
+
+
+def ghost_map(bc_lo, bc_hi, length: int, n: int = 2) -> torch.Tensor:
+    """K3's ghost map of one axis: int32 [length + 2n], for each padded index
+    its source cell along the axis, bit-inverted (``~i``) where a reflective
+    wall flips the sign of that axis's velocity.  It is :func:`_pad_axis`
+    applied to the cell indices and to the signs, so a gather by it gives
+    :func:`pad_primitives`' values; inflow ghosts are data, not indices, and
+    are refused."""
+    if BC_INFLOW in (bc_lo, bc_hi):
+        raise ValueError("ghost_map: inflow ghosts are data, not indices; pad them")
+    src = _pad_axis(torch.arange(length, dtype=torch.int32), 0, bc_lo, bc_hi, n)
+    sign = _pad_axis(torch.ones(length, dtype=torch.int32), 0, bc_lo, bc_hi, n,
+                     flip_sign=True)
+    return torch.where(sign < 0, ~src, src)
+
+
+_GHOST_MAPS: dict = {}  # (boundaries, shape, device) → K3's ghost map on the device
+
+
+def ghost_maps(boundaries, shape, device) -> torch.Tensor:
+    """The three axes' :func:`ghost_map` of ``boundaries`` on a grid of
+    ``shape``, concatenated (int32 [Σ (n_a + 4)]) on ``device``, made once
+    and kept."""
+    key = (tuple(tuple(b) for b in boundaries), tuple(shape), str(device))
+    table = _GHOST_MAPS.get(key)
+    if table is None:
+        table = torch.cat([ghost_map(*boundaries[a], shape[a]) for a in range(3)]).to(device)
+        _GHOST_MAPS[key] = table
+    return table
+
+
+def ghost_primitives(u: HydroState, boundaries, gamma: float = GAMMA_DEFAULT) -> Primitives:
+    """K3's first step in plain torch: the primitives padded with 2 ghosts
+    per side, each padded cell's formed by :func:`primitives_from_conserved`
+    from the conserved state of its source cell (:func:`ghost_map`), the
+    normal velocity negated where a reflective wall flips it.  The same bits
+    as ``pad_primitives(primitives_from_conserved(u), boundaries)``."""
+    maps = [ghost_map(*boundaries[a], u.rho.shape[a]).to(u.rho.device).long()
+            for a in range(3)]
+    src = [torch.where(m < 0, ~m, m) for m in maps]
+    index = (src[0][:, None, None], src[1][None, :, None], src[2][None, None, :])
+    w = primitives_from_conserved(HydroState(*(f[index] for f in u)), gamma)
+    flips = (maps[0][:, None, None] < 0, maps[1][None, :, None] < 0,
+             maps[2][None, None, :] < 0)
+    return w._replace(**{name: torch.where(flip, -v, v) for name, v, flip in
+                         zip(("vx", "vy", "vz"), (w.vx, w.vy, w.vz), flips)})
 
 
 # ----------------------------------------------------------------- gradients
@@ -304,8 +354,20 @@ def hydro_step(
     """One MUSCL-Hancock step: U^{n+1} = U^n - dt ∇·F + dt S.
 
     ``gravity``: optional (gx, gy, gz) acceleration fields for the source
-    term (kick + energy work).
+    term (kick + energy work).  On CUDA tensors without ``inflow_states``,
+    K3 forms the primitives and the ghosts itself from ``u`` and the walls'
+    :func:`ghost_maps` (one launch, counted in
+    ``kernels.LAUNCHES["hydro_step"]``); otherwise the primitives are padded
+    here and the step goes through :func:`hydro_step_padded`.
     """
+    if inflow_states is None and u.rho.device.type != "cpu":
+        out = HydroState(*hydro_step_conserved_cuda(
+            tuple(u), ghost_maps(boundaries, u.rho.shape, u.rho.device), _f32(dt),
+            cell_size=cell_size, gamma=gamma, riemann_solver=riemann_solver,
+        ))
+        if gravity is not None:
+            out = _gravity_kick(out, u, dt, gravity)
+        return out
     w = primitives_from_conserved(u, gamma)
     wp = pad_primitives(w, boundaries, n=2, inflow_states=inflow_states)
     return hydro_step_padded(

@@ -339,6 +339,72 @@ def test_short_starbench_on_card(cuda):
     assert abs(mass / expected - 1.0) < 1e-4
 
 
+# K3 in one launch: (U) forms the primitives and the ghosts from the conserved
+# state and the walls' ghost maps, (P) reads padded primitives; the two give
+# the same bits, on shapes that fill whole bricks of 4 x 8 x 8 cells and on
+# shapes that do not.
+K3_SHAPES = [(64, 64, 64), (5, 7, 9), (33, 64, 17)]
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES)
+@pytest.mark.parametrize("solver", ["HLLC", "Exact"])
+@pytest.mark.parametrize("bc", ["reflective", "outflow_mixed"])
+def test_hydro_conserved_path_is_the_padded_path_bit_for_bit(cuda, shape, solver, bc):
+    gamma = 5.0 / 3.0
+    u = hydro.conserved_from_primitives(_hydro_inputs(11, shape, cuda), gamma)
+    kwargs = dict(cell_size=(0.1, 0.12, 0.09), gamma=gamma, riemann_solver=solver)
+    before = kernels.LAUNCHES["hydro_step"]
+    out_u = hydro.hydro_step(u, 2e-3, boundaries=BOUNDARIES[bc], **kwargs)
+    assert kernels.LAUNCHES["hydro_step"] == before + 1
+    wp = hydro.pad_primitives(hydro.primitives_from_conserved(u, gamma), BOUNDARIES[bc])
+    out_p = hydro.hydro_step_padded(u, wp, 2e-3, **kwargs)
+    torch.cuda.synchronize()
+    for name, a, b in zip(out_u._fields, out_u, out_p):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+    assert float((out_u.energy - u.energy).abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES[1:])
+@pytest.mark.parametrize("solver", ["HLLC", "Exact"])
+def test_hydro_kernel_matches_plain_version_on_ragged_bricks(cuda, shape, solver):
+    gamma = 1.4
+    w = _hydro_inputs(12, shape, cuda)
+    u = hydro.conserved_from_primitives(w, gamma)
+    wp = hydro.pad_primitives(w, BOUNDARIES["periodic"])
+    kwargs = dict(cell_size=(0.1,) * 3, gamma=gamma, riemann_solver=solver)
+    out_k = hydro.hydro_step_padded(u, wp, 2e-3, **kwargs)
+    out_r = hydro.hydro_step_padded_reference(u, wp, 2e-3, **kwargs)
+    torch.cuda.synchronize()
+    rel = 1e-6 if solver == "HLLC" else 1e-5
+    for name, a, b in zip(out_r._fields, out_r, out_k):
+        assert torch.isfinite(b).all(), name
+        assert float((a - b).abs().max() / a.abs().max()) <= rel, name
+
+
+def test_hydro_step_with_inflow_ghosts_takes_the_padded_path(cuda):
+    shape, gamma = (12, 8, 8), 5.0 / 3.0
+    u = hydro.conserved_from_primitives(_hydro_inputs(13, shape, cuda), gamma)
+    boundaries = ((hydro.BC_INFLOW, hydro.BC_OUTFLOW), (hydro.BC_PERIODIC,) * 2,
+                  (hydro.BC_REFLECTIVE,) * 2)
+    inflow = {(0, "lo"): (2.0, 0.5, 0.0, 0.0, 3.0)}
+    kwargs = dict(cell_size=(0.1,) * 3, gamma=gamma)
+    before = kernels.LAUNCHES["hydro_step"]
+    out = hydro.hydro_step(u, 1e-3, boundaries=boundaries, inflow_states=inflow, **kwargs)
+    assert kernels.LAUNCHES["hydro_step"] == before + 1
+    wp = hydro.pad_primitives(hydro.primitives_from_conserved(u, gamma), boundaries,
+                              inflow_states=inflow)
+    ref = hydro.hydro_step_padded_reference(u, wp, 1e-3, **kwargs)
+    for a, b in zip(ref, out):
+        assert float((a - b).abs().max() / a.abs().max()) <= 1e-6
+
+
+def test_hydro_kernel_occupancy(cuda):
+    from cmacionize_torch.kernels import hydro_step as hydro_step_ops
+
+    for form, lanes in hydro_step_ops.occupancy(cuda).items():
+        assert 0 < lanes["registers"] <= 255 and lanes["blocks_per_sm"] >= 1, (form, lanes)
+
+
 # ------------------------------------------------- K2 (spectral march)
 
 
@@ -419,6 +485,63 @@ def test_spectral_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         trace_packets_spectral_cuda(chi_h, chi_he, torch.zeros(2048, device=cuda), bad, **kwargs)
     with pytest.raises(ValueError, match="CUDA"):
         trace_packets_spectral_cuda(chi_h.cpu(), chi_he, torch.zeros(2048), fields, **kwargs)
+
+
+@pytest.mark.parametrize("active_share", [1.0, 0.3])
+def test_spectral_kernel_state_bit_for_bit(cuda, active_share):
+    """K2's flags, cells, positions and tau_left equal the plain version's bit
+    for bit, on a source batch and on a re-emission generation's mask, in a
+    gas thin enough that some packets escape; the tally within the plain
+    version's round-off."""
+    shape, n_bins = (32, 32, 32), 16
+    chi_h, chi_he, packets = _spectral_inputs(4, shape, 100_000, n_bins, cuda)
+    chi_h, chi_he = 1e-2 * chi_h, 1e-2 * chi_he
+    ncell = chi_h.numel()
+    rng = np.random.default_rng(5)
+    mask = torch.tensor(rng.uniform(size=packets.size) < active_share, device=cuda)
+    packets = packets._replace(active=mask)
+    kwargs = dict(shape=shape, n_bins=n_bins, periodic=(False,) * 3)
+    tally_k, out_k = traversal.trace_packets_spectral(
+        chi_h, chi_he, packets, torch.zeros(n_bins * ncell, device=cuda), **kwargs)
+    tally_r, out_r = traversal.trace_packets_spectral_reference(
+        chi_h, chi_he, packets, torch.zeros(n_bins * ncell, device=cuda), **kwargs)
+    torch.cuda.synchronize()
+    for f in out_k._fields:
+        a, b = getattr(out_k, f), getattr(out_r, f)
+        same = torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.is_floating_point() \
+            else torch.equal(a, b)
+        assert same, f
+    assert 0 < int(out_k.absorbed.sum()) < int(mask.sum())
+    rel_l1 = float((tally_k - tally_r).abs().sum() / tally_r.abs().sum())
+    assert rel_l1 <= 1e-4, rel_l1
+
+
+@pytest.mark.parametrize("n_active", [0, 1, 33])
+def test_spectral_kernel_on_few_active_packets(cuda, n_active):
+    shape, n_bins = (16, 16, 16), 8
+    chi_h, chi_he, packets = _spectral_inputs(6, shape, 4096, n_bins, cuda)
+    mask = torch.zeros(packets.size, dtype=torch.bool, device=cuda)
+    mask[torch.randperm(packets.size, generator=torch.Generator().manual_seed(n_active))
+         [:n_active].to(cuda)] = True
+    packets = packets._replace(active=mask)
+    kwargs = dict(shape=shape, n_bins=n_bins, periodic=(False,) * 3)
+    tally_k, out_k = traversal.trace_packets_spectral(
+        chi_h, chi_he, packets, torch.zeros(n_bins * chi_h.numel(), device=cuda), **kwargs)
+    tally_r, out_r = traversal.trace_packets_spectral_reference(
+        chi_h, chi_he, packets, torch.zeros(n_bins * chi_h.numel(), device=cuda), **kwargs)
+    torch.cuda.synchronize()
+    for f in out_k._fields:
+        assert torch.equal(getattr(out_k, f), getattr(out_r, f)), f
+    assert float((tally_k - tally_r).abs().max()) <= 1e-5 * max(float(tally_r.abs().max()), 1e-30)
+    if n_active == 0:
+        assert float(tally_k.abs().max()) == 0.0
+
+
+def test_spectral_kernel_occupancy(cuda):
+    from cmacionize_torch.kernels import trace_packets_spectral as k2_ops
+
+    lanes = k2_ops.occupancy(cuda)
+    assert 0 < lanes["registers"] <= 255 and lanes["blocks_per_sm"] >= 1, lanes
 
 
 # ------------------------------------------ K4 (temperature balance)
@@ -928,6 +1051,47 @@ def test_voronoi_spectral_kernel_matches_plain_version(cuda, periodic):
     frozen = ~pk.active
     assert torch.equal(out_k.pos[frozen], pk.pos[frozen])
     assert not bool(out_k.absorbed[frozen].any())
+
+
+@pytest.mark.parametrize("active_share", [1.0, 0.3])
+@pytest.mark.parametrize("periodic", [(False, False, False), (True, True, True)])
+def test_voronoi_spectral_kernel_state_bit_for_bit(cuda, active_share, periodic):
+    """K6s on the packed face rows with warp deposits: flags, cells,
+    positions and tau_left bit for bit the plain version's, on a source batch
+    and on a re-emission generation's mask; the tally within the plain
+    version's round-off."""
+    from cmacionize_torch.models import voronoi
+
+    grid = _voronoi_grid(2, 3000, periodic)
+    n_bins = 8
+    chi_h, chi_he, pk = _voronoi_packets(grid, 7, 50_000, cuda, spectral=True, n_bins=n_bins)
+    rng = np.random.default_rng(8)
+    pk = pk._replace(active=torch.tensor(rng.uniform(size=pk.size) < active_share, device=cuda))
+    tables = voronoi.voronoi_tables(grid, cuda)
+    C = grid.n_cells
+    march = dict(eps=voronoi.march_eps(C), max_steps=voronoi.default_max_steps(C))
+    tally_k, out_k = voronoi.trace_packets_voronoi_spectral(
+        grid, chi_h, chi_he, pk, n_bins=n_bins, tables=tables)
+    tally_r, out_r = voronoi.trace_packets_voronoi_spectral_reference(
+        tables, chi_h * grid.scale, chi_he * grid.scale, pk,
+        torch.zeros(n_bins * C, device=cuda), **march)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k.cell, out_r.cell)
+    for f in ("pos", "tau_left"):
+        assert torch.equal(getattr(out_k, f).view(torch.int32), getattr(out_r, f).view(torch.int32)), f
+    for f in ("active", "absorbed"):
+        assert torch.equal(getattr(out_k, f), getattr(out_r, f)), f
+    assert 0 < int(out_k.absorbed.sum())
+    tally_r = tally_r * grid.scale
+    rel_l1 = float((tally_k.reshape(-1) - tally_r).abs().sum() / tally_r.abs().sum())
+    assert rel_l1 <= 1e-4, rel_l1
+
+
+def test_voronoi_spectral_kernel_occupancy(cuda):
+    from cmacionize_torch.kernels import trace_voronoi_spectral as k6s_ops
+
+    lanes = k6s_ops.occupancy(cuda)
+    assert 0 < lanes["registers"] <= 255 and lanes["blocks_per_sm"] >= 1, lanes
 
 
 def _voronoi_hydro_inputs(grid, seed, si, device):
