@@ -315,6 +315,7 @@ from cmacionize_torch.kernels import temperature as temperature_kernels
 from cmacionize_torch.kernels import compact as compact_ops
 from cmacionize_torch.kernels import trace_octree as trace_octree_ops
 from cmacionize_torch.kernels import trace_octree_spectral as trace_octree_spectral_ops
+from cmacionize_torch.kernels import trace_packets_cone as trace_packets_cone_ops
 from cmacionize_torch.kernels import trace_packets_spectral as trace_packets_spectral_ops
 from cmacionize_torch.kernels import trace_packets as trace_packets_ops
 from cmacionize_torch.kernels import trace_voronoi as trace_voronoi_ops
@@ -369,6 +370,7 @@ from cmacionize_torch.tools import launch_cost, octree_study, probe_pallas_gathe
 from cmacionize_torch.utils.params import ParameterFile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "out")  # what a run keeps for later reading (K10's refused lanes)
 BENCHMARKS = os.path.join(ROOT, "benchmarks")
 STROMGREN_PARAM = os.path.join(BENCHMARKS, "stromgren.param")
 STARBENCH_PARAM = "starbench.param"  # opened from BENCHMARKS, like its .yml
@@ -571,6 +573,18 @@ MAX_CONE_POSITION_DIFF = 1e-4  # cells, where the states agree
 SLAB_DIAGONAL = 8 * 3**0.5  # cells: the farthest K10 may absorb a lane the plain version left
 MAX_CONE_TALLY_REL_L1 = 1e-5
 MAX_CONE_ABSORBED_FRACTION = 1e-4
+# A lane whose tau_left lies where two cells' prefix-scan intervals overlap
+# by round-off is held by both, and the plain version (as the Pallas kernel)
+# places it at the sum of both cells' times, beyond both, where K10 absorbs
+# it in the first (tests/torch_cone_fault.npz: two such lanes, which a check
+# that held every unplaced lane ahead of its slab's entry refused).  The
+# plain version records where the first cell would place such a lane, and
+# K10 is held to that point within MAX_CONE_POSITION_DIFF.
+# K10 and K13e at the main path's shapes as commit f558d89 built them, before
+# their redesign: the median of six readings in turns with the redesign
+# (cmacionize_torch/tools/turns.py k10-time and k13e-time; NVIDIA H100 80GB
+# HBM3, 700 W)
+EARLIER_MS = {"K10 final": 2.0230, "K10 neutral": 0.2200, "K13e": 2.4363}
 # K3 against its plain version: max |Δ| per conserved field relative to the
 # field's largest magnitude.  Both run the same f32 operations in the same
 # order (K3 is built with --fmad=false); the exact solver's powf may differ
@@ -3336,11 +3350,33 @@ def cone_stromgren(config: HOnlyConfig, device, single_volume: int):
     return sim, x, launches
 
 
+def save_cone_evidence(label: str, chi, pf, pi, lanes, out_k, out_r, stats) -> str:
+    """χ, the lanes' chunks (their 512 input rows and both outputs) and the
+    plain version's records of them, as .npz under OUT_DIR; returns the
+    path."""
+    chunk = trace_packets_cone_ops.CHUNK
+    chunks = sorted({int(lane) // chunk for lane in lanes})
+    rows = torch.cat([torch.arange(c * chunk, (c + 1) * chunk) for c in chunks])
+    rows = rows.to(pf.device)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"k10_evidence_{label}.npz")
+    np.savez(path, chi=chi.cpu().numpy(), lanes=np.asarray([int(x) for x in lanes]),
+             chunks=np.asarray(chunks), pf=pf[rows].cpu().numpy(), pi=pi[rows].cpu().numpy(),
+             pf_k=out_k[1][rows].cpu().numpy(), pi_k=out_k[2][rows].cpu().numpy(),
+             pf_r=out_r[1][rows].cpu().numpy(), pi_r=out_r[2][rows].cpu().numpy(),
+             **{k: stats[k][rows].cpu().numpy() for k in ("unplaced", "hits", "first_hit")})
+    return path
+
+
 def cone_parity(sim: HOnlyIonizationSimulation, final_x, device) -> dict:
     """Phase 33: K10 against its plain version, and K10 + the K1 finish
     against K1 alone, on a fully neutral χ and phase 32's final χ, on every
-    lane of a 2^20 stratified batch; K10 timed beside the plain version, K1
-    on the same packets and K1 on them in a random order."""
+    lane of a 2^20 stratified batch; K10 timed beside the plain version, K10
+    as commit f558d89 built it, K1 on the same packets and K1 on them in a
+    random order, with its layout and the phases a chunk and the share of a phase's lanes
+    that walk (from the plain version's march, which takes K10's slabs).  A
+    lane that the checks refuse is saved with χ and its chunk
+    (:func:`save_cone_evidence`) before the phase fails."""
     cfg, shape = sim.config, sim.geometry.shape
     ncell = int(np.prod(shape))
     generator = torch.Generator(device=device)
@@ -3354,44 +3390,49 @@ def cone_parity(sim: HOnlyIonizationSimulation, final_x, device) -> dict:
     order = torch.randperm(n, generator=generator, device=device)
     k1_shuffled = traversal.make_packets(*(p[order] for p in packets), shape)
     sigma_dx = cfg.cross_section * sim.dx
-    fields = {"fully neutral (x = 1)": sim.number_density * sigma_dx,
-              "phase 32's final": sim.number_density * final_x * sigma_dx}
+    fields = {"fully neutral (x = 1)": ("neutral", sim.number_density * sigma_dx),
+              "phase 32's final": ("final", sim.number_density * final_x * sigma_dx)}
+    layout = trace_packets_cone_ops.occupancy(device)
+    log(f"K10 layout: {layout['registers']} registers, "
+        f"{ptxas_layout('trace_packets_cone', 'trace_packets_cone_kernel')}, "
+        f"{layout['blocks_per_sm']} blocks of 512 a SM on {layout['sms']} SMs")
     record = {"max_abs_err": 0.0}
-    for label, chi in fields.items():
+    for label, (tag, chi) in fields.items():
         chi = chi.contiguous()
-        tally_k, pf_k, pi_k = cone.trace_packets_cone(chi, pf, pi, shape=shape)
+        out_k = cone.trace_packets_cone(chi, pf, pi, shape=shape)
         stats = {}
-        (tally_r, pf_r, pi_r), plain_ms = timed_call(
+        out_r, plain_ms = timed_call(
             lambda: cone.trace_packets_cone_reference(chi, pf, pi, shape=shape, stats=stats))
-        unplaced = stats["unplaced"]
-        state_mismatch = int((pi_k[:, 3] != pi_r[:, 3]).sum())
-        same = (pi_k[:, 3] == pi_r[:, 3]) & ~unplaced
-        pos_diff = float((pf_k[same, :3] - pf_r[same, :3]).abs().max())
-        cell_mismatch = int((pi_k[same, :3] != pi_r[same, :3]).any(dim=1).sum())
-        # the plain version leaves a lane whose tau_left lies between its slab
-        # sum and its prefix scans where it entered the slab; K10 must absorb
-        # it further along its ray, within the slab's diagonal
-        ahead = unplaced & (pi_k[:, 3] == 1)
-        step = pf_k[ahead, :3] - pf_r[ahead, :3]
-        along = (step * pf_r[ahead, 3:6]).sum(dim=1)
-        off_ray = float((step - along[:, None] * pf_r[ahead, 3:6]).abs().max()) if len(along) else 0.0
-        n_unplaced = int(unplaced.sum())
+        (tally_k, pf_k, pi_k), (tally_r, pf_r, pi_r) = out_k, out_r
+        lanes = cone.lane_verdicts(out_k, out_r, stats, position_tol=MAX_CONE_POSITION_DIFF,
+                                   diagonal=SLAB_DIAGONAL)
         tally_abs = (tally_k - tally_r).abs()
         rel_l1 = float(tally_abs.sum() / tally_r.abs().sum())
         states = torch.bincount(pi_r[:, 3], minlength=3).tolist()
-        log(f"K10 parity ({label} chi, every one of {n} lanes): plain states (active, absorbed, escaped) {states}; state "
-            f"mismatches {state_mismatch}, lanes the plain version absorbed where they entered "
-            f"the slab {n_unplaced} (K10 absorbed {len(along)} of them further along, "
-            f"{[round(float(a), 4) for a in along[:8]]} cells), cell mismatches where the states "
-            f"agree {cell_mismatch}, max |position diff| {pos_diff:.3e} cells, tally rel L1 "
-            f"{rel_l1:.3e}; plain {plain_ms:.4f} ms (one call, CUDA events)")
-        check(state_mismatch + n_unplaced <= MAX_FLAG_MISMATCH_FRACTION * n,
-              f"K10 state mismatches {state_mismatch} and unplaced lanes {n_unplaced} of {n}")
-        check(pos_diff <= MAX_CONE_POSITION_DIFF, f"K10 position diff {pos_diff}")
-        check(bool(((along >= -MAX_CONE_POSITION_DIFF)
-                    & (along <= SLAB_DIAGONAL + MAX_CONE_POSITION_DIFF)).all())
-              and off_ray <= MAX_CONE_POSITION_DIFF,
-              f"K10 on the unplaced lanes: along {along.tolist()}, off the ray {off_ray}")
+        phases = stats["phases"].double()
+        log(f"K10 parity ({label} chi, every one of {n} lanes): plain states (active, absorbed, "
+            f"escaped) {states}; state mismatches {lanes['state_mismatch']}, lanes the plain "
+            f"version absorbed where they entered the slab {lanes['unplaced']} (K10 absorbed "
+            f"{len(lanes['ahead'])} of them further along where no cell held tau_left, "
+            f"{[round(a, 4) for a in lanes['ahead'][:8]]} cells, and {len(lanes['several'])} "
+            f"at the first of several cells that held it, the plain version's point "
+            f"{[round(-a, 4) for a in lanes['several'][:8]]} cells further), cell mismatches "
+            f"where the states agree {lanes['cell_mismatch']}, max "
+            f"|position diff| {lanes['pos_diff']:.3e} cells, tally rel L1 {rel_l1:.3e}; plain "
+            f"{plain_ms:.4f} ms (one call, CUDA events); phases a chunk {float(phases.mean()):.3f} "
+            f"(at most {int(phases.max())}), lanes that walk "
+            f"{float(stats['walkers'].sum()) / (512 * float(phases.sum())):.4f} of a "
+            f"phase's")
+        if lanes["refused"]:
+            path = save_cone_evidence(tag, chi, pf, pi, lanes["refused"], out_k, out_r, stats)
+            log(f"K10 parity ({label} chi): lanes {lanes['refused'][:16]} refused; chi, their "
+                f"chunks and the plain version's records saved to {path}")
+        check(lanes["state_mismatch"] + lanes["unplaced"] <= MAX_FLAG_MISMATCH_FRACTION * n,
+              f"K10 state mismatches {lanes['state_mismatch']} and unplaced lanes "
+              f"{lanes['unplaced']} of {n}")
+        check(not lanes["refused"], f"K10 refused lanes {lanes['refused'][:16]}: position diff "
+              f"{lanes['pos_diff']} where placed; unplaced ahead {lanes['ahead'][:8]}, of "
+              f"several cells {lanes['several'][:8]}")
         check(rel_l1 <= MAX_CONE_TALLY_REL_L1, f"K10 tally rel L1 {rel_l1}")
         record["max_abs_err"] = max(record["max_abs_err"], float(tally_abs.max()))
 
@@ -3419,16 +3460,25 @@ def cone_parity(sim: HOnlyIonizationSimulation, final_x, device) -> dict:
         traversal.trace_packets_reference(chi.reshape(-1), k1_packets, scratch.clone(),
                                           shape=shape, stats=stats)
         steps = int(stats["packet_steps"])
-        log(f"timing at {shape[0]}^3 / {n} stratified packets ({label} chi): K10 "
-            f"{ms:.4f} ms, K1 on the same packets {k1_ms:.4f} ms (K10 / K1 = "
-            f"{ms / k1_ms:.4f}), K1 on them in a random order {k1_shuffled_ms:.4f} ms "
-            f"(shuffled / stratified = {k1_shuffled_ms / k1_ms:.4f}); plain cone march "
-            f"{plain_ms:.4f} ms (CUDA events, incl. the packet-state copies)")
-        # chi read, tally read and written; 64 B in and 64 B out per lane;
-        # K1's operations per packet-cell crossing of these packets
+        # the old bound: whole packet rows, 64 B in and 64 B out a lane
+        roofline(f"K10 ({label} chi) as counted before the redesign (64 B in and out a lane)",
+                 12 * ncell + 128 * CONE_PHOTONS, OPS_PER_K1_STEP * steps, F32_OPS_PER_S)
+        # chi read, tally read and written; a lane's position, tau and state
+        # in and out (48 B each way: its direction and weight are read, and
+        # the zeroed half of its int row written, with them); K1's operations
+        # per packet-cell crossing of these packets
         bound = roofline(f"K10 ({label} chi; {steps} packet-cell crossings)",
-                         12 * ncell + 128 * CONE_PHOTONS, OPS_PER_K1_STEP * steps,
+                         12 * ncell + 96 * CONE_PHOTONS, OPS_PER_K1_STEP * steps,
                          F32_OPS_PER_S)
+        earlier = EARLIER_MS[f"K10 {tag}"]
+        log(f"timing at {shape[0]}^3 / {n} stratified packets ({label} chi): K10 "
+            f"{ms:.4f} ms against its bound {bound['bound_ms']:.6f} ms "
+            f"({ms / bound['bound_ms']:.1f}x) "
+            f"and commit f558d89's {earlier:.4f} ms (before the redesign; turns.py k10-time, "
+            f"H100 80GB HBM3, 700 W); K1 on the same packets "
+            f"{k1_ms:.4f} ms (K10 / K1 = {ms / k1_ms:.4f}), K1 on them in a random order "
+            f"{k1_shuffled_ms:.4f} ms (shuffled / stratified = {k1_shuffled_ms / k1_ms:.4f}); "
+            f"plain cone march {plain_ms:.4f} ms (CUDA events, incl. the packet-state copies)")
         record.update({"ms": ms, "plain_ms": plain_ms, **bound})  # the final chi's stay
     return record
 
@@ -3752,13 +3802,17 @@ OPS_PER_K13E_STEP = 31
 OPS_PER_K13W_STEP = 13
 OPS_PER_GATHER_STEP = 3  # K14b: the lane (an addition and a mask), the f32 addition
 # The dependent chain of one step, in cycles, from the source: ~4 cycles for
-# each dependent FP32 instruction, ~30 for an IEEE division (a reciprocal
-# estimate and its Newton and correction steps).  K13e: floor, +1, -p, the
-# division, 2 minima (abs as operand modifiers), tau_cell, the test, the
-# select, the FMA; K13w: 2 minima, the equality, the addition and the
+# each dependent FP32 instruction.  K13e: floor, +1, -p, the wall quotient
+# by the lane's reciprocal (a multiply and two FMAs), 2 minima (abs as
+# operand modifiers), tau_cell, the test, the select, the FMA: the step
+# needs no IEEE division on its chain (tau / chi is tau where tau = 0, and
+# the card divides by chi once a lane).  The model of the kernel before it
+# counted ~30 cycles for an IEEE division in place of the three quotient
+# steps (CHAIN_CYCLES_BEFORE); K13w: 2 minima, the equality, the addition and the
 # select of tmx; K14b: the f32 addition (the lane's shared-memory load does
 # not wait on the sum)
-CHAIN_CYCLES = {"K13e": 8 * 4 + 30, "K13w": 5 * 4, "K14b": 4}
+CHAIN_CYCLES = {"K13e": 12 * 4, "K13w": 5 * 4, "K14b": 4}
+CHAIN_CYCLES_BEFORE = 8 * 4 + 30
 
 
 def sm_clock_hz() -> float:
@@ -3891,6 +3945,14 @@ def deposit_phase(device) -> tuple:
         log(f"{label} ({name}) parity: identical on the tools', seeded and {DDA_LANES}-lane "
             f"inputs; timing {label} {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, "
             f"1024 lanes x {nstep} steps); {latency_floor(label, nstep, ms)}")
+        if label == "K13e":
+            threads = probe_deposit_ops.DDA_THREADS
+            log(f"K13e layout: {ptxas_layout('probe_deposit', 'dda_math_kernel')}, blocks of "
+                f"{threads} threads, {a.numel() // threads} blocks for the tools' {a.numel()} "
+                f"lanes; commit f558d89's K13e {EARLIER_MS['K13e']:.4f} ms (before the redesign; "
+                f"turns.py k13e-time, H100 80GB HBM3, 700 W), its "
+                f"floor with the earlier model's chain of {CHAIN_CYCLES_BEFORE} cycles "
+                f"{nstep * CHAIN_CYCLES_BEFORE / sm_clock_hz() * 1e3:.6f} ms")
         bound = roofline(f"{label} at the tools' shapes", 12 * a.numel(),
                          ops * a.numel() * nstep, F32_OPS_PER_S)
         records[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound,

@@ -24,12 +24,36 @@
 // per lane, the distances to the next integer planes recomputed each step
 // (K13e) or stepped incrementally (Amanatides-Woo, K13w).  One thread per lane
 // runs the whole loop in registers, so each is bound by its per-step
-// dependent chain (K13e: floor, two additions, an IEEE division, the minima,
-// the absorption test and an FMA) times nstep, not by bytes or the FP32
-// rate, at the probes' 1024 lanes.  K13e rounds the three position updates
-// and the radicand 1 - dx^2 - dy^2 once (__fmaf_rn), as XLA fuses them on the
-// CPU; everything else is one IEEE operation at a time (--fmad=false, IEEE
-// division and square root), so both equal their plain versions bit for bit.
+// dependent chain times nstep, not by bytes or the FP32 rate, at the probes'
+// 1024 lanes.  K13e rounds the three position updates and the radicand
+// 1 - dx^2 - dy^2 once (__fmaf_rn), as XLA fuses them on the CPU; everything
+// else is one IEEE operation at a time (--fmad=false, IEEE division and
+// square root), so both equal their plain versions bit for bit.
+//
+// K13e's step (redesigned): the first port's kernel took 612 cycles a step where its
+// chain of floor, additions, a division, minima, the test, the select and
+// an FMA models ~62.  An IEEE division (__fdiv_rn) is a reciprocal estimate,
+// Newton and correction steps, a range test (FCHK) and a branch to a
+// slow-path subroutine, which the test takes for a zero dividend: tau / chi
+// with tau = 0, every step of a lane after its absorption.  And a branch a
+// division keeps the step's divisions from overlapping.  So:
+//   * the three wall distances divide by the loop-invariant sx, sy, sz: each
+//     lane forms r = RN(1 / s) once and takes each quotient as q0 = a r,
+//     e = fma(-s, q0, a), q = fma(e, r, q0), which Markstein's theorem makes
+//     RN(a / s), the IEEE quotient bit for bit, for a = 0 and
+//     2^-64 <= |a| <= 2 (an exact remainder and a normal quotient; the
+//     divisors lie in 1e-12 <= |s| <= 1);
+//   * tau / chi is tau itself where tau = 0 (chi > 0), so a step divides by
+//     chi only where a lane is absorbed with tau > 0, once a lane;
+//   * the steps run in blocks of kDdaBlockSteps without a division or a
+//     branch, each step noting whether its quotients held (no numerator
+//     below 2^-64, no absorption with tau > 0); a block where one did not is
+//     run again from its start with IEEE divisions, so every step is the
+//     body's bit for bit.  The chain of a step is floor, two additions, the
+//     multiply and two FMAs, two minima, tau_cell, the test, the select and
+//     the position FMA;
+//   * blocks of kDdaThreads threads, one warp, spread the probe's 1024 lanes
+//     over 32 SMs, so that no scheduler interleaves two warps' chains.
 //
 // K13f replaces probe_deposit2.py's make.run with d12_kernel: out[0, c] =
 // dep[0] for the 128 cells (the TPU body checks a [16, 8] -> [1, 128] reshape
@@ -75,12 +99,90 @@ __global__ void round_histogram_kernel(const double* __restrict__ sum, float* __
   out[threadIdx.x] = static_cast<float>(sum[threadIdx.x]);
 }
 
+constexpr int kDdaThreads = 32;
+constexpr int kDdaBlockSteps = 32;  // steps between two checks of the fast form
+// the least numerator whose quotient by a divisor in [1e-12, 1] the
+// reciprocal form rounds as the IEEE division does (Markstein's theorem needs
+// an exact remainder and a normal quotient)
+constexpr float kLeastNumerator = 0x1p-64f;
+
+// RN(a / s) from r = RN(1 / s) for a = 0 or kLeastNumerator <= |a| <= 2 and
+// 1e-12 <= |s| <= 1: the product, its exact remainder and one correction
+__device__ __forceinline__ float divide_by(float a, float s, float r) {
+  const float q0 = a * r;
+  const float e = __fmaf_rn(-s, q0, a);
+  return __fmaf_rn(e, r, q0);
+}
+
+// One lane's DDA state, and e_kernel's step on it in two forms.
+struct DdaLane {
+  float px, py, pz, tau;
+
+  // The step, every quotient the IEEE one: the wall distances in the
+  // reciprocal form where their numerators allow it, else by __fdiv_rn, and
+  // tau / chi by __fdiv_rn where tau != 0 (tau itself where tau = 0, as
+  // chi > 0).
+  __device__ __forceinline__ void exact_step(float dx, float dy, float dz, float sx, float sy,
+                                             float sz, float rx, float ry, float rz) {
+    const float nx = floorf(px) + 1.0f - px;
+    const float ny = floorf(py) + 1.0f - py;
+    const float nz = floorf(pz) + 1.0f - pz;
+    float tx, ty, tz;
+    if (fminf(nx, fminf(ny, nz)) >= kLeastNumerator) {
+      tx = divide_by(nx, sx, rx);
+      ty = divide_by(ny, sy, ry);
+      tz = divide_by(nz, sz, rz);
+    } else {
+      tx = __fdiv_rn(nx, sx);
+      ty = __fdiv_rn(ny, sy);
+      tz = __fdiv_rn(nz, sz);
+    }
+    const float l_exit = fminf(fabsf(tx), fminf(fabsf(ty), fabsf(tz)));
+    const float chi = fmaxf(px * 0.01f, 1e-30f);
+    const float tau_cell = chi * l_exit;
+    const bool absorbed = tau_cell >= tau;
+    const float lt = absorbed ? (tau == 0.0f ? tau : __fdiv_rn(tau, chi)) : l_exit;
+    px = __fmaf_rn(dx, lt, px);
+    py = __fmaf_rn(dy, lt, py);
+    pz = __fmaf_rn(dz, lt, pz);
+    tau = absorbed ? 0.0f : tau - tau_cell;
+  }
+
+  // The same step without a division on its chain: the wall quotients in
+  // the reciprocal form, and tau / chi taken as tau, which it is where
+  // tau = 0 (chi > 0).  Returns whether that was the step's quotients: no
+  // numerator below kLeastNumerator, and no absorption with tau > 0.
+  __device__ __forceinline__ bool fast_step(float dx, float dy, float dz, float sx, float sy,
+                                            float sz, float rx, float ry, float rz) {
+    const float nx = floorf(px) + 1.0f - px;
+    const float ny = floorf(py) + 1.0f - py;
+    const float nz = floorf(pz) + 1.0f - pz;
+    const float tx = divide_by(nx, sx, rx);
+    const float ty = divide_by(ny, sy, ry);
+    const float tz = divide_by(nz, sz, rz);
+    const float l_exit = fminf(fabsf(tx), fminf(fabsf(ty), fabsf(tz)));
+    const float chi = fmaxf(px * 0.01f, 1e-30f);
+    const float tau_cell = chi * l_exit;
+    const bool absorbed = tau_cell >= tau;
+    const bool held = fminf(nx, fminf(ny, nz)) >= kLeastNumerator && !(absorbed && tau != 0.0f);
+    const float lt = absorbed ? tau : l_exit;
+    px = __fmaf_rn(dx, lt, px);
+    py = __fmaf_rn(dy, lt, py);
+    pz = __fmaf_rn(dz, lt, pz);
+    tau = absorbed ? 0.0f : tau - tau_cell;
+    return held;
+  }
+};
+
 // one thread per lane: e_kernel's loop, the loop-invariant direction terms
-// formed once
-__global__ void __launch_bounds__(kThreads) dda_math_kernel(
+// and their reciprocals formed once.  The steps run in blocks of
+// kDdaBlockSteps in the fast form; a block in which it did not hold (a
+// lane's one absorption with tau > 0, or a numerator within 2^-64 of 0) is
+// run again from its start with IEEE divisions.
+__global__ void __launch_bounds__(kDdaThreads) dda_math_kernel(
     const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out, int n,
     int nstep) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = blockIdx.x * kDdaThreads + threadIdx.x;
   if (lane >= n) return;
   const float dx = __ldg(a + lane);
   const float dy = __ldg(b + lane);
@@ -88,25 +190,27 @@ __global__ void __launch_bounds__(kThreads) dda_math_kernel(
   const float sx = fabsf(dx) > 1e-12f ? dx : 1e-12f;
   const float sy = fabsf(dy) > 1e-12f ? dy : 1e-12f;
   const float sz = fabsf(dz) > 1e-12f ? dz : 1e-12f;
-  float px = dx * 32.0f;
-  float py = px + 1.0f;
-  float pz = px + 2.0f;
-  float tau = px * 9.0f;
-  for (int i = 0; i < nstep; ++i) {
-    const float tx = __fdiv_rn(floorf(px) + 1.0f - px, sx);
-    const float ty = __fdiv_rn(floorf(py) + 1.0f - py, sy);
-    const float tz = __fdiv_rn(floorf(pz) + 1.0f - pz, sz);
-    const float l_exit = fminf(fabsf(tx), fminf(fabsf(ty), fabsf(tz)));
-    const float chi = fmaxf(px * 0.01f, 1e-30f);
-    const float tau_cell = chi * l_exit;
-    const bool absorbed = tau_cell >= tau;
-    const float lt = absorbed ? __fdiv_rn(tau, chi) : l_exit;
-    px = __fmaf_rn(dx, lt, px);
-    py = __fmaf_rn(dy, lt, py);
-    pz = __fmaf_rn(dz, lt, pz);
-    tau = absorbed ? 0.0f : tau - tau_cell;
+  const float rx = __frcp_rn(sx), ry = __frcp_rn(sy), rz = __frcp_rn(sz);
+  const float px = dx * 32.0f;
+  DdaLane s{px, px + 1.0f, px + 2.0f, px * 9.0f};
+  for (int i = 0; i < nstep; i += kDdaBlockSteps) {
+    const int steps = min(kDdaBlockSteps, nstep - i);
+    const DdaLane start = s;
+    bool held = true;
+    if (steps == kDdaBlockSteps) {
+#pragma unroll
+      for (int k = 0; k < kDdaBlockSteps; ++k) {
+        held &= s.fast_step(dx, dy, dz, sx, sy, sz, rx, ry, rz);
+      }
+    } else {
+      for (int k = 0; k < steps; ++k) held &= s.fast_step(dx, dy, dz, sx, sy, sz, rx, ry, rz);
+    }
+    if (!held) {
+      s = start;
+      for (int k = 0; k < steps; ++k) s.exact_step(dx, dy, dz, sx, sy, sz, rx, ry, rz);
+    }
   }
-  out[lane] = px + tau;
+  out[lane] = s.px + s.tau;
 }
 
 // one thread per lane: w2_kernel's loop
@@ -175,8 +279,8 @@ extern "C" int cmi_shifted_histogram(const float* dep, const int* lidx, float* o
 extern "C" int cmi_dda_math(const float* a, const float* b, float* out, int n, int nstep,
                             void* stream) {
   if (n > 0) {
-    dda_math_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, out, n,
-                                                                                 nstep);
+    dda_math_kernel<<<(n + kDdaThreads - 1) / kDdaThreads, kDdaThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(a, b, out, n, nstep);
   }
   return static_cast<int>(cudaGetLastError());
 }

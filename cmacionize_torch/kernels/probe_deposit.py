@@ -10,9 +10,9 @@ launches in ``kernels.LAUNCHES`` under the wrapper's name.  There is no
 fallback between the two.  The wrappers check devices, dtypes and
 contiguity.
 
-K13f launches through :mod:`kernels.launch` (a launcher typed once, PyTorch's
-raw stream, an identity check of its tensor), the others through the ctypes
-path of :mod:`kernels.gather`.
+K13f and K13e launch through :mod:`kernels.launch` (a launcher typed once,
+PyTorch's raw stream, identity checks of the tensors), the others through the
+ctypes path of :mod:`kernels.gather`.
 """
 
 from __future__ import annotations
@@ -21,12 +21,14 @@ import torch
 
 from cmacionize_torch.kernels import LAUNCHES
 from cmacionize_torch.kernels.gather import _check, _function, _launch
-from cmacionize_torch.kernels.launch import Launcher, check_one
+from cmacionize_torch.kernels.launch import Launcher, check_one, check_pair
 from cmacionize_torch.ops.traversal import _fma
 
 NAME = "probe_deposit"
 CELLS = 128
+DDA_THREADS = 32  # K13e's threads a block (csrc/probe_deposit.cu: kDdaThreads)
 _FILL_FIRST = Launcher(NAME, "cmi_fill_first", 2, 0)
+_DDA_MATH = Launcher(NAME, "cmi_dda_math", 3, 2)
 HISTOGRAM_STEP_CHUNK = 128  # steps the plain histogram deposits per index_add_
 
 
@@ -144,12 +146,25 @@ def dda_math(a: torch.Tensor, b: torch.Tensor, nstep: int) -> torch.Tensor:
     the inputs' shape."""
     if a.device.type == "cpu":
         return dda_math_reference(a, b, nstep)
-    _check_pair("dda_math", ("a", "b"), a, b, (torch.float32, torch.float32))
-    _check_nstep("dda_math", nstep)
+    (index,) = check_dda_math(a, b, nstep)
     out = torch.empty_like(a)
-    _launch("dda_math", _function("cmi_dda_math", 3, 2, NAME), a, b, out, a.numel(), nstep)
+    _DDA_MATH(index, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), nstep)
     LAUNCHES["dda_math"] += 1
     return out
+
+
+def check_dda_math(a: torch.Tensor, b: torch.Tensor, nstep: int) -> tuple:
+    """K13e's checks: (device index,) of its launch, or ValueError.  ``a`` and
+    ``b``: f32, contiguous, on one CUDA device, of one shape (any number of
+    dimensions) with fewer than 2^31 elements; 0 <= nstep < 2^31 - 128."""
+    index = check_pair("dda_math", "a", a, torch.float32, a.ndim, "b", b, torch.float32, None)
+    if a.shape != b.shape:
+        raise ValueError(f"dda_math: a and b must have one shape; got {list(a.shape)} and "
+                         f"{list(b.shape)}")
+    if a.numel() >= 2**31:
+        raise ValueError("dda_math: sizes must fit int32")
+    _check_nstep("dda_math", nstep)
+    return (index,)
 
 
 def dda_incremental(a: torch.Tensor, b: torch.Tensor, nstep: int) -> torch.Tensor:

@@ -1,52 +1,42 @@
 """Wrapper of K10, the CUDA cone march (``csrc/trace_packets_cone.cu``).
 
 The wrapper checks what the kernel takes (one CUDA device, dtypes, shapes,
-contiguity, the chunk and slab the kernel was written for), launches on
-PyTorch's current stream and raises if the launch was refused.  It
-allocates nothing: the tally (zeroed by the caller) and the packet state are
-updated in place, and the caller
-(:func:`cmacionize_torch.tools.experimental_cone_kernel.trace_packets_cone`)
+contiguity, the chunk and slab the kernel was written for) and launches on
+PyTorch's current stream through :mod:`cmacionize_torch.kernels.launch`,
+which raises if the launch was refused.  It allocates nothing: the tally
+(zeroed by the caller) and the packet state are updated in place, and the
+caller (:func:`cmacionize_torch.tools.experimental_cone_kernel.trace_packets_cone`)
 hands in copies.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from cmacionize_torch.kernels import LAUNCHES
-from cmacionize_torch.kernels.build import load_library
+from cmacionize_torch.kernels.launch import Launcher, kernel_occupancy
 
 NAME = "trace_packets_cone"
 # compile-time constants of csrc/trace_packets_cone.cu: one block of CHUNK
 # threads per chunk, an SLAB³ slab in shared memory
 CHUNK = 512
 SLAB = 8
+# the kernel orders lanes by (lag metric + nx + ny + nz) · CHUNK + lane in
+# one int32, and packs a slab corner's x and y into one
+MAX_SIDE_SUM = 2**21
+MAX_SIDE = 2**15
+# chi, tally, pf, pi; then P, nx, ny, nz and max_phases
+_LAUNCH = Launcher(NAME, "cmi_trace_packets_cone", 4, 5)
 
 
-def _launcher():
-    fn = load_library(NAME).cmi_trace_packets_cone
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def occupancy(device) -> dict:
+    """Registers per thread and blocks of 512 resident per SM of K10, and the
+    SM count of CUDA ``device``."""
+    return kernel_occupancy(NAME, "cmi_trace_packets_cone_occupancy", device)
 
 
-def trace_packets_cone_cuda(
-    chi3d: torch.Tensor,
-    tally: torch.Tensor,
-    pf: torch.Tensor,
-    pi: torch.Tensor,
-    *,
-    shape,
-    slab: int,
-    chunk: int,
-    max_phases: int,
-) -> None:
-    """March the packets of ``pf``/``pi`` ([P, 8] f32 / i32) for at most
-    ``max_phases`` phases per chunk, adding ℓ·w into ``tally`` ([nx, ny, nz]
-    f32), all in place."""
+def check_cone(chi3d, tally, pf, pi, shape, slab: int, chunk: int, max_phases: int) -> int:
+    """K10's checks: the CUDA device index of its launch, or ValueError."""
     nx, ny, nz = (int(s) for s in shape)
     device = chi3d.device
     if device.type != "cuda":
@@ -71,14 +61,28 @@ def trace_packets_cone_cuda(
             raise ValueError(f"trace_packets_cone_cuda: {name} must be contiguous")
     if P % chunk or min(nx, ny, nz) < slab:
         raise ValueError("trace_packets_cone_cuda: P % chunk != 0 or grid smaller than slab")
-    if max(8 * P, nx * ny * nz) >= 2**31 or max_phases < 0:
+    if (max(8 * P, nx * ny * nz) >= 2**31 or nx + ny + nz >= MAX_SIDE_SUM
+            or max(nx, ny, nz) >= MAX_SIDE or max_phases < 0):
         raise ValueError("trace_packets_cone_cuda: sizes must fit int32")
+    return device.index if device.index is not None else torch.cuda.current_device()
 
-    launch = _launcher()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = launch(chi3d.data_ptr(), tally.data_ptr(), pf.data_ptr(), pi.data_ptr(),
-                     P, nx, ny, nz, int(max_phases), stream)
-    if err != 0:
-        raise RuntimeError(f"trace_packets_cone_cuda: CUDA error {err} at launch")
+
+def trace_packets_cone_cuda(
+    chi3d: torch.Tensor,
+    tally: torch.Tensor,
+    pf: torch.Tensor,
+    pi: torch.Tensor,
+    *,
+    shape,
+    slab: int,
+    chunk: int,
+    max_phases: int,
+) -> None:
+    """March the packets of ``pf``/``pi`` ([P, 8] f32 / i32) for at most
+    ``max_phases`` phases per chunk, adding ℓ·w into ``tally`` ([nx, ny, nz]
+    f32), all in place."""
+    index = check_cone(chi3d, tally, pf, pi, shape, slab, chunk, max_phases)
+    nx, ny, nz = (int(s) for s in shape)
+    _LAUNCH(index, chi3d.data_ptr(), tally.data_ptr(), pf.data_ptr(), pi.data_ptr(),
+            pf.shape[0], nx, ny, nz, int(max_phases))
     LAUNCHES[NAME] += 1

@@ -74,11 +74,17 @@ def _expand(v, S, axis):
     return v.reshape(view).expand(G, C, S, S, S).reshape(G, C, S * S * S)
 
 
-def _march_group(chi_flat, tally_flat, pf, pi, shape, S, max_phases, unplaced=None):
+def _march_group(chi_flat, tally_flat, pf, pi, shape, S, max_phases, record=None, trace=None):
     """March G chunks ([G, C, 8] packet blocks) side by side, phase for
     phase as the Pallas kernel marches each one; returns the new blocks.
-    ``unplaced``, a [G, C] bool tensor if given, is or-ed with the lanes
-    absorbed in a phase where no single slab cell holds their tau_left."""
+    ``record``, a dict of tensors if given, receives per lane ([G, C]):
+    ``unplaced`` or-ed with the lanes absorbed in a phase where no single
+    slab cell holds their tau_left, ``hits`` the number of cells that held
+    it, and ``first_hit`` ([G, C, 3]) the point where the first of several
+    such cells would absorb the lane; and per chunk ([G]) ``phases``, the
+    phases it ran, and ``walkers``, the lanes that marched summed over them.
+    ``trace``, a dict {(group chunk, lane): list} if given, receives one dict
+    per phase for each of those lanes (:func:`_trace_row`)."""
     nx, ny, nz = shape
     G, C = pf.shape[:2]
     S3 = S * S * S
@@ -172,15 +178,29 @@ def _march_group(chi_flat, tally_flat, pf, pi, shape, S, max_phases, unplaced=No
         frac = torch.clamp((tau_c - cum_entry) / torch.clamp_min(chiell, _TINY), 0.0, 1.0)
         wm = (wgt * marchf)[..., None]
         hit = (cum_entry <= tau_c) & (tau_c < cum) & (ell > 0.0)
-        t_abs = torch.sum(
-            torch.where(hit, t_lo + (tau_c - cum_entry) / torch.clamp_min(chi_row, _TINY), 0.0),
-            dim=2,
-        )
+        t_hit = t_lo + (tau_c - cum_entry) / torch.clamp_min(chi_row, _TINY)
+        t_abs = torch.sum(torch.where(hit, t_hit, 0.0), dim=2)
         # the chunk's branch: the Pallas kernel's lax.cond on any_abs
         D = torch.where(any_abs[:, None, None], ell * frac * wm, ell * wm)
         t_abs = torch.where(any_abs[:, None], t_abs, 0.0)
-        if unplaced is not None:
-            unplaced |= absorbed_now & (hit.sum(dim=2) != 1)
+        if record is not None:
+            record["phases"] += live
+            record["walkers"] += march.sum(dim=1)
+            hits = hit.sum(dim=2)
+            record["unplaced"] |= absorbed_now & (hits != 1)
+            record["hits"] = torch.where(absorbed_now, hits, record["hits"])
+            # where several cells hold tau_left, the point that the first of
+            # them (the least absorption time) gives
+            t_first = torch.where(hit, t_hit, float("inf")).amin(dim=2)
+            several = absorbed_now & (hits > 1)
+            for k, (p, d) in enumerate(((px, dxv), (py, dyv), (pz, dzv))):
+                record["first_hit"][..., k] = torch.where(several, _fma(d, t_first, p),
+                                                          record["first_hit"][..., k])
+        if trace is not None:
+            for (g, c), rows in trace.items():
+                rows.append(_trace_row(len(rows), (bx[g, 0], by[g, 0], bz[g, 0]), march[g, c],
+                                       tau[g, c], tau_tot[g, c], absorbed_now[g, c], ell[g, c],
+                                       chiell[g, c], cum[g, c], hit[g, c], signs, g, c, S))
 
         dep = torch.sum(D, dim=1)  # [G, S³]
         tally_flat.index_add_(0, flat[live].reshape(-1), dep[live].reshape(-1))
@@ -213,6 +233,24 @@ def _march_group(chi_flat, tally_flat, pf, pi, shape, S, max_phases, unplaced=No
     return pf_out, pi_out
 
 
+def _trace_row(phase, corner, march, tau, tau_tot, absorbed, ell, chiell, cum, hit, signs, g, c,
+               S):
+    """One phase of one lane of the plain march: the slab corner, whether it
+    marched, the tau_left it entered with, the slab's optical-depth sum, the
+    decision, its cells with l > 0 in travel order with each one's l·chi and
+    the prefix scan's optical depth at its exit (the sums that place the
+    absorption), and the number of cells that held tau_left."""
+    cells = torch.nonzero(ell > 0.0).reshape(-1)
+    local = torch.stack((cells // (S * S), (cells // S) % S, cells % S), dim=1)
+    rank = sum(torch.where(sign[g, c], local[:, k], S - 1 - local[:, k]) * S ** (2 - k)
+               for k, sign in enumerate(signs))
+    cells = cells[torch.argsort(rank)]
+    return {"phase": phase, "corner": tuple(int(v) for v in corner), "march": bool(march),
+            "tau": float(tau), "tau_tot": float(tau_tot), "absorbed": bool(absorbed),
+            "cells": cells.tolist(), "chiell": chiell[cells].tolist(),
+            "cum": cum[cells].tolist(), "hits": int(hit.sum())}
+
+
 def trace_packets_cone_reference(
     chi3d: torch.Tensor,
     pf: torch.Tensor,
@@ -223,6 +261,7 @@ def trace_packets_cone_reference(
     chunk: int = 512,
     max_phases: int = 128,
     stats=None,
+    trace_lanes=(),
 ):
     """Plain PyTorch cone march: the Pallas kernel's arithmetic, phase for
     phase, on ``_GROUP`` chunks at a time (in chunk order, as the TPU's
@@ -230,13 +269,22 @@ def trace_packets_cone_reference(
     :func:`trace_packets_cone`; the inputs are not modified.
 
     The Pallas kernel decides absorption by the slab's optical-depth sum
-    (``tau < tau_tot``) and places it by the prefix scans (the cell with
-    ``cum_entry <= tau < cum``).  The two totals differ at f32 round-off; a
-    lane whose tau_left lies between them is absorbed with no cell hit, at
-    ``t_abs = 0``, i.e. where it entered the slab.  With ``stats``,
+    (``tau < tau_tot``) and places it by the prefix scans: it adds the
+    absorption times of every cell with ``cum_entry <= tau < cum``.  The two
+    totals differ at f32 round-off, and so do neighbouring cells' prefix
+    sums: a lane whose tau_left lies between the totals is absorbed with no
+    cell hit, at ``t_abs = 0``, i.e. where it entered the slab, and one whose
+    tau_left lies where two cells' intervals overlap by round-off is placed
+    at the sum of both cells' times, beyond both.  With ``stats``,
     ``stats["unplaced"]`` receives a [P] bool tensor of the lanes absorbed
-    so (or with more than one cell hit), whose positions K10, which sums in
-    travel order and absorbs only in a cell, does not share.
+    so, whose positions K10, which sums in travel order and absorbs in the
+    first cell that holds tau_left, does not share; ``stats["hits"]`` (int64
+    [P]) the number of cells that held each absorbed lane's tau_left;
+    ``stats["first_hit"]`` (f32 [P, 3]) where the first of several such cells
+    would absorb the lane (0 elsewhere); ``stats["phases"]`` and
+    ``stats["walkers"]`` (int64 [P / chunk]) the phases each chunk ran and
+    the lanes that marched in them; and ``stats["trace"]`` {lane: one dict
+    per phase} for the lanes of ``trace_lanes`` (:func:`_trace_row`).
     """
     _check(pf, shape, slab, chunk)
     P = pf.shape[0]
@@ -245,17 +293,33 @@ def trace_packets_cone_reference(
     tally_flat = tally.view(-1)
     pf_b = pf.reshape(P // chunk, chunk, 8)
     pi_b = pi.reshape(P // chunk, chunk, 8)
-    unplaced = None
+    record = traces = None
     if stats is not None:
-        unplaced = torch.zeros((P // chunk, chunk), dtype=torch.bool, device=chi3d.device)
-        stats["unplaced"] = unplaced.view(P)
+        blocks = (P // chunk, chunk)
+        record = {"unplaced": torch.zeros(blocks, dtype=torch.bool, device=chi3d.device),
+                  "hits": torch.zeros(blocks, dtype=torch.int64, device=chi3d.device),
+                  "first_hit": torch.zeros((*blocks, 3), device=chi3d.device),
+                  "phases": torch.zeros(blocks[0], dtype=torch.int64, device=chi3d.device),
+                  "walkers": torch.zeros(blocks[0], dtype=torch.int64, device=chi3d.device)}
+        traces = {int(lane): [] for lane in trace_lanes}
+        stats["trace"] = traces
     pf_out, pi_out = [], []
     for start in range(0, P // chunk, _GROUP):
         group = slice(start, start + _GROUP)
+        part = None if record is None else {k: v[group] for k, v in record.items()}
+        trace = {(lane // chunk - start, lane % chunk): rows
+                 for lane, rows in (traces or {}).items()
+                 if start <= lane // chunk < start + _GROUP} or None
         f, i = _march_group(chi_flat, tally_flat, pf_b[group], pi_b[group], shape, slab,
-                            max_phases, None if unplaced is None else unplaced[group])
+                            max_phases, part, trace)
+        if part is not None:
+            for k, v in part.items():
+                record[k][group] = v
         pf_out.append(f)
         pi_out.append(i)
+    if stats is not None:
+        stats.update({k: v.reshape(-1, 3) if k == "first_hit" else v.reshape(-1)
+                      for k, v in record.items()})
     return tally, torch.cat(pf_out).reshape(P, 8), torch.cat(pi_out).reshape(P, 8)
 
 
@@ -292,6 +356,45 @@ def trace_packets_cone(
     trace_packets_cone_cuda(chi3d, tally, pf_out, pi_out, shape=shape, slab=slab,
                             chunk=chunk, max_phases=max_phases)
     return tally, pf_out, pi_out
+
+
+def lane_verdicts(out_k, out_r, stats, *, position_tol: float, diagonal: float) -> dict:
+    """K10's lanes held against the plain version's (``chip_smoke.py``'s
+    phase 33): ``out_k`` and ``out_r`` are (tally, pf, pi) of K10 and of
+    :func:`trace_packets_cone_reference` with ``stats``.
+
+    Where the states agree and the plain version placed the lane, the
+    positions must agree within ``position_tol`` cells.  A lane that the
+    plain version left unplaced and K10 absorbed: where no cell held its
+    tau_left (the plain version left it where it entered the slab), K10's
+    point lies on the ray within ``position_tol``, ahead of the plain
+    version's by at most ``diagonal`` (K10 placed it in that slab, or in the
+    next with what round-off left of tau_left); where several cells held it
+    (the plain version added their times), K10's point is the first such
+    cell's within ``position_tol``.  Returns the counts of state mismatches
+    and unplaced lanes, the distances along the ray of the lanes placed
+    ahead and of the plain version's points of several cells from K10's,
+    the worst position error and the cell mismatches of the placed lanes,
+    and the refused lanes."""
+    (_, pf_k, pi_k), (_, pf_r, pi_r) = out_k, out_r
+    unplaced = stats["unplaced"]
+    sk, sr = pi_k[:, 3], pi_r[:, 3]
+    placed = (sk == sr) & ~unplaced
+    step = pf_k[:, :3] - pf_r[:, :3]
+    pos_err = step.abs().amax(dim=1)
+    along = (step * pf_r[:, 3:6]).sum(dim=1)
+    on_ray = (step - along[:, None] * pf_r[:, 3:6]).abs().amax(dim=1) <= position_tol
+    absorbed = unplaced & (sk == 1)
+    several = absorbed & (stats["hits"] > 1)
+    ahead = (absorbed & ~several & on_ray & (along >= -position_tol)
+             & (along <= diagonal + position_tol))
+    first = several & ((pf_k[:, :3] - stats["first_hit"]).abs().amax(dim=1) <= position_tol)
+    refused = (placed & (pos_err > position_tol)) | (absorbed & ~ahead & ~first)
+    return {"state_mismatch": int((sk != sr).sum()), "unplaced": int(unplaced.sum()),
+            "ahead": along[ahead].tolist(), "several": along[several].tolist(),
+            "pos_diff": float(pos_err[placed].max()) if bool(placed.any()) else 0.0,
+            "cell_mismatch": int((pi_k[placed, :3] != pi_r[placed, :3]).any(dim=1).sum()),
+            "refused": torch.nonzero(refused).reshape(-1).tolist()}
 
 
 def pack_packets(position, direction, tau, weight, shape):

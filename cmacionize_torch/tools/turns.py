@@ -3,7 +3,8 @@ the sharded starbench run's merges, K7 on the starbench_voronoi run's
 updates, K9p's host cost a call, and the walls of both runs; K3 on the
 starbench states and the launches of a starbench step; K6s on each march of
 the multi-frequency Voronoi run and that run's transport seconds; K2 on each
-launch of a lexington run.
+launch of a lexington run; K10 on phase 32's final χ and the hunt for the
+lanes that phase 33's check refuses; K13e at the probe's shape.
 
 Each mode runs one checkout, given by its root directory: the checkout's
 ``chip_smoke.py`` and ``cmacionize_torch`` are imported from there, so that
@@ -27,6 +28,11 @@ inputs in the temporary directory for the ``time`` modes of both::
     python3 cmacionize_torch/tools/turns.py k6s-wall LABEL ROOT
     python3 cmacionize_torch/tools/turns.py k2-time LABEL ROOT
     python3 cmacionize_torch/tools/turns.py k2-wall LABEL ROOT
+    python3 cmacionize_torch/tools/turns.py k10-hunt LABEL ROOT [REPEATS SECONDS FOCUS NEW]
+    python3 cmacionize_torch/tools/turns.py k10-capture ROOT
+    python3 cmacionize_torch/tools/turns.py k10-time LABEL ROOT
+    python3 cmacionize_torch/tools/turns.py k10-study LABEL ROOT
+    python3 cmacionize_torch/tools/turns.py k13e-time LABEL ROOT
 
 with ``--out FILE`` to append each JSON line to FILE as well.
 
@@ -74,6 +80,16 @@ with ``--out FILE`` to append each JSON line to FILE as well.
   tally slots and bound; ``k2-wall`` runs phase 11 alone (the first run of
   its process): its transport and solve seconds, then one profiled
   iteration.
+- ``k10-hunt`` reruns phase 32 (or, with NEW 1, draws phase 33's 2^20 lanes
+  anew each repeat) and keeps the lanes that phase 33's first check
+  refuses, with χ and their chunks, under ``out/``; ``k10-capture`` keeps
+  phase 32's final χ and phase 33's lanes for ``k10-time`` (K10 on both χ
+  fields, K1 on the same lanes, the SASS's opcode counts, the outputs held
+  bit for bit against an earlier checkout's) and ``k10-study`` (K10 built
+  with clock64 counters: phases a chunk, lanes that walk, warp cycles a
+  candidate cell, the walk's share of a warp's cycles).
+- ``k13e-time`` times K13e at the probe's 1024 lanes × 7808 steps, with a
+  clocked build's warp cycles a step and the SASS's opcode counts.
 """
 
 from __future__ import annotations
@@ -574,10 +590,12 @@ def sharded_wall(label, root):
 # ------------------------------------------------------------- K3, K6s, K2
 
 
-def variant_library(name: str, substitutions: dict):
+def variant_library(name: str, substitutions: dict, append: str = ""):
     """``csrc/<name>.cu`` built with each key of ``substitutions`` replaced by
-    its value (each must occur), with the package's nvcc flags, into the
-    temporary directory; returns the loaded library."""
+    its value (each must occur) and ``append`` added at its end, with the
+    package's nvcc flags, into the temporary directory; returns the loaded
+    library, with its ``ptxas -v`` report and path as ``ptxas_log`` and
+    ``path``."""
     import shutil
 
     from cmacionize_torch.kernels import build
@@ -591,13 +609,15 @@ def variant_library(name: str, substitutions: dict):
         assert old in text, f"{name}.cu: {old!r} not found"
         text = text.replace(old, new)
     with open(source, "w") as f:
-        f.write(text)
+        f.write(text + append)
     target = os.path.join(tmp, f"lib{name}.so")
     proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", target, source],
                           capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(proc.stdout + proc.stderr)
-    return ctypes.CDLL(target)
+    library = ctypes.CDLL(target)
+    library.ptxas_log, library.path = proc.stdout + proc.stderr, target
+    return library
 
 
 class swapped_library:
@@ -1082,11 +1102,456 @@ def k2_wall(label, root):
     emit(rec)
 
 
+# ------------------------------------------------------------- K10, K13e
+
+K10_INPUTS = "turns_k10.pt"
+OUT_DIR = "out"  # what the K10 and K13e modes keep (hunted lanes, SASS)
+# phase 33's first checks of K10's lanes: positions within CONE_TOLERANCE
+# where the states agree, and an unplaced lane placed ahead on its ray
+# within the slab's diagonal
+CONE_TOLERANCE = 1e-4
+MAX_EVIDENCE_FILES = 5  # of each kind: runs with refused lanes, runs with unplaced ones
+
+
+def _variant(name: str, substitutions: dict, kernel: str, append: str = ""):
+    """``variant_library`` with the variant's ``kernel`` registers and stack
+    from its ``ptxas -v`` report: (library, {"registers", "stack"})."""
+    library = variant_library(name, substitutions, append)
+    return library, _ptxas_kernel(library.ptxas_log, kernel)
+
+
+def _ptxas_kernel(log: str, kernel: str) -> dict:
+    """The ``ptxas_layout`` row of the kernel whose name holds ``kernel``."""
+    return next(row for name, row in ptxas_layout(log).items() if kernel in name)
+
+
+def _cone_phase32(cs, sim, device, seed=42):
+    """Phase 32's final neutral fraction: two warm-up iterations, then the 20
+    iterations from the initial state, the generator seeded as
+    ``chip_smoke.cone_stromgren`` seeds it."""
+    import torch
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    initial = sim.neutral_fraction.clone()
+    for n in (2, sim.config.n_iterations):
+        x = initial
+        for _ in range(n):
+            x, _, _ = cs.cone_iteration(sim, generator, x)
+    return x
+
+
+def _cone_lanes(cs, sim, device, seed):
+    """Phase 33's 2^20 stratified parity lanes from ``seed``, packed."""
+    import torch
+
+    from cmacionize_torch.tools import experimental_cone_kernel as cone
+    from cmacionize_torch.tools import experimental_emission_octa as octa
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    packets = octa.emit_point_source_stratified(generator, cs.CONE_PHOTONS, sim._source_gpos,
+                                                device)
+    return cone.pack_packets(*packets, sim.geometry.shape)
+
+
+def _cone_setup(cs, device):
+    """The cone Strömgren simulation and phase 33's parity packets."""
+    config = cs.HOnlyConfig.from_params(cs.ParameterFile(cs.STROMGREN_PARAM))
+    sim = cs.HOnlyIonizationSimulation(config, device=device)
+    return (sim, *_cone_lanes(cs, sim, device, cs.PARITY_SEED))
+
+
+def _chi(cs, sim, x):
+    return (sim.number_density * x * (sim.config.cross_section * sim.dx)).contiguous()
+
+
+def _cone_offenders(out_k, out_r, unplaced) -> dict:
+    """The lanes that phase 33's first checks refuse, with their
+    measures: state flips, positions off by more than 1e-4 cells where the
+    states agree, and unplaced lanes that K10 did not absorb within one slab
+    diagonal ahead on their ray."""
+    import torch
+
+    (_, pf_k, pi_k), (_, pf_r, pi_r) = out_k, out_r
+    sk, sr = pi_k[:, 3], pi_r[:, 3]
+    step = pf_k[:, :3] - pf_r[:, :3]
+    along = (step * pf_r[:, 3:6]).sum(dim=1)
+    off_ray = (step - along[:, None] * pf_r[:, 3:6]).abs().amax(dim=1)
+    same = (sk == sr) & ~unplaced
+    placed_off = same & (step.abs().amax(dim=1) > CONE_TOLERANCE)
+    ahead = unplaced & (sk == 1)
+    diagonal = 8 * 3**0.5
+    unplaced_off = ahead & ((along < -CONE_TOLERANCE) | (along > diagonal + CONE_TOLERANCE)
+                            | (off_ray > CONE_TOLERANCE))
+    lanes = torch.nonzero(placed_off | unplaced_off | (sk != sr)).reshape(-1)
+    return {"lanes": lanes.tolist(), "along": along[lanes].tolist(),
+            "off_ray": off_ray[lanes].tolist(), "states_k": sk[lanes].tolist(),
+            "states_r": sr[lanes].tolist(), "unplaced": unplaced[lanes].tolist(),
+            "unplaced_along": along[ahead].tolist()[:32], "n_unplaced": int(unplaced.sum()),
+            "n_state_flips": int((sk != sr).sum())}
+
+
+def _save_cone_evidence(path, chi, pf, pi, lanes, out_k, out_r, **meta) -> None:
+    """χ, and the chunks of ``lanes`` (their 512 input lanes and both
+    outputs), as .npz at ``path``."""
+    import numpy as np
+    import torch
+
+    chunks = sorted({lane // 512 for lane in lanes})
+    rows = torch.cat([torch.arange(c * 512, (c + 1) * 512) for c in chunks]).to(pf.device)
+    np.savez(path, chi=chi.cpu().numpy(), lanes=np.asarray(lanes), chunks=np.asarray(chunks),
+             pf=pf[rows].cpu().numpy(), pi=pi[rows].cpu().numpy(),
+             pf_k=out_k[1][rows].cpu().numpy(), pi_k=out_k[2][rows].cpu().numpy(),
+             pf_r=out_r[1][rows].cpu().numpy(), pi_r=out_r[2][rows].cpu().numpy(),
+             **{k: np.asarray(v) for k, v in meta.items()})
+
+
+def k10_hunt(label, root, repeats="60", budget_s="360", focus_after="0", new_lanes="0"):
+    """Phase 32 again and again (its final χ changes with the order of the
+    tally's atomics), each final χ through K10 and the plain version on phase
+    33's 2^20 parity lanes; the lanes that phase 33's first checks
+    refuse, and the unplaced ones, are kept with χ and their chunks under
+    ``out/``.  After ``focus_after`` repeats (0: never) the plain
+    version marches only the chunks in which those runs met an unplaced or
+    refused lane.  With ``new_lanes`` 1, phase 32 runs once and each repeat
+    draws phase 33's 2^20 lanes anew (seed PARITY_SEED + repeat)."""
+    cs = _load(root)
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from cmacionize_torch.kernels import build
+    from cmacionize_torch.tools import experimental_cone_kernel as cone
+
+    # the plain version of this file's checkout, whose stats hold each lane's
+    # hits (its arithmetic is the parent's); K10 is the checkout's at root
+    spec = importlib.util.spec_from_file_location(
+        "plain_cone", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "experimental_cone_kernel.py"))
+    plain = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(plain)
+    device = torch.device("cuda")
+    for name in ("trace_packets", "trace_packets_cone"):
+        build.load_library(name)
+    sim, pf, pi = _cone_setup(cs, device)
+    shape = sim.geometry.shape
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t_start, focus, seen = time.perf_counter(), set(), {}
+    kept = {"refused": 0, "unplaced": 0}
+    rows = None  # the lanes the plain version marches; None: all
+    x = _cone_phase32(cs, sim, device)
+    for repeat in range(int(repeats)):
+        if time.perf_counter() - t_start > float(budget_s):
+            break
+        if rows is None and 0 < int(focus_after) <= repeat and focus:
+            rows = torch.cat([torch.arange(c * 512, (c + 1) * 512) for c in sorted(focus)])
+            rows = rows.to(device)
+        if int(new_lanes):
+            pf, pi = _cone_lanes(cs, sim, device, cs.PARITY_SEED + repeat)
+        elif repeat:
+            x = _cone_phase32(cs, sim, device)
+        chi = _chi(cs, sim, x)
+        out_k = cone.trace_packets_cone(chi, pf, pi, shape=shape)
+        stats = {}
+        if rows is None:
+            out_r = plain.trace_packets_cone_reference(chi, pf, pi, shape=shape, stats=stats)
+            found = _cone_offenders(out_k, out_r, stats["unplaced"])
+            lanes_of = list(range(pf.shape[0]))
+        else:
+            out_r = plain.trace_packets_cone_reference(chi, pf[rows], pi[rows], shape=shape,
+                                                       stats=stats)
+            found = _cone_offenders((None, out_k[1][rows], out_k[2][rows]), out_r,
+                                    stats["unplaced"])
+            lanes_of = rows.tolist()
+        found["lanes"] = [lanes_of[i] for i in found["lanes"]]
+        unplaced = [lanes_of[i] for i in torch.nonzero(stats["unplaced"]).reshape(-1).tolist()]
+        # a state flip alone passes (it is counted); the rest are refused
+        refused = [lane for lane, u, sk, sr in zip(found["lanes"], found["unplaced"],
+                                                   found["states_k"], found["states_r"])
+                   if sk == sr or u]
+        focus.update(lane // 512 for lane in unplaced + refused)
+        rec = {"label": label, "repeat": repeat, "seconds": time.perf_counter() - t_start,
+               "focus_chunks": None if rows is None else sorted(focus), **found,
+               "unplaced_lanes": unplaced, "refused": refused}
+        new = [lane for lane in unplaced if seen.get(lane, 0) < 2]
+        if ((refused and kept["refused"] < MAX_EVIDENCE_FILES)
+                or (new and kept["unplaced"] < MAX_EVIDENCE_FILES)):
+            for lane in new:
+                seen[lane] = seen.get(lane, 0) + 1
+            kept["refused" if refused else "unplaced"] += 1
+            path = os.path.join(OUT_DIR, f"k10_evidence_{label}_{repeat}.npz")
+            full_r = out_r if rows is None else None
+            if full_r is None:  # the plain outputs of the marched chunks, in place
+                full_r = [t.clone() for t in out_k]
+                full_r[1][rows], full_r[2][rows] = out_r[1], out_r[2]
+            _save_cone_evidence(path, chi, pf, pi, refused + unplaced, out_k, full_r,
+                                x=x.cpu().numpy(), refused=np.asarray(refused, np.int64),
+                                unplaced=np.asarray(unplaced, np.int64),
+                                seed=cs.PARITY_SEED + (repeat if int(new_lanes) else 0))
+            rec["evidence"] = path
+        emit(rec)
+
+
+def k10_capture(root):
+    """Phase 32's final χ and phase 33's parity lanes, kept for k10-time."""
+    cs = _load(root)
+    import torch
+
+    from cmacionize_torch.kernels import build
+
+    device = torch.device("cuda")
+    for name in ("trace_packets", "trace_packets_cone"):
+        build.load_library(name)
+    sim, pf, pi = _cone_setup(cs, device)
+    x = _cone_phase32(cs, sim, device)
+    torch.save({"neutral": _chi(cs, sim, torch.ones_like(x)).cpu(), "final": _chi(cs, sim, x).cpu(),
+                "pf": pf.cpu(), "pi": pi.cpu(), "shape": tuple(sim.geometry.shape)},
+               _saved(K10_INPUTS))
+
+
+# the counters of k10-study, added to K10: phases of each chunk, lanes that
+# walk, the walk's candidate cells, cells with l > 0, a warp's cycles in the
+# walk and its slowest lane's candidates, a block's cycles
+K10_STUDY_COUNTERS = ("phases", "max_phases", "walking_lanes", "candidates", "path_cells",
+                      "warp_walk_cycles", "warp_max_candidates", "block_cycles", "blocks")
+K10_STUDY_END = "  reinterpret_cast<float2*>(pf + row)[0] = make_float2(px, py);\n"
+K10_STUDY = {
+    "namespace {\n\nconstexpr int kS = 8;":
+        "namespace {\n\n__device__ unsigned long long g_study[16];\n\nconstexpr int kS = 8;",
+    "  const int lane = threadIdx.x;\n":
+        "  const int lane = threadIdx.x;\n"
+        "  unsigned st_cand = 0, st_path = 0, st_walkers = 0, st_phases = 0;\n"
+        "  unsigned long long st_walk = 0, st_wmax = 0;\n"
+        "  const long long st_start = clock64();\n",
+    "    const int gx = cx - bx, gy = cy - by, gz = cz - bz;\n":
+        "    ++st_phases;\n    const int gx = cx - bx, gy = cy - by, gz = cz - bz;\n",
+    "            const float tzi = Z.t_in(cgz);\n":
+        "            ++st_n;\n            const float tzi = Z.t_in(cgz);\n",
+    "            const int slot = (cgx * kS + cgy) * kS + cgz;\n":
+        "            ++st_path;\n            const int slot = (cgx * kS + cgy) * kS + cgz;\n",
+    "    if (march) {\n":
+        "    {\n      const unsigned ballot = __ballot_sync(0xffffffffu, march);\n"
+        "      if ((lane & 31) == 0) st_walkers += __popc(ballot);\n    }\n"
+        "    const long long st_w0 = clock64();\n    unsigned st_n = 0;\n    if (march) {\n",
+    "      state = absorbed ? 1 : (outside ? 2 : 0);\n    }\n":
+        "      state = absorbed ? 1 : (outside ? 2 : 0);\n    }\n"
+        "    {\n      const long long st_w1 = clock64();\n      st_cand += st_n;\n"
+        "      const unsigned most = __reduce_max_sync(0xffffffffu, st_n);\n"
+        "      if ((lane & 31) == 0 && most > 0) {\n        st_walk += st_w1 - st_w0;\n"
+        "        st_wmax += most;\n      }\n    }\n",
+    K10_STUDY_END:
+        "  {\n    const unsigned c = __reduce_add_sync(0xffffffffu, st_cand);\n"
+        "    const unsigned p = __reduce_add_sync(0xffffffffu, st_path);\n"
+        "    if ((lane & 31) == 0) {\n      atomicAdd(g_study + 2, st_walkers);\n"
+        "      atomicAdd(g_study + 3, c);\n      atomicAdd(g_study + 4, p);\n"
+        "      atomicAdd(g_study + 5, st_walk);\n      atomicAdd(g_study + 6, st_wmax);\n    }\n"
+        "    if (lane == 0) {\n      atomicAdd(g_study + 0, st_phases);\n"
+        "      atomicMax(g_study + 1, static_cast<unsigned long long>(st_phases));\n"
+        "      atomicAdd(g_study + 7, static_cast<unsigned long long>(clock64() - st_start));\n"
+        "      atomicAdd(g_study + 8, 1ull);\n    }\n  }\n" + K10_STUDY_END,
+}
+K10_STUDY_READ = (
+    '\nextern "C" int cmi_cone_study(unsigned long long* out, int reset) {\n'
+    "  if (reset) {\n    const unsigned long long zeros[16] = {};\n"
+    "    return static_cast<int>(cudaMemcpyToSymbol(g_study, zeros, sizeof(zeros)));\n  }\n"
+    "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_study, 16 * sizeof(*out)));\n}\n")
+
+
+def k10_study(label, root):
+    """K10 with the study's counters on the kept inputs (k10-capture): phases
+    a chunk, the share of a phase's lanes that walk, the walk's cycles a
+    candidate cell and its share of a block's cycles; the counted kernel's
+    registers, and the kernel as built: registers and blocks a SM."""
+    cs = _load(root)
+    import torch
+
+    from cmacionize_torch.kernels import build
+    from cmacionize_torch.kernels import trace_packets_cone as k10
+    from cmacionize_torch.tools import experimental_cone_kernel as cone
+
+    device = torch.device("cuda")
+    build.load_library("trace_packets_cone")
+    saved = torch.load(_saved(K10_INPUTS), weights_only=False)
+    pf, pi, shape = saved["pf"].to(device), saved["pi"].to(device), saved["shape"]
+    library, layout = _variant("trace_packets_cone", K10_STUDY, "trace_packets_cone_kernel",
+                               append=K10_STUDY_READ)
+    read = library.cmi_cone_study
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    counters = (ctypes.c_ulonglong * 16)()
+    emit({"label": label, "built": _ptxas_kernel(
+        build.library_path("trace_packets_cone").with_suffix(".log").read_text(),
+        "trace_packets_cone_kernel"), "counted": layout})
+    with swapped_library(k10, "trace_packets_cone", library):
+        for field in ("neutral", "final"):
+            chi = saved[field].to(device)
+            assert read(counters, 1) == 0
+            cone.trace_packets_cone(chi, pf, pi, shape=shape)
+            torch.cuda.synchronize()
+            assert read(counters, 0) == 0
+            c = dict(zip(K10_STUDY_COUNTERS, list(counters)))
+            emit({"label": label, "chi": field, **c,
+                  "phases_a_chunk": c["phases"] / c["blocks"],
+                  "walking_share": c["walking_lanes"] / (512 * c["phases"]),
+                  "candidates_a_walk": c["candidates"] / max(c["walking_lanes"], 1),
+                  "path_cells_a_walk": c["path_cells"] / max(c["walking_lanes"], 1),
+                  "warp_cycles_a_candidate": c["warp_walk_cycles"] / max(c["warp_max_candidates"],
+                                                                         1),
+                  "walk_share_of_block_cycles": c["warp_walk_cycles"]
+                  / max(c["block_cycles"] * 16, 1)})
+
+
+def k10_time(label, root):
+    """K10 as built on the kept inputs: the fully neutral χ and phase 32's
+    final one, CUDA events over 20 launches, K1 on the same packets, its
+    registers and blocks a SM; the outputs kept and held bit for bit against
+    those of a checkout timed before it in the same call."""
+    cs = _load(root)
+    import torch
+
+    from cmacionize_torch.kernels import build
+    from cmacionize_torch.ops import traversal
+    from cmacionize_torch.tools import experimental_cone_kernel as cone
+
+    device = torch.device("cuda")
+    for name in ("trace_packets", "trace_packets_cone"):
+        build.load_library(name)
+    saved = torch.load(_saved(K10_INPUTS), weights_only=False)
+    pf, pi, shape = saved["pf"].to(device), saved["pi"].to(device), saved["shape"]
+    k1_packets = traversal.make_packets(pf[:, :3], pf[:, 3:6], pf[:, 6].contiguous(),
+                                        pf[:, 7].contiguous(), shape)
+    outs = {}
+    for field in ("neutral", "final"):
+        chi = saved[field].to(device)
+        out = cone.trace_packets_cone(chi, pf, pi, shape=shape)
+        torch.cuda.synchronize()
+        outs[field] = [t.cpu() for t in out]
+        ms = [cs.time_cuda(lambda: cone.trace_packets_cone(chi, pf, pi, shape=shape), 20)
+              for _ in range(3)]
+        scratch = torch.zeros(chi.numel(), device=device)
+        k1_ms = cs.time_cuda(lambda: traversal.trace_packets(chi.reshape(-1), k1_packets, scratch,
+                                                             shape=shape), 20)
+        states = torch.bincount(out[2][:, 3], minlength=3).tolist()
+        emit({"label": label, "chi": field, "ms": ms, "k1_ms": k1_ms, "states": states})
+    sass = _sass_counts(str(build.library_path("trace_packets_cone")), "trace_packets_cone_kernel")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"k10_{label}.sass"), "w") as f:
+        f.write(sass["sass"])
+    emit({"label": label, "layout": _ptxas_kernel(
+        build.library_path("trace_packets_cone").with_suffix(".log").read_text(),
+        "trace_packets_cone_kernel"), "sass_counts": sass["counts"]})
+    torch.save(outs, _saved(f"turns_k10_out_{label}.pt"))
+    for other in os.listdir(tempfile.gettempdir()):
+        m = re.fullmatch(r"turns_k10_out_(.+)\.pt", other)
+        if not m or m.group(1) == label:
+            continue
+        theirs = torch.load(_saved(other), weights_only=False)
+        emit({"label": label, "against": m.group(1), "identical_states_and_positions": {
+            field: [_bits_equal(outs[field][k], theirs[field][k]) for k in (1, 2)]
+            for field in outs},
+            "tally_rel_l1": {field: float((outs[field][0] - theirs[field][0]).abs().sum()
+                                          / theirs[field][0].abs().sum()) for field in outs}})
+
+
+# K13e's clocked variant: each lane's cycles a step in place of its output
+# (the output kept live, so that the loop is not dropped)
+K13E_CYCLES = {
+    "  for (int i = 0; i < nstep; i += kDdaBlockSteps) {\n":
+        "  const long long t_clock = clock64();\n"
+        "  for (int i = 0; i < nstep; i += kDdaBlockSteps) {\n",
+    "  out[lane] = s.px + s.tau;\n":
+        "  out[lane] = static_cast<float>(clock64() - t_clock) / nstep + 0.0f * (s.px + s.tau);\n",
+}
+
+
+def _sass_counts(path: str, kernel: str) -> dict:
+    """Opcode counts of ``kernel``'s SASS in the library at ``path``
+    (``cuobjdump -sass``), and the SASS itself."""
+    from cmacionize_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    body, inside = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            body.append(line)
+    counts = {}
+    for line in body:
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m:
+            op = m.group(1).split(".")[0]
+            counts[op] = counts.get(op, 0) + 1
+    return {"counts": counts, "sass": "\n".join(body)}
+
+
+def _k13e_clocked(library, a, b, nstep):
+    """Per-warp cycles a step of a clocked K13e library on lanes (a, b): the
+    first lane of each warp."""
+    import torch
+
+    fn = library.cmi_dda_math
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    out = torch.empty_like(a)
+    assert fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), nstep,
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    return out.reshape(-1)[::32].cpu()
+
+
+def k13e_time(label, root):
+    """K13e as built on the tool's 1024 lanes × 7808 steps: ms (CUDA events,
+    three windows of 20 calls), registers, each warp's cycles a step from a
+    clocked build of the same source, the SASS's opcode counts (kept under
+    ``out/``), and its output held bit for bit to the plain version
+    and to a checkout timed before it in the same call."""
+    cs = _load(root)
+    import torch
+
+    from cmacionize_torch.kernels import build
+    from cmacionize_torch.kernels import probe_deposit as pd
+    from cmacionize_torch.tools import probe_deposit as tool
+
+    device = torch.device("cuda")
+    build.load_library("probe_deposit")
+    nstep = tool.NSTEP
+    a, b = (t.reshape(-1).contiguous() for t in tool.e_inputs(device))
+    out = pd.dda_math(a, b, nstep)
+    ref = pd.dda_math_reference(a, b, nstep)
+    torch.cuda.synchronize()
+    ms = [cs.time_cuda(lambda: pd.dda_math(a, b, nstep), 20) for _ in range(3)]
+    clocked, layout = _variant("probe_deposit", K13E_CYCLES, "dda_math_kernel")
+    cycles = _k13e_clocked(clocked, a, b, nstep)
+    sass = _sass_counts(str(build.library_path("probe_deposit")), "dda_math_kernel")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"k13e_{label}.sass"), "w") as f:
+        f.write(sass["sass"])
+    clock = cs.sm_clock_hz()
+    emit({"label": label, "ms": ms, "identical_to_plain": _bits_equal(out, ref),
+          "built": _ptxas_kernel(build.library_path("probe_deposit").with_suffix(".log")
+                                 .read_text(), "dda_math_kernel"),
+          "warp_cycles_a_step": {"min": float(cycles.min()), "median": float(cycles.median()),
+                                 "max": float(cycles.max()), "all": cycles.tolist()},
+          "cycles_a_step_from_ms": min(ms) * 1e-3 * clock / nstep, "clock_hz": clock,
+          "sass_counts": sass["counts"]})
+    torch.save(out.cpu(), _saved(f"turns_k13e_out_{label}.pt"))
+    for other in os.listdir(tempfile.gettempdir()):
+        m = re.fullmatch(r"turns_k13e_out_(.+)\.pt", other)
+        if m and m.group(1) != label:
+            emit({"label": label, "against": m.group(1), "identical": _bits_equal(
+                out.cpu(), torch.load(_saved(other), weights_only=False))})
+
+
 MODES = {"k9c-capture": k9c_capture, "k9c-time": k9c_time, "k9p-host": k9p_host,
          "k7-capture": k7_capture, "k7-time": k7_time, "k7-wall": k7_wall,
          "sharded-wall": sharded_wall, "k3-capture": k3_capture, "k3-time": k3_time,
          "k6s-capture": k6s_capture, "k6s-time": k6s_time, "k6s-wall": k6s_wall,
-         "k2-time": k2_time, "k2-wall": k2_wall, "k3-parts": k3_parts}
+         "k2-time": k2_time, "k2-wall": k2_wall, "k3-parts": k3_parts,
+         "k10-hunt": k10_hunt, "k10-capture": k10_capture, "k10-study": k10_study,
+         "k10-time": k10_time, "k13e-time": k13e_time}
 
 
 def main(argv=None) -> None:

@@ -1929,6 +1929,107 @@ def test_cone_kernel_places_what_the_plain_version_leaves_unplaced(cuda):
     assert rel_l1 <= 1e-5, rel_l1
 
 
+def _cone_lanes(rng, shape, n):
+    """Random positions and isotropic directions anywhere in the box."""
+    pos = rng.uniform(0.0, 1.0, (n, 3)) * np.asarray(shape)
+    v = rng.normal(size=(n, 3))
+    d = v / np.linalg.norm(v, axis=1, keepdims=True)
+    tau = -np.log(rng.uniform(1e-10, 1.0, n))
+    return pos, d, tau, np.ones(n)
+
+
+@pytest.mark.parametrize("max_phases", [0, 1, 2])
+def test_cone_kernel_stops_at_max_phases(cuda, max_phases):
+    """A chunk runs at most max_phases phases (none at 0: the state is the
+    input's), as the plain version does; launched from a side stream."""
+    from cmacionize_torch.tools import experimental_cone_kernel as cone
+
+    shape, n = (24, 16, 20), 2048
+    rng = np.random.default_rng(30 + max_phases)
+    chi = torch.tensor(rng.uniform(0.0, 0.2, shape).astype(np.float32), device=cuda)
+    pf, pi = cone.pack_packets(*(torch.tensor(np.asarray(a, np.float32), device=cuda)
+                                 for a in _cone_lanes(rng, shape, n)), shape)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    kernels.LAUNCHES.clear()
+    with torch.cuda.stream(side):
+        out_k = cone.trace_packets_cone(chi, pf, pi, shape=shape, max_phases=max_phases)
+    torch.cuda.current_stream().wait_stream(side)
+    out_r = cone.trace_packets_cone_reference(chi, pf, pi, shape=shape, max_phases=max_phases)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["trace_packets_cone"] == 1
+    if max_phases == 0:  # nothing marched: the input's state and an empty tally
+        for out in (out_k, out_r):
+            assert torch.equal(out[1], pf) and torch.equal(out[2], pi)
+            assert float(out[0].abs().max()) == 0.0
+    else:
+        assert int((out_k[2][:, 3] == 0).sum()) > 0  # lanes left in flight
+        _cone_compare(out_k, out_r, n)
+
+
+def test_cone_kernel_repeats_its_states_bit_for_bit(cuda):
+    """Back to back and from a side stream: identical states and positions
+    (the tally's atomics may add in another order)."""
+    from cmacionize_torch.tools import experimental_cone_kernel as cone
+    from cmacionize_torch.tools import experimental_emission_octa as octa
+
+    shape, n = (32, 32, 32), 2**16  # n / 8 = 2 k^2 for the stratified emission
+    rng = np.random.default_rng(31)
+    chi = torch.tensor(rng.uniform(0.0, 0.3, shape).astype(np.float32), device=cuda)
+    generator = torch.Generator(device=cuda).manual_seed(31)
+    pf, pi = cone.pack_packets(*octa.emit_point_source_stratified(
+        generator, n, (11.0, 19.0, 16.0), cuda), shape)
+    first = cone.trace_packets_cone(chi, pf, pi, shape=shape)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        second = cone.trace_packets_cone(chi, pf, pi, shape=shape)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for a, b in zip(first[1:], second[1:]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    rel_l1 = float((first[0] - second[0]).abs().sum() / first[0].abs().sum())
+    assert rel_l1 <= 1e-6, rel_l1
+
+
+def test_cone_kernel_layout(cuda):
+    """K10 fits three blocks of 512 threads on an SM (its first port: two)."""
+    from cmacionize_torch.kernels import trace_packets_cone as k10
+
+    layout = k10.occupancy(cuda)
+    assert layout["blocks_per_sm"] >= 3 and layout["registers"] <= 42, layout
+
+
+def test_cone_kernel_on_the_saved_fault(cuda):
+    """tests/torch_cone_fault.npz: phase 32's final χ from a card run and the
+    chunks of two lanes that phase 33's check once refused (several
+    cells held their tau_left in the plain version's prefix scans).  K10 gives
+    the saved states and positions bit for bit and passes the repaired check
+    against the plain version on the card: the two lanes at the first cell's
+    point."""
+    from cmacionize_torch.tools import experimental_cone_kernel as cone
+
+    saved = np.load(os.path.join(ROOT, "tests", "torch_cone_fault.npz"))
+    chi = torch.tensor(saved["chi"], device=cuda)
+    shape = tuple(chi.shape)
+    pf, pi = (torch.tensor(saved[k], device=cuda) for k in ("pf", "pi"))
+    kernels.LAUNCHES.clear()
+    out_k = cone.trace_packets_cone(chi, pf, pi, shape=shape)
+    stats = {}
+    out_r = cone.trace_packets_cone_reference(chi, pf, pi, shape=shape, stats=stats)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["trace_packets_cone"] == 1
+    assert torch.equal(out_k[1].cpu(), torch.tensor(saved["pf_k"]))
+    assert torch.equal(out_k[2].cpu(), torch.tensor(saved["pi_k"]))
+    verdicts = cone.lane_verdicts(out_k, out_r, stats, position_tol=1e-4, diagonal=8 * 3**0.5)
+    assert verdicts["refused"] == []
+    rows = [list(saved["chunks"]).index(int(lane) // 512) * 512 + int(lane) % 512
+            for lane in saved["lanes"]]
+    assert all(int(stats["hits"][r]) > 1 for r in rows) and len(verdicts["several"]) >= 2
+    rel_l1 = float((out_k[0] - out_r[0]).abs().sum() / out_r[0].abs().sum())
+    assert rel_l1 <= 1e-5, rel_l1
+
+
 def test_cone_kernel_refuses_what_it_does_not_take(cuda):
     from cmacionize_torch.kernels.trace_packets_cone import trace_packets_cone_cuda
 
@@ -2230,6 +2331,46 @@ def test_dda_kernels_equal_plain_versions(cuda, n):
         assert torch.equal(pd.dda_incremental(a, b, nstep),
                            pd.dda_incremental_reference(a, b, nstep))
     assert kernels.LAUNCHES["dda_math"] == kernels.LAUNCHES["dda_incremental"] == len(cases)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 65, 1024, 2**16 + 5])
+def test_dda_math_kernel_on_blocks_and_small_divisors(cuda, n):
+    """K13e against its plain version bit for bit at lane counts around its
+    blocks of 32, with one warp all of whose lanes divide by 1e-12 (b = 0,
+    and dz = 0 past the unit circle), launched from a side stream too."""
+    from cmacionize_torch.kernels import probe_deposit as pd
+
+    rng = np.random.default_rng(40 + n)
+    a = rng.uniform(0.05, 0.95, n).astype(np.float32)
+    b = rng.uniform(-0.6, 0.6, n).astype(np.float32)
+    warp = slice(32, 64) if n >= 64 else slice(0, n)
+    a[warp] = rng.uniform(0.9, 0.95, len(a[warp])).astype(np.float32)
+    b[warp] = np.where(np.arange(len(a[warp])) % 2 == 0, 0.0, a[warp] * 0.5).astype(np.float32)
+    a, b = torch.tensor(a, device=cuda), torch.tensor(b, device=cuda)
+    nstep = 7808 if n <= 1024 else 300
+    kernels.LAUNCHES.clear()
+    out = pd.dda_math(a, b, nstep)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = pd.dda_math(a, b, nstep)
+    torch.cuda.current_stream().wait_stream(side)
+    ref = pd.dda_math_reference(a, b, nstep)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dda_math"] == 2
+    assert torch.equal(out, ref) and torch.equal(again, ref)
+
+
+def test_dda_math_kernel_refuses_what_it_does_not_take(cuda):
+    from cmacionize_torch.kernels import probe_deposit as pd
+
+    a = torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="dda_math: b must be"):
+        pd.dda_math(a, a.double(), 10)
+    with pytest.raises(ValueError, match="one shape"):
+        pd.dda_math(a, torch.zeros(65, device=cuda), 10)
+    with pytest.raises(ValueError, match="nstep"):
+        pd.dda_math(a, a, -1)
 
 
 def test_fill_first_kernel_copies_the_first_bits(cuda):
