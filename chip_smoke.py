@@ -182,7 +182,8 @@ Phases (any failed check raises, so the script exits non-zero):
     JAX seeds and |V| ≤ 1e-8 max I; a profiled run and a kept one;
 28. K8 parity on phase 26's emission and last-order peel-off inputs, K8p
     parity on phase 27's first and last orders: identical τ and pixels, the
-    images' relative L1; all timed;
+    images' relative L1; every K8 and K8p launch of the two runs timed on
+    its own inputs, with its active events;
 29. main path: ``benchmarks/stromgren.param`` at full size through
     ShardedHOnlyIonizationSimulation(config, tiling=(2, 2, 2)): eight tiles,
     every shard on the one card, so that all three exchange axes are used;
@@ -262,7 +263,10 @@ Phases (any failed check raises, so the script exits non-zero):
     ones at the tools' shapes (K13h also at 300 steps) and on a larger seeded
     case (K13h 2^16 packets x 7808 steps, K13e and K13w 2^20 lanes): K13h
     identical with integer weights and within rel 1e-5 per cell with random
-    ones, the others identical in every lane and bit; K13f (on
+    ones, two calls the same bits, its (a), (b), (c) and host split beside
+    ``torch.bincount`` (``launch_cost.measure``; its (a) and the library's
+    are the kernels line's ms and library_ms), the others identical in
+    every lane and bit; K13f (on
     ``kernels/launch.py``) with one launch per call, on a side stream and
     after two replays of a CUDA graph, and its (a), (b), (c) and host split
     beside its one PyTorch call at [8, 128] (``launch_cost.measure``); each
@@ -584,7 +588,8 @@ MAX_CONE_ABSORBED_FRACTION = 1e-4
 # their redesign: the median of six readings in turns with the redesign
 # (cmacionize_torch/tools/turns.py k10-time and k13e-time; NVIDIA H100 80GB
 # HBM3, 700 W)
-EARLIER_MS = {"K10 final": 2.0230, "K10 neutral": 0.2200, "K13e": 2.4363}
+EARLIER_MS = {"K10 final": 2.0230, "K10 neutral": 0.2200, "K13e": 2.4363,
+              "K8 emission": 0.3893, "K8 lone": 0.0527, "K13h": 0.0287}
 # K3 against its plain version: max |Δ| per conserved field relative to the
 # field's largest magnitude.  Both run the same f32 operations in the same
 # order (K3 is built with --fmad=false); the exact solver's powf may differ
@@ -2784,13 +2789,13 @@ def active_steps(chi, position, active, view) -> int:
 def peel_off_parity(sim, captured) -> dict:
     """Phase 28, K8: against peel_off_deposit_reference on the inputs of the
     intensity run's emission peel-off and of its last scattering order's;
-    both timed (the plain version from its parity call).  The record's times
-    and bound are the emission peel-off's, the main path's largest K8
-    launch."""
+    both timed (the plain version from its parity call); then the run's
+    other K8 launches timed on their own inputs.  The record's times and
+    bound are the emission peel-off's, the main path's largest K8 launch."""
     view, chi = sim.view, sim.chi
     npix = view.pixels[0] * view.pixels[1]
     last = max(captured)
-    worst, record = 0.0, None
+    worst, record, times = 0.0, None, {}
     for label, key in (("emission", 0), (f"order {last}", last)):
         position, weight, active, direction, kw = captured[key]
         n, n_active = position.shape[0], int(active.sum())
@@ -2799,7 +2804,8 @@ def peel_off_parity(sim, captured) -> dict:
         ccd_k, ccd_r = (torch.zeros(npix, device=chi.device) for _ in range(2))
         peel_off_cuda(chi, position, direction, weight, active, ccd_k, view=view,
                       tau_out=tau_k, pix_out=pix_k, **kw)
-        factor = peel_off.peel_off_factor(weight, direction, view=view, **kw)
+        factor = peel_off.peel_off_factor(weight, direction, view=view,
+                                          albedo=kw.get("albedo", 1.0), hgg=kw.get("hgg", 0.0))
         (tau_r, pix_r), plain_ms = timed_call(lambda: peel_off.peel_off_deposit_reference(
             chi, position, factor, active, ccd_r, view=view))
         worst = max(worst, compare_peel_off(f"K8 parity ({label})", n_active, tau_k, pix_k,
@@ -2807,6 +2813,7 @@ def peel_off_parity(sim, captured) -> dict:
         scratch = torch.zeros(npix, device=chi.device)
         ms = time_cuda(lambda: peel_off.peel_off_deposit(
             chi, position, weight, active, scratch, view=view, direction=direction, **kw), 20)
+        times[key] = (n_active, ms)
         steps = active_steps(chi, position, active, view)
         log(f"timing K8 ({label}, {n} events, {n_active} active, {steps} march steps): K8 "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms per peel-off (CUDA events; the plain one's "
@@ -2823,6 +2830,19 @@ def peel_off_parity(sim, captured) -> dict:
                              4 * chi.numel() + n + per_active * n_active + 8 * npix, ops,
                              F32_OPS_PER_S)
             record = {"ms": ms, "plain_ms": plain_ms, **bound}
+    # the run's other launches on their own inputs (10 calls each)
+    for key in sorted(set(captured) - set(times)):
+        position, weight, active, direction, kw = captured[key]
+        scratch = torch.zeros(npix, device=chi.device)
+        times[key] = (int(active.sum()), time_cuda(lambda: peel_off.peel_off_deposit(
+            chi, position, weight, active, scratch, view=view, direction=direction, **kw), 10))
+    log("K8 per launch of the intensity run (call: active events, ms back to back, CUDA "
+        "events): " + "; ".join(f"{k}: {a}, {t:.4f}" for k, (a, t) in sorted(times.items()))
+        + f"; sum {sum(t for _, t in times.values()):.4f} ms over {len(times)} launches")
+    log(f"K8 layout: {ptxas_layout('peel_off', 'peel_off_kernel')}, the events in the driver's "
+        f"order; commit 89a1ed0's K8 {EARLIER_MS['K8 emission']:.4f} ms on the emission and "
+        f"{EARLIER_MS['K8 lone']:.4f} ms on one event (before the redesign; turns.py k8-time, "
+        f"H100 80GB HBM3, 700 W)")
     return {"max_abs_err": worst, **record}
 
 
@@ -2834,7 +2854,7 @@ def peel_off_polarized_parity(sim, captured) -> dict:
     view, chi = sim.view, sim.chi
     npix = view.pixels[0] * view.pixels[1]
     last = max(captured)
-    worst, record = 0.0, None
+    worst, record, times = 0.0, None, {}
     for label, key in (("order 1", 0), (f"order {last + 1}", last)):
         position, direction, nref, stokes, active, kw = captured[key]
         band = kw["band"]
@@ -2852,6 +2872,7 @@ def peel_off_polarized_parity(sim, captured) -> dict:
         scratch = [torch.zeros(npix, device=chi.device) for _ in range(4)]
         ms = time_cuda(lambda: peel_off.peel_off_deposit_polarized(
             chi, position, direction, nref, stokes, active, scratch, view=view, band=band), 20)
+        times[key] = (n_active, ms)
         steps = active_steps(chi, position, active, view)
         log(f"timing K8p ({label}, {n} events, {n_active} active, {steps} march steps): K8p "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms per peel-off (CUDA events; the plain one's "
@@ -2865,6 +2886,14 @@ def peel_off_polarized_parity(sim, captured) -> dict:
                              OPS_PER_K8_STEP * steps + OPS_PER_K8P_EVENT * n_active,
                              F32_OPS_PER_S)
             record = {"ms": ms, "plain_ms": plain_ms, **bound}
+    for key in sorted(set(captured) - set(times)):  # the other orders, 10 calls each
+        position, direction, nref, stokes, active, kw = captured[key]
+        scratch = [torch.zeros(npix, device=chi.device) for _ in range(4)]
+        times[key] = (int(active.sum()), time_cuda(lambda: peel_off.peel_off_deposit_polarized(
+            chi, position, direction, nref, stokes, active, scratch, **kw), 10))
+    log("K8p per launch of the polarized run (order: active events, ms back to back, CUDA "
+        "events): " + "; ".join(f"{k + 1}: {a}, {t:.4f}" for k, (a, t) in sorted(times.items()))
+        + f"; sum {sum(t for _, t in times.values()):.4f} ms over {len(times)} launches")
     return {"max_abs_err": worst, **record}
 
 
@@ -3892,8 +3921,11 @@ def deposit_phase(device) -> tuple:
     worst = worst_abs = 0.0
     for case, (d, l, steps, weights) in cases.items():
         out = probe_deposit_ops.shifted_histogram(d, l, steps)
+        again = probe_deposit_ops.shifted_histogram(d, l, steps)
         ref = probe_deposit_ops.shifted_histogram_reference(d, l, steps)
         torch.cuda.synchronize()
+        check(torch.equal(out.view(torch.int32), again.view(torch.int32)),
+              f"K13h: two calls differ ({case})")
         worst_abs = max(worst_abs, float((out - ref).abs().max()))
         if weights == "integer":
             check(torch.equal(out, ref), f"K13h differs from its plain version ({case})")
@@ -3902,17 +3934,19 @@ def deposit_phase(device) -> tuple:
             check(err <= MAX_HISTOGRAM_REL_ERR, f"K13h rel err {err} ({case})")
             worst = max(worst, err)
             log(f"K13h {case}: per-cell rel err {err:.3e}")
-    ms = time_cuda(lambda: probe_deposit_ops.shifted_histogram(dep, lidx, nstep), 50)
+    # (a) of K13h and of torch.bincount on the expanded cells (50 calls back
+    # to back each) are the kernels line's ms and library_ms
+    cost = launch_cost.measure("K13h", "the tools' [1024, 1]", (dep, lidx, nstep),
+                               host_calls=2000)
+    ms, library_ms = cost["wrapper"]["a_ms"], cost["torch.bincount"]["a_ms"]
     plain_ms = time_cuda(lambda: probe_deposit_ops.shifted_histogram_reference(dep, lidx, nstep),
                          5)
-    cells = ((lidx.reshape(1, -1).long() + torch.arange(nstep, device=device)[:, None])
-             % 128).reshape(-1)
-    weights = dep.reshape(1, -1).expand(nstep, -1).reshape(-1).contiguous()
-    library_ms = time_cuda(lambda: torch.bincount(cells, weights, minlength=128), 20)
-    del cells, weights
     log(f"K13h (shifted_histogram) parity: identical with integer weights, worst rel err "
-        f"{worst:.3e} with random ones; timing K13h {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.bincount on the {nstep * dep.numel()} expanded cells {library_ms:.4f} ms "
+        f"{worst:.3e} with random ones, two calls identical; "
+        f"{ptxas_layout('probe_deposit', 'shifted_histogram_kernel')}, commit 89a1ed0's K13h "
+        f"{EARLIER_MS['K13h']:.4f} ms (turns.py k13h-time); timing K13h {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.bincount on the {nstep * dep.numel()} expanded cells "
+        f"{library_ms:.4f} ms "
         f"(CUDA events, 1024 packets x {nstep} steps)")
     bound = roofline("K13h at the tools' shapes", 8 * dep.numel() + 4 * 128,
                      OPS_PER_DEPOSIT * dep.numel() * nstep, F32_OPS_PER_S)

@@ -15,18 +15,23 @@
 //   scattering: ((w * albedo) * HG(d . o)) * exp(-tau), with
 //               HG = f32(1 - g^2) / (f32(4 pi) * pow(f32(1 + g^2) - f32(2 g) c, 1.5)),
 //               c = (dx o0 + dy o1) + dz o2 (the numpy-normalized observer),
-// and makes one atomicAdd into its pixel.  Inactive events (invalid
-// emissions, packets that did not scatter) add nothing and read no chi.
-// tau and the pixel equal the plain version's; the phase, pow and exp may
-// differ from torch's in the last bit, and the atomics add in another order.
+// and adds it into its pixel.  Inactive events (invalid emissions, packets
+// that did not scatter) add nothing and read no chi.  tau and the pixel
+// equal the plain version's; the phase, pow and exp may differ from torch's
+// in the last bit, and the additions into a pixel come in another order.
 //
-// What bounds it on an H100: each step is one dependent 4-byte gather of
-// chi (201^3 f32 = 32 MB, held in the 50 MB L2) along the observer
-// direction; all events march in the same direction, so neighbouring
-// threads gather from nearby rows but rarely the same line.  The march is
-// latency bound; the deposit is one atomic per event into a 160 kB image.
-// Shared-memory chi tiles, sorting events by pixel and warp-aggregated
-// deposits are later work.
+// The events run in the order the driver drew them.  Sorting them by
+// start cell (a key kernel and torch.sort) let a warp's lanes gather from
+// neighbouring addresses and roughly halved K8's device time on the
+// dusty_galaxy emission on an H100, but the sort's host time lengthened the
+// dust runs, which the host binds (PERF.md), so K8 does without it.  Each
+// event adds its contribution with an atomicAdd of its own (summing runs of
+// lanes first, as K5 does, took longer).
+//
+// What bounds it on an H100: the march's chi gathers (201^3 f32 = 32 MB,
+// held in the 50 MB L2), one a step, and its per-step chain of wall
+// quotients, minima and the snap; the deposit is one atomic an event into a
+// 160 kB image.
 
 #include "peel_march.cuh"
 
@@ -74,8 +79,8 @@ __global__ void __launch_bounds__(cart::kThreads) peel_off_kernel(
 extern "C" int cmi_peel_off(const float* chi, const float* position, const float* direction,
                             const float* weight, const uint8_t* active, float* ccd,
                             float* tau_out, int* pix_out, const float* view_f,
-                            const int* view_i, float albedo, float one_minus_g2,
-                            float one_plus_g2, float two_g, int n, void* stream) {
+                            const int* view_i, int n, float albedo, float one_minus_g2,
+                            float one_plus_g2, float two_g, void* stream) {
   if (n > 0) {
     const int blocks = (n + cart::kThreads - 1) / cart::kThreads;
     peel_off_kernel<<<blocks, cart::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -20,9 +20,10 @@
 // plain version's; acos, cos, exp and pow may differ from torch's in the
 // last bit, and the atomics add in another order.
 //
-// What bounds it on an H100: the march, as in K8 (dependent chi gathers,
-// chi in L2); the matrix adds ~250 operations per event and four atomics
-// into four 160 kB planes.
+// What bounds it on an H100: the march, K8's (peel_march.cuh: the wall
+// quotients by the direction's reciprocals, chi read a batch of steps at a
+// time, chi in L2; the events in the driver's order); the matrix adds ~250
+// operations per event and four atomics into four 160 kB planes.
 
 #include "peel_march.cuh"
 
@@ -126,15 +127,17 @@ __global__ void __launch_bounds__(cart::kThreads) peel_off_polarized_kernel(
 // position, direction and nref are [n, 3] row-major f32; I, Q, U, V [n] f32;
 // active [n] bytes; the four planes [npx * npy] f32 (added into); tau_out
 // [n] f32 and pix_out [n] int32 may be nullptr.  view_f / view_i are host
-// arrays of peel::kViewFloats / peel::kViewInts values; band_f holds 1 - g^2,
-// 1 + g^2, 2 g, -pl, -pc, 3.13 sc and the albedo, each rounded once to f32.
+// arrays of peel::kViewFloats / peel::kViewInts values; the seven floats are
+// 1 - g^2, 1 + g^2, 2 g, -pl, -pc, 3.13 sc and the albedo, each formed in
+// double on the host and rounded once to f32.
 extern "C" int cmi_peel_off_polarized(
     const float* chi, const float* position, const float* direction, const float* nref,
     const float* I, const float* Q, const float* U, const float* V, const uint8_t* active,
     float* ccd_I, float* ccd_Q, float* ccd_U, float* ccd_V, float* tau_out, int* pix_out,
-    const float* view_f, const int* view_i, const float* band_f, int n, void* stream) {
+    const float* view_f, const int* view_i, int n, float one_minus_g2, float one_plus_g2,
+    float two_g, float minus_pl, float minus_pc, float sc_skew, float albedo, void* stream) {
   if (n > 0) {
-    const Band b{band_f[0], band_f[1], band_f[2], band_f[3], band_f[4], band_f[5], band_f[6]};
+    const Band b{one_minus_g2, one_plus_g2, two_g, minus_pl, minus_pc, sc_skew, albedo};
     const int blocks = (n + cart::kThreads - 1) / cart::kThreads;
     peel_off_polarized_kernel<<<blocks, cart::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         chi, position, direction, nref, I, Q, U, V, active, ccd_I, ccd_Q, ccd_U, ccd_V,

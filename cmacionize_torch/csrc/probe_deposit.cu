@@ -7,18 +7,32 @@
 // probe_cohort_kernel.py's run_d.  out[c] = sum over packets t and steps
 // i < nstep of dep[t] where (lidx[t] + i) mod 128 == c.  The TPU bodies build
 // a one-hot [packets, 128] block per step and reduce it (by a sum, a deferred
-// sum, an MXU dot or a factored 16 x 8 contraction) in one core's loop; here a
-// block takes a range of steps and of packets, each thread adds its packet's
-// weight into the cell of each step in a 128-bin histogram in shared memory,
-// and the block's bins are added atomically, in f64, into a scratch sum that
-// the launcher zeroes on the stream and a last launch rounds once to f32.
-// Every deposit is performed: the kernel does not use that a packet visits
-// each cell nstep / 128 times.  What bounds it: one shared-memory atomic per
-// deposit (the inputs are 8 bytes a packet).  The order of the additions is
-// the atomics'; a block's f32 bins take 128 additions each and the f64 sum
-// tens of thousands of partials without loss, so random weights sum within
-// ~1e-7 of the exact sum and integer weights exactly.
-//
+// sum, an MXU dot or a factored 16 x 8 contraction) in one core's loop.  Here
+// one launch does it all (redesigned; the first port took a memset, the
+// kernel and a rounding kernel, and one shared-memory float atomicAdd per
+// deposit, which on this card is a compare-and-swap loop):
+//   * a block takes kHistThreads packets and a range of steps, a grid of at
+//     most kHistBlocks blocks where the packets allow it;
+//   * two lanes of a warp meet in a cell at step i exactly when their lidx
+//     are equal mod 128, at every i, so a warp groups its lanes once
+//     (__match_any_sync); each group's leader sums the group's weights in
+//     lane order and, at each step, adds that sum into its cell (l + i) & 127
+//     of the warp's own f32 bins with a plain shared load, add and store:
+//     the leaders' cells are distinct at every step, and a __syncwarp of the
+//     leaders between steps orders one leader's store before another's load
+//     of the same cell at a later step;
+//   * at the block's end the warps' bins are summed in f64 in warp order into
+//     the block's own row of an f64 scratch; the block that takes the last
+//     ticket sums the rows in block order (kHistParts contiguous runs of rows,
+//     each in order, its rows read kHistBatch at a time, then the runs in
+//     order), rounds each cell once to f32 and resets the ticket for the
+//     next call.
+// Every (packet, step) deposit is made: the kernel does not use that a packet
+// visits each cell nstep / 128 times.  The order of every addition is fixed,
+// so two calls on the same inputs agree bit for bit; the warps' f32 bins take
+// at most a block's steps / 128 additions of a group sum a cell, so random
+// weights sum within ~1e-7 of the exact sum and integer weights exactly.
+
 // K13e replaces probe_deposit.py's make_e.run (e_kernel) and K13w
 // probe_deposit2.py's make.run with w2_kernel: nstep loop-carried DDA steps
 // per lane, the distances to the next integer planes recomputed each step
@@ -66,37 +80,109 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kCells = 128;
 constexpr int kThreads = 256;
-constexpr int kStepsPerBlock = 64;  // steps a block deposits; 122 step ranges at 7808
+constexpr unsigned kAllLanes = 0xffffffffu;
+constexpr int kHistThreads = 1024;  // packets a block of K13h
+constexpr int kHistWarps = kHistThreads / 32;
+constexpr int kHistBlocks = 128;   // the most blocks that split the steps
+constexpr int kHistMinSteps = 32;  // the fewest steps a block's range holds
+constexpr int kHistParts = 8;      // runs of rows the last block sums apart
+constexpr int kHistBatch = 16;     // rows of a run the last block reads at once
+static_assert(kHistThreads >= kHistParts * kCells, "the last block sums its parts in one pass");
 
-// blockIdx.x: a range of kThreads packets; blockIdx.y: a range of
-// kStepsPerBlock steps.  Each thread deposits its packet's weight at each step
-// of the range into the block's bins, which are then added into the f64 sum.
-__global__ void __launch_bounds__(kThreads) shifted_histogram_kernel(
-    const float* __restrict__ dep, const int* __restrict__ lidx, double* __restrict__ sum,
-    int n, int nstep) {
-  __shared__ float bins[kCells];
-  if (threadIdx.x < kCells) bins[threadIdx.x] = 0.0f;
+// The grid of K13h for n packets and nstep steps: blockIdx.x a range of
+// kHistThreads packets, blockIdx.y a range of `steps` steps; at least one
+// block, so that n = 0 or nstep = 0 still writes zeros.
+struct HistogramGrid {
+  int packet_blocks, step_blocks, steps;
+};
+
+HistogramGrid histogram_grid(int n, int nstep) {
+  const int packet_blocks = n > 0 ? (n + kHistThreads - 1) / kHistThreads : 1;
+  int step_blocks = kHistBlocks / packet_blocks;
+  step_blocks = std::min(step_blocks, (nstep + kHistMinSteps - 1) / kHistMinSteps);
+  step_blocks = std::max(step_blocks, 1);
+  return {packet_blocks, step_blocks, (nstep + step_blocks - 1) / step_blocks};
+}
+
+__global__ void __launch_bounds__(kHistThreads) shifted_histogram_kernel(
+    const float* __restrict__ dep, const int* __restrict__ lidx, double* __restrict__ rows,
+    unsigned* __restrict__ ticket, float* __restrict__ out, int n, int nstep, int steps) {
+  __shared__ float bins[kHistWarps][kCells];
+  __shared__ float weights[kHistThreads];
+  __shared__ double parts[kHistParts][kCells];
+  __shared__ bool last_block;
+  for (int k = threadIdx.x; k < kHistWarps * kCells; k += kHistThreads) (&bins[0][0])[k] = 0.0f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kHistThreads + threadIdx.x;
+  const bool holds = t < n;
+  const float d = holds ? __ldg(dep + t) : 0.0f;
+  const int l = holds ? __ldg(lidx + t) & (kCells - 1) : 0;
+  weights[threadIdx.x] = d;
   __syncthreads();
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  const int first = blockIdx.y * kStepsPerBlock;
-  const int last = min(first + kStepsPerBlock, nstep);
-  if (t < n) {
-    const float d = __ldg(dep + t);
-    const int l = __ldg(lidx + t);
-    for (int i = first; i < last; ++i) atomicAdd(bins + ((l + i) & (kCells - 1)), d);
+  const unsigned holding = __ballot_sync(kAllLanes, holds);
+  if (holds) {
+    const unsigned group = __match_any_sync(holding, l);
+    const bool leads = lane == __ffs(group) - 1;
+    const unsigned leaders = __ballot_sync(holding, leads);
+    if (leads) {
+      float sum = 0.0f;  // the group's weights in lane order
+      for (unsigned m = group; m != 0u; m &= m - 1u) sum += weights[warp * 32 + __ffs(m) - 1];
+      float* own = bins[warp];
+      const int first = blockIdx.y * steps;
+      const int last = min(first + steps, nstep);
+      for (int i = first; i < last; ++i) {
+        const int c = (l + i) & (kCells - 1);
+        own[c] = own[c] + sum;
+        __syncwarp(leaders);
+      }
+    }
+  }
+  __syncthreads();
+  const int blocks = gridDim.x * gridDim.y;
+  if (threadIdx.x < kCells) {
+    double s = 0.0;
+    for (int w = 0; w < kHistWarps; ++w) s += static_cast<double>(bins[w][threadIdx.x]);
+    rows[static_cast<size_t>(blockIdx.y * gridDim.x + blockIdx.x) * kCells + threadIdx.x] = s;
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) last_block = atomicAdd(ticket, 1u) == static_cast<unsigned>(blocks - 1);
+  __syncthreads();
+  if (!last_block) return;
+  // the last block: each of kHistParts threads a cell sums one run of rows in
+  // block order (kHistBatch rows read at once, then added in order), then
+  // thread c sums the runs in order and rounds once
+  const int cell = threadIdx.x & (kCells - 1), part = threadIdx.x / kCells;
+  if (part < kHistParts) {
+    const int per_part = (blocks + kHistParts - 1) / kHistParts;
+    const int first = part * per_part, last = min(first + per_part, blocks);
+    double s = 0.0;
+    for (int r0 = first; r0 < last; r0 += kHistBatch) {
+      double row[kHistBatch];
+#pragma unroll
+      for (int k = 0; k < kHistBatch; ++k) {
+        row[k] = r0 + k < last ? __ldcg(rows + static_cast<size_t>(r0 + k) * kCells + cell) : 0.0;
+      }
+#pragma unroll
+      for (int k = 0; k < kHistBatch; ++k) {
+        if (r0 + k < last) s += row[k];
+      }
+    }
+    parts[part][cell] = s;
   }
   __syncthreads();
   if (threadIdx.x < kCells) {
-    atomicAdd(sum + threadIdx.x, static_cast<double>(bins[threadIdx.x]));
+    double s = 0.0;
+    for (int p = 0; p < kHistParts; ++p) s += parts[p][threadIdx.x];
+    out[threadIdx.x] = static_cast<float>(s);
   }
-}
-
-__global__ void round_histogram_kernel(const double* __restrict__ sum, float* __restrict__ out) {
-  out[threadIdx.x] = static_cast<float>(sum[threadIdx.x]);
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 constexpr int kDdaThreads = 32;
@@ -258,19 +344,21 @@ int blocks(int threads) { return (threads + kThreads - 1) / kThreads; }
 
 }  // namespace
 
-// Zeroes sum[0, 128) (f64 scratch), launches K13h on `stream` (sum[(lidx[t]
-// + i) & 127] += dep[t] for t < n, i < nstep) and rounds sum into out[0,
-// 128).  Returns the first CUDA error (0 on success).
-extern "C" int cmi_shifted_histogram(const float* dep, const int* lidx, float* out, double* sum,
-                                     int n, int nstep, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t zeroed = cudaMemsetAsync(sum, 0, kCells * sizeof(double), s);
-  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-  if (n > 0 && nstep > 0) {
-    const dim3 grid(blocks(n), (nstep + kStepsPerBlock - 1) / kStepsPerBlock);
-    shifted_histogram_kernel<<<grid, kThreads, 0, s>>>(dep, lidx, sum, n, nstep);
-  }
-  round_histogram_kernel<<<1, kCells, 0, s>>>(sum, out);
+// Launches K13h on `stream`: out[0, 128) = the sums over t < n and i < nstep
+// of dep[t] at cell (lidx[t] + i) & 127.  rows: capacity f64 rows of 128
+// scratch, at least one a block of the grid (kernels/probe_deposit.py:
+// histogram_scratch sizes it); ticket: one unsigned, 0 before the launch and
+// 0 after it.
+// Returns cudaErrorInvalidValue where the scratch is too small, else
+// cudaGetLastError() (0 on success).
+extern "C" int cmi_shifted_histogram(const float* dep, const int* lidx, float* out,
+                                     double* rows, unsigned* ticket, int n, int nstep,
+                                     int capacity, void* stream) {
+  const HistogramGrid g = histogram_grid(n, nstep);
+  if (g.packet_blocks * g.step_blocks > capacity) return static_cast<int>(cudaErrorInvalidValue);
+  shifted_histogram_kernel<<<dim3(g.packet_blocks, g.step_blocks), kHistThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(dep, lidx, rows, ticket, out, n,
+                                                                  nstep, g.steps);
   return static_cast<int>(cudaGetLastError());
 }
 

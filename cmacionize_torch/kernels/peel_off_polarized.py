@@ -2,31 +2,28 @@
 (``csrc/peel_off_polarized.cu``).
 
 The wrapper checks what the kernel takes (one CUDA device, dtypes, lengths,
-contiguity), launches on PyTorch's current stream and raises if the launch
-was refused.  It allocates nothing: the four Stokes contributions are added
-into the I, Q, U, V planes it is handed, and τ and the pixel of each event
-are written only where the caller hands in tensors for them.
+contiguity) and launches through :mod:`kernels.launch` on PyTorch's current
+stream, raising if the launch was refused; the view's arrays are K8's, built
+once per view (``kernels/peel_off.py:view_arrays``).  It allocates nothing:
+the four Stokes contributions are added into the I, Q, U, V planes it is
+handed, and τ and the pixel of each event are written only where the caller
+hands in tensors for them.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from cmacionize_torch.kernels import LAUNCHES
-from cmacionize_torch.kernels.build import load_library
+from cmacionize_torch.kernels.launch import Launcher
 from cmacionize_torch.kernels.peel_off import check_inputs, view_arrays
 
 NAME = "peel_off_polarized"
+_PEEL_OFF_POLARIZED = Launcher(NAME, "cmi_peel_off_polarized", 17, 1, 7)
 
 
-def _launcher():
-    fn = load_library(NAME).cmi_peel_off_polarized
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def _pointer(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def peel_off_polarized_cuda(chi: torch.Tensor, position: torch.Tensor,
@@ -49,17 +46,13 @@ def peel_off_polarized_cuda(chi: torch.Tensor, position: torch.Tensor,
     expected += [(f"stokes{k}", torch.float32, n) for k in range(4)]
     expected += [("active", torch.bool, n), ("tau_out", torch.float32, n),
                  ("pix_out", torch.int32, n)]
-    device = check_inputs("peel_off_polarized_cuda", chi, planes, view, n, arrays, expected)
-    launch = _launcher()
-    view_f, view_i = view_arrays(view)
+    index = check_inputs("peel_off_polarized_cuda", chi, planes, view, n, arrays, expected)
     g = float(band.hgg)
-    band_f = (ctypes.c_float * 7)(1.0 - g * g, 1.0 + g * g, 2.0 * g, -float(band.pl),
-                                  -float(band.pc), float(band.sc) * 3.13, float(band.albedo))
-    pointers = [None if t is None else t.data_ptr() for t in (
-        chi, position, direction, nref, *stokes, active, *planes, tau_out, pix_out)]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = launch(*pointers, view_f, view_i, band_f, n, stream)
-    if err != 0:
-        raise RuntimeError(f"peel_off_polarized_cuda: CUDA error {err} at launch")
+    # the band's constants formed in double and rounded once to f32 by ctypes
+    _PEEL_OFF_POLARIZED(
+        index, chi.data_ptr(), position.data_ptr(), direction.data_ptr(), nref.data_ptr(),
+        *(s.data_ptr() for s in stokes), active.data_ptr(), *(p.data_ptr() for p in planes),
+        _pointer(tau_out), _pointer(pix_out), *view_arrays(view).addresses, n,
+        1.0 - g * g, 1.0 + g * g, 2.0 * g, -float(band.pl), -float(band.pc),
+        float(band.sc) * 3.13, float(band.albedo))
     LAUNCHES[NAME] += 1

@@ -10,8 +10,8 @@ launches in ``kernels.LAUNCHES`` under the wrapper's name.  There is no
 fallback between the two.  The wrappers check devices, dtypes and
 contiguity.
 
-K13f and K13e launch through :mod:`kernels.launch` (a launcher typed once,
-PyTorch's raw stream, identity checks of the tensors), the others through the
+K13h, K13f and K13e launch through :mod:`kernels.launch` (a launcher typed
+once, PyTorch's raw stream, identity checks of the tensors), K13w through the
 ctypes path of :mod:`kernels.gather`.
 """
 
@@ -21,7 +21,7 @@ import torch
 
 from cmacionize_torch.kernels import LAUNCHES
 from cmacionize_torch.kernels.gather import _check, _function, _launch
-from cmacionize_torch.kernels.launch import Launcher, check_one, check_pair
+from cmacionize_torch.kernels.launch import Launcher, check_one, check_pair, raw_stream
 from cmacionize_torch.ops.traversal import _fma
 
 NAME = "probe_deposit"
@@ -29,7 +29,14 @@ CELLS = 128
 DDA_THREADS = 32  # K13e's threads a block (csrc/probe_deposit.cu: kDdaThreads)
 _FILL_FIRST = Launcher(NAME, "cmi_fill_first", 2, 0)
 _DDA_MATH = Launcher(NAME, "cmi_dda_math", 3, 2)
+_SHIFTED_HISTOGRAM = Launcher(NAME, "cmi_shifted_histogram", 5, 3)
 HISTOGRAM_STEP_CHUNK = 128  # steps the plain histogram deposits per index_add_
+# K13h's grid (csrc/probe_deposit.cu: kHistThreads, kHistBlocks): blocks of
+# 1024 packets, the steps split while the grid has at most 128 blocks
+HISTOGRAM_THREADS, HISTOGRAM_BLOCKS = 1024, 128
+# K13h's scratch by (CUDA device index, raw stream): (f64 rows of 128, the
+# ticket, whether it was made in a CUDA graph's capture)
+_HISTOGRAM_SCRATCH: dict = {}
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -123,19 +130,68 @@ def _check_nstep(label, nstep):
         raise ValueError(f"{label}: nstep must lie in [0, 2^31 - 128); got {nstep}")
 
 
+def histogram_scratch(index: int, n: int) -> tuple:
+    """K13h's scratch on PyTorch's current stream of CUDA device ``index``
+    for ``n`` packets: f64 rows of 128, one a block of its grid (at most 128
+    blocks, or one a block of packets where there are more; grown as calls
+    need), and the ticket, zeroed on that stream with each new scratch; K13h
+    leaves the ticket at 0 after each launch.  A scratch made while the
+    stream was being captured into a CUDA graph was zeroed only in the
+    graph, so a call outside a capture makes its own."""
+    rows = max(HISTOGRAM_BLOCKS, -(-n // HISTOGRAM_THREADS))
+    key = (index, raw_stream(index))
+    kept = _HISTOGRAM_SCRATCH.get(key)
+    if kept is not None and kept[2] and not torch.cuda.is_current_stream_capturing():
+        kept = None
+    if kept is None or kept[0].shape[0] < rows:
+        device = torch.device("cuda", index)
+        kept = (torch.empty((rows, CELLS), dtype=torch.float64, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device),
+                torch.cuda.is_current_stream_capturing())
+        _HISTOGRAM_SCRATCH[key] = kept
+    return kept
+
+
+def check_shifted_histogram(dep: torch.Tensor, lidx: torch.Tensor, nstep: int) -> tuple:
+    """K13h's checks: (device index, n, nstep) of its launch, or ValueError.
+    ``dep`` f32 and ``lidx`` int32: contiguous, on one CUDA device, of one
+    shape (any number of dimensions) with fewer than 2^31 elements;
+    0 <= nstep < 2^31 - 128."""
+    index = check_pair("shifted_histogram", "dep", dep, torch.float32, dep.ndim, "lidx", lidx,
+                       torch.int32, None)
+    if dep.shape != lidx.shape:
+        raise ValueError(f"shifted_histogram: dep and lidx must have one shape; got "
+                         f"{list(dep.shape)} and {list(lidx.shape)}")
+    if dep.numel() >= 2**31:
+        raise ValueError("shifted_histogram: sizes must fit int32")
+    _check_nstep("shifted_histogram", nstep)
+    return index, dep.numel(), nstep
+
+
 def shifted_histogram(dep: torch.Tensor, lidx: torch.Tensor, nstep: int) -> torch.Tensor:
     """``out[c] = Σ_t Σ_{i<nstep} dep[t]·[(lidx[t] + i) mod 128 = c]``: dep
     f32 and lidx int32 of one shape (read flat), out f32 [128].  On the card
-    the sums are taken in the atomics' order, the blocks' partial sums added
-    in f64: exact for integer weights, within ~1e-7 otherwise."""
+    one launch sums each warp's deposits into f32 bins, the bins of a block
+    in f64, and the blocks' rows in f64 in a fixed order, then rounds once:
+    exact for integer weights, within ~1e-7 otherwise, and the same bits from
+    every call on the same inputs.
+
+    The scratch rows and the ticket are kept per device and stream
+    (:func:`histogram_scratch`): the calls of one stream run one after
+    another, and calls on two streams use scratches of their own.  A launch
+    that fails drops its stream's scratch, so no later call reads its
+    ticket."""
     if dep.device.type == "cpu":
         return shifted_histogram_reference(dep, lidx, nstep)
-    _check_pair("shifted_histogram", ("dep", "lidx"), dep, lidx, (torch.float32, torch.int32))
-    _check_nstep("shifted_histogram", nstep)
-    out = torch.empty(CELLS, dtype=torch.float32, device=dep.device)
-    scratch = torch.empty(CELLS, dtype=torch.float64, device=dep.device)
-    _launch("shifted_histogram", _function("cmi_shifted_histogram", 4, 2, NAME), dep, lidx, out,
-            scratch, dep.numel(), nstep)
+    index, n, nstep = check_shifted_histogram(dep, lidx, nstep)
+    out = dep.new_empty(CELLS)
+    rows, ticket, _ = histogram_scratch(index, n)
+    try:
+        _SHIFTED_HISTOGRAM(index, dep.data_ptr(), lidx.data_ptr(), out.data_ptr(),
+                           rows.data_ptr(), ticket.data_ptr(), n, nstep, rows.shape[0])
+    except RuntimeError:
+        _HISTOGRAM_SCRATCH.pop((index, raw_stream(index)), None)
+        raise
     LAUNCHES["shifted_histogram"] += 1
     return out
 

@@ -115,7 +115,8 @@ def _march_reference(pk, tally, chi_of, tally_index, *, shape, periodic, max_ste
     ``chi_of(pk, flat)`` gives each packet's opacity in its cell and
     ``tally_index(pk, flat)`` the tally slot of its deposit.  With ``stats``,
     ``stats["packet_steps"]`` receives the number of packet steps taken (a
-    device tensor); without it nothing is counted."""
+    device tensor) and ``stats["loop_steps"]`` the loop's iterations, the
+    most steps any packet took (an int); without it nothing is counted."""
     nx, ny, nz = shape
     if stats is not None:
         stats["packet_steps"] = torch.zeros((), dtype=torch.int64, device=tally.device)
@@ -191,6 +192,8 @@ def _march_reference(pk, tally, chi_of, tally_index, *, shape, periodic, max_ste
             absorbed=absorbed,
         )
         step += 1
+    if stats is not None:
+        stats["loop_steps"] = step
     return tally, pk
 
 

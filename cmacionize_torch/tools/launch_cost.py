@@ -5,24 +5,29 @@ For K11 (``gather``) and K11r (``gather2d``) of
 :mod:`cmacionize_torch.kernels.gather`, K12s
 (``sublane_gather``), K12t (``take_along_lanes``), K12r (``row_gather``) and
 K12a (``scatter_add``) of :mod:`cmacionize_torch.kernels.probe_gather`, K13f
-(``fill_first``) of :mod:`cmacionize_torch.kernels.probe_deposit` and K14c
+(``fill_first``) and K13h (``shifted_histogram``) of
+:mod:`cmacionize_torch.kernels.probe_deposit` and K14c
 (``stream_rows``) of :mod:`cmacionize_torch.kernels.probe_cohort`, and beside
 each the one PyTorch call of its function (``tbl[idx]``, ``tab[hi, lo]``,
 ``torch.gather``,
 ``torch.take_along_dim``, ``tab[idx]``, ``zeros`` + ``index_put_``,
-``dep.reshape(-1)[:1].expand(1, 128).clone()``, ``pk.clone()``, K14c's bytes
+``dep.reshape(-1)[:1].expand(1, 128).clone()``, ``torch.bincount`` on K13h's
+expanded cells (made outside the timed window), ``pk.clone()``, K14c's bytes
 bar its sum), at the tools' shapes (``tools/microbench_scatter.py``'s 2^20
 indices into 64³ for K11; ``tools/probe_pallas_gather.py``, K11r's flat 2D
 probe among them; ``tools/probe_deposit.py``'s [8, 128] packets;
 ``tools/probe_cohort_kernel.py``) and at a larger one (2^20 lookups, K11r's
 as 1D rows and lanes into [2048, 128]; K14c twice the tool's 7808 items;
-K11, whose tool's size is 2^20, and K13f, which reads one element, none):
+K11, whose tool's size is 2^20, K13f, which reads one element, and K13h,
+whose library call would expand 5.1e8 cells at 2^16 packets, none):
 
   (a) ms per call of 50 calls back to back between two CUDA events (the
       figure ``chip_smoke.py:time_cuda`` gives: the longer of the host's
       enqueue and the device's work);
   (b) ms per call on the device alone: 50 calls captured into a CUDA graph,
-      its replays timed with events;
+      its replays timed with events (``torch.bincount``, which reads its
+      input's largest value to the host and cannot be captured: its device
+      time in a ``torch.profiler`` window);
   (c) host µs per call: ``time.perf_counter_ns`` over many calls with no
       synchronise.  The host's clock is shared with other work, so each
       figure is the least per call over ``ROUNDS`` windows taken in turns
@@ -35,8 +40,8 @@ the ctypes path that the older wrappers use (``kernels/gather.py``:
 launch, the counter) on K12a, which stays on it as the control; those of
 :mod:`kernels.launch` (the wrapper's own checks, the output's allocation, the
 pointers, the raw stream, the current device, the typed ctypes call with and
-(where the launcher takes a count) without its launch, the counter) on K11,
-K11r, K12s, K12t, K12r and K13f.  K14c's calls are
+(where the launcher takes a count and launches nothing at 0) without its
+launch, the counter) on K11, K11r, K12s, K12t, K12r, K13f and K13h.  K14c's calls are
 bound by the device, so its host steps are not split; :func:`main` splits
 its device time by the name of each kernel, memset or copy in a
 ``torch.profiler`` window (``measure``, which ``chip_smoke.py`` calls, does
@@ -62,7 +67,7 @@ from cmacionize_torch.kernels.gather import _check, _function
 from cmacionize_torch.kernels.launch import current_device, raw_stream
 from cmacionize_torch.tools import probe_cohort_kernel as cohort_tool
 from cmacionize_torch.tools import probe_pallas_gather as tool
-from cmacionize_torch.tools.probe_deposit import march_inputs
+from cmacionize_torch.tools.probe_deposit import NSTEP, march_inputs, sublane_inputs
 
 LOOKUPS = 1 << 20  # the larger size of the gathers and K12a
 REPEATS = 50  # calls per timed window of (a) and (b)
@@ -71,6 +76,7 @@ ROUNDS = 5  # windows of (c) per call or step, taken in turns; the least counts
 WARM_UP = 200  # calls before the windows of (c)
 SEED = 1234
 HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12  # dense f32, no tensor cores
 # K14c moves 15 of an item's 16 rows in and 16 out: 31/16 of 4 bytes an element
 STREAM_ROWS_BYTES_PER_ELEMENT = 4 * 31 / 16
 SCATTER_SHAPE = (tool.SCATTER_N // 128, 128)  # K12a's output
@@ -97,11 +103,13 @@ KERNELS = {
     "K12r": (probe_gather.row_gather, lambda device: tool.b_row_gather(device)[1]),
     "K12a": (tool.scatter_add_probe, lambda device: tool.b_scatter_add(device)[1]),
     "K13f": (probe_deposit.fill_first, lambda device: march_inputs(device)[:1]),
+    "K13h": (probe_deposit.shifted_histogram, lambda device: (*sublane_inputs(device), NSTEP)),
     "K14c": (probe_cohort.stream_rows, cohort_tool.c_inputs),
 }
 LIBRARY = {"K11": "tbl[idx]", "K11r": "tab[hi, lo]", "K12s": "torch.gather",
            "K12t": "torch.take_along_dim", "K12r": "tab[idx]", "K12a": "zeros + index_put_",
-           "K13f": "dep.reshape(-1)[:1].expand(1, 128).clone()", "K14c": "pk.clone()"}
+           "K13f": "dep.reshape(-1)[:1].expand(1, 128).clone()", "K13h": "torch.bincount",
+           "K14c": "pk.clone()"}
 # the kernels on kernels/launch.py whose host steps are split: their
 # launchers, their wrappers' checks (the device index, then the launcher's
 # ints) and output allocations
@@ -118,6 +126,8 @@ NEW_PATH = {
              lambda a, idx: a.new_empty((idx.shape[0], a.shape[1]))),
     "K13f": (probe_deposit._FILL_FIRST, probe_deposit.check_fill_first,
              lambda dep: dep.new_empty(1, probe_deposit.CELLS)),
+    "K13h": (probe_deposit._SHIFTED_HISTOGRAM, probe_deposit.check_shifted_histogram,
+             lambda dep, lidx, nstep: dep.new_empty(probe_deposit.CELLS)),
 }
 OLD_PATH = "K12a"  # the control on the ctypes path of kernels/gather.py
 
@@ -166,6 +176,12 @@ def library_call(label: str, args: tuple):
     if label == "K13f":
         (dep,) = args
         return lambda: dep.reshape(-1)[:1].expand(1, probe_deposit.CELLS).clone()
+    if label == "K13h":
+        dep, lidx, nstep = args
+        steps = torch.arange(nstep, device=dep.device)[:, None]
+        cells = ((lidx.reshape(1, -1).long() + steps) % probe_deposit.CELLS).reshape(-1)
+        weights = dep.reshape(1, -1).expand(nstep, -1).reshape(-1).contiguous()
+        return lambda: torch.bincount(cells, weights, minlength=probe_deposit.CELLS)
     if label == "K11r":
         tab, rows, lanes = args
         return lambda: tab[rows, lanes]
@@ -185,7 +201,8 @@ def library_call(label: str, args: tuple):
 
 def bound_ms(label: str, args: tuple) -> float:
     """The least time an H100 SXM could take for the call (3.35 TB/s, NVIDIA's
-    data sheet): its inputs and output once each; of a gather's table, the
+    data sheet; K13h: the larger of that and its 3 operations a deposit at
+    67 TFLOP/s f32): its inputs and output once each; of a gather's table, the
     distinct 32-byte sectors that these lookups touch; of K14c's items, the 15
     rows that its output needs (row 2 out is row 0 + row 1) and the 16 it
     writes; of K13f's input, the one element it copies."""
@@ -193,6 +210,10 @@ def bound_ms(label: str, args: tuple) -> float:
         return STREAM_ROWS_BYTES_PER_ELEMENT * args[0].numel() / HBM_BYTES_PER_S * 1e3
     if label == "K13f":
         return 4 * (1 + probe_deposit.CELLS) / HBM_BYTES_PER_S * 1e3
+    if label == "K13h":  # operations: the cell and the addition of each deposit
+        dep, lidx, nstep = args
+        return max((8 * dep.numel() + 4 * probe_deposit.CELLS) / HBM_BYTES_PER_S,
+                   3 * dep.numel() * nstep / F32_OPS_PER_S) * 1e3
     if label == "K11r":  # 8 bytes of indices in and 4 out a lookup
         tab, rows, lanes = args
         sectors = int(torch.unique((rows.long() * tab.shape[1] + lanes).reshape(-1) // 8).numel())
@@ -350,6 +371,9 @@ def new_path_steps(label: str, args: tuple) -> dict:
     out = alloc(*args)
     stream = raw_stream(index)
     tensors = (*args, out)
+    if label == "K13h":  # its scratch rows and ticket, and their capacity
+        rows, ticket, _ = probe_deposit.histogram_scratch(index, ints[0])
+        tensors, ints = (*args[:2], out, rows, ticket), [*ints, rows.shape[0]]
     pointers = tuple(map(torch.Tensor.data_ptr, tensors))
     counts = collections.Counter()
 
@@ -363,7 +387,7 @@ def new_path_steps(label: str, args: tuple) -> dict:
         "raw stream": lambda: raw_stream(index),
         "current device": current_device,
     }
-    if ints:
+    if ints and label != "K13h":  # K13h launches a block at n = 0 too
         steps["ctypes, no launch"] = lambda: fn(*pointers, 0, *ints[1:], stream)
     steps["ctypes + launch"] = lambda: fn(*pointers, *ints, stream)
     steps["counter"] = counter
@@ -383,9 +407,14 @@ def measure(label: str, size: str, args: tuple, host_calls: int = 10_000) -> dic
     calls = {"wrapper": lambda: wrapper(*args), LIBRARY[label]: library_call(label, args)}
     host = host_us(calls, host_calls)
     record = {"bound_ms": bound_ms(label, args)}
-    print(f"launch_cost {label} {size}: bound {record['bound_ms']:.6f} ms (bytes)", flush=True)
+    print(f"launch_cost {label} {size}: bound {record['bound_ms']:.6f} ms "
+          f"({'operations' if label == 'K13h' else 'bytes'})", flush=True)
     for which, fn in calls.items():
-        record[which] = {"a_ms": per_call_ms(fn), "b_ms": graph_ms(fn), "c_us": host[which]}
+        # torch.bincount reads its input's largest value to the host, so no
+        # CUDA graph captures it: its (b) is its device time in a profiler
+        # window
+        b_ms = (sum(device_split(fn).values()) if which == "torch.bincount" else graph_ms(fn))
+        record[which] = {"a_ms": per_call_ms(fn), "b_ms": b_ms, "c_us": host[which]}
         print(f"launch_cost {label} {size} {which}: (a) {record[which]['a_ms']:.4f} ms per call; "
               f"(b) {record[which]['b_ms']:.4f} ms device only (CUDA graph); "
               f"(c) {host[which]:.3f} us host", flush=True)
@@ -405,7 +434,7 @@ def measure(label: str, size: str, args: tuple, host_calls: int = 10_000) -> dic
 # the larger size of each kernel (K11's tool is at 2^20 already; K13f, which
 # reads one element, has none)
 LARGER = {"K11": None, "K11r": LOOKUPS, "K12s": LOOKUPS, "K12t": LOOKUPS, "K12r": LOOKUPS,
-          "K12a": LOOKUPS, "K13f": None, "K14c": 2 * cohort_tool.NCHUNK * 8}
+          "K12a": LOOKUPS, "K13f": None, "K13h": None, "K14c": 2 * cohort_tool.NCHUNK * 8}
 
 
 def main() -> dict:

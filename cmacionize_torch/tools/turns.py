@@ -4,7 +4,9 @@ updates, K9p's host cost a call, and the walls of both runs; K3 on the
 starbench states and the launches of a starbench step; K6s on each march of
 the multi-frequency Voronoi run and that run's transport seconds; K2 on each
 launch of a lexington run; K10 on phase 32's final χ and the hunt for the
-lanes that phase 33's check refuses; K13e at the probe's shape.
+lanes that phase 33's check refuses; K13e at the probe's shape; K13h at
+the tools' shapes; every K8 and K8p launch of the dusty_galaxy runs, and
+the intensity run's wall of two checkouts in alternating pairs.
 
 Each mode runs one checkout, given by its root directory: the checkout's
 ``chip_smoke.py`` and ``cmacionize_torch`` are imported from there, so that
@@ -33,6 +35,11 @@ inputs in the temporary directory for the ``time`` modes of both::
     python3 cmacionize_torch/tools/turns.py k10-time LABEL ROOT
     python3 cmacionize_torch/tools/turns.py k10-study LABEL ROOT
     python3 cmacionize_torch/tools/turns.py k13e-time LABEL ROOT
+    python3 cmacionize_torch/tools/turns.py k13h-time LABEL ROOT
+    python3 cmacionize_torch/tools/turns.py k13h-parts LABEL ROOT
+    python3 cmacionize_torch/tools/turns.py k8-time LABEL ROOT
+    python3 cmacionize_torch/tools/turns.py k8-parts LABEL ROOT
+    python3 cmacionize_torch/tools/turns.py k8-wall LABEL ROOT OTHER_LABEL OTHER_ROOT [PAIRS]
 
 with ``--out FILE`` to append each JSON line to FILE as well.
 
@@ -90,11 +97,25 @@ with ``--out FILE`` to append each JSON line to FILE as well.
   candidate cell, the walk's share of a warp's cycles).
 - ``k13e-time`` times K13e at the probe's 1024 lanes × 7808 steps, with a
   clocked build's warp cycles a step and the SASS's opcode counts.
+- ``k13h-time`` times K13h at the tools' 1024 packets × 7808 steps and at
+  2^16 seeded packets ((a), (b), (c), the device split, ``torch.bincount``)
+  and holds its outputs to the plain version, to a second call and to an
+  earlier checkout's; ``k13h-parts`` times this checkout's K13h built with
+  a piece changed (64 or 256 blocks, no ``__syncwarp``).
+- ``k8-time`` times every K8 and K8p launch of one intensity and one
+  polarized dusty_galaxy run (in the run, back to back, on the device) with
+  its active events, the plain march's mean and largest steps, its bound,
+  and its τ and pixels against the plain version and an earlier checkout's;
+  ``k8-parts`` times this checkout's K8 and K8p with variants of the march
+  (8 steps a batch, IEEE walls); ``k8-wall`` times the intensity run's wall
+  of two checkouts in alternating pairs, each in a process of its own
+  (``k8-wall-worker``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -596,6 +617,13 @@ def variant_library(name: str, substitutions: dict, append: str = ""):
     package's nvcc flags, into the temporary directory; returns the loaded
     library, with its ``ptxas -v`` report and path as ``ptxas_log`` and
     ``path``."""
+    return variant_library_files(name, {f"{name}.cu": substitutions}, append)
+
+
+def variant_library_files(name: str, edits: dict, append: str = ""):
+    """``variant_library`` with the substitutions of each file of ``csrc/``
+    in ``edits`` (file name: substitutions), ``append`` added to
+    ``<name>.cu``."""
     import shutil
 
     from cmacionize_torch.kernels import build
@@ -603,13 +631,15 @@ def variant_library(name: str, substitutions: dict, append: str = ""):
     tmp = tempfile.mkdtemp(prefix=f"variant_{name}_")
     csrc = os.path.join(tmp, "csrc")
     shutil.copytree(build.CSRC_DIR, csrc)
+    for file, substitutions in {f"{name}.cu": {}, **edits}.items():
+        path = os.path.join(csrc, file)
+        text = open(path).read()
+        for old, new in substitutions.items():
+            assert old in text, f"{file}: {old!r} not found"
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text + (append if file == f"{name}.cu" else ""))
     source = os.path.join(csrc, f"{name}.cu")
-    text = open(source).read()
-    for old, new in substitutions.items():
-        assert old in text, f"{name}.cu: {old!r} not found"
-        text = text.replace(old, new)
-    with open(source, "w") as f:
-        f.write(text + append)
     target = os.path.join(tmp, f"lib{name}.so")
     proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", target, source],
                           capture_output=True, text=True, check=False)
@@ -1545,13 +1575,464 @@ def k13e_time(label, root):
                 out.cpu(), torch.load(_saved(other), weights_only=False))})
 
 
+# ------------------------------------------------------------------ K13h, K8, K8p
+
+def k13h_time(label, root):
+    """K13h at the tools' 1024 packets × 7808 steps (``[1024, 1]``, lidx
+    13t mod 128, unit weights) and at 2^16 seeded packets × 7808 steps: (a),
+    (b), (c) as ``tools/launch_cost.py`` takes them, the device time by kernel,
+    ``torch.bincount`` on the tools' expanded cells; each output held to the
+    plain version (exact on integer weights, per-cell rel err on random ones),
+    two calls against each other, and the outputs against a checkout timed
+    before it in the same call."""
+    cs = _load(root)
+    import numpy as np
+    import torch
+
+    from cmacionize_torch.kernels import build
+    from cmacionize_torch.kernels import probe_deposit as pd
+    from cmacionize_torch.tools import launch_cost as lc
+    from cmacionize_torch.tools import probe_deposit as tool
+
+    device = torch.device("cuda")
+    build.load_library("probe_deposit")
+    nstep = tool.NSTEP
+    rng = np.random.default_rng(cs.PARITY_SEED)
+    dep, lidx = tool.sublane_inputs(device)
+    cases = {"tools": (dep, lidx, "integer"),
+             "seeded 1024 integer": (*cs.histogram_inputs(rng, 1024, device, "integer"),
+                                     "integer"),
+             "seeded 65536 random": (*cs.histogram_inputs(rng, 1 << 16, device, "random"),
+                                     "random")}
+    outs = {}
+    for case, (d, l, weights) in cases.items():
+        def call():
+            return pd.shifted_histogram(d, l, nstep)
+
+        first, second = call(), call()
+        ref = pd.shifted_histogram_reference(d, l, nstep)
+        torch.cuda.synchronize()
+        rel = float(((first.double() - ref.double()).abs() / ref.double().abs()).max())
+        rec = {"label": label, "case": case, "packets": d.numel(), "steps": nstep,
+               "identical_to_plain": bool(torch.equal(first, ref)), "rel_err": rel,
+               "two_calls_identical": _bits_equal(first, second),
+               "a_ms": lc.per_call_ms(call), "b_ms": lc.graph_ms(call),
+               "c_us": lc.host_us({"w": call}, 2000 if d.numel() <= 1024 else 200)["w"],
+               "split_ms": lc.device_split(call)}
+        if case == "tools":
+            cells = ((l.reshape(1, -1).long() + torch.arange(nstep, device=device)[:, None])
+                     % 128).reshape(-1)
+            w = d.reshape(1, -1).expand(nstep, -1).reshape(-1).contiguous()
+
+            def library():
+                return torch.bincount(cells, w, minlength=128)
+
+            # bincount reads its input's largest value to the host, so no CUDA
+            # graph captures it: its device time comes from the profiler
+            rec["bincount"] = {"a_ms": lc.per_call_ms(library),
+                               "device_ms": sum(lc.device_split(library).values()),
+                               "c_us": lc.host_us({"w": library}, 500)["w"]}
+            del cells, w
+        if case == "tools" and "K13h" in getattr(lc, "NEW_PATH", {}):
+            rec["host_split_us"] = lc.host_us(lc.new_path_steps("K13h", (d, l, nstep)), 2000)
+        emit(rec)
+        outs[case] = first.cpu()
+    torch.save(outs, _saved(f"turns_k13h_out_{label}.pt"))
+    for other in os.listdir(tempfile.gettempdir()):
+        m = re.fullmatch(r"turns_k13h_out_(.+)\.pt", other)
+        if m and m.group(1) != label:
+            theirs = torch.load(_saved(other), weights_only=False)
+            emit({"label": label, "against": m.group(1),
+                  "identical": {k: _bits_equal(v, theirs[k]) for k, v in outs.items()
+                                if k in theirs}})
+
+
+K13H_PARTS = {
+    "at most 64 blocks": {"constexpr int kHistBlocks = 128;": "constexpr int kHistBlocks = 64;"},
+    "at most 256 blocks": {"constexpr int kHistBlocks = 128;": "constexpr int kHistBlocks = 256;"},
+    "no __syncwarp": {"        __syncwarp(leaders);\n": ""},
+}
+
+
+def k13h_parts(label, root):
+    """This checkout's K13h with each piece changed (:data:`K13H_PARTS`: a grid
+    of at most 64 or 256 blocks, the leaders' steps without a ``__syncwarp``)
+    at the tools' 1024 × 7808: (b) on the device alone, the outputs against
+    the plain version, registers."""
+    cs = _load(root)
+    import torch
+
+    from cmacionize_torch.kernels import build
+    from cmacionize_torch.kernels import probe_deposit as pd
+    from cmacionize_torch.tools import launch_cost as lc
+    from cmacionize_torch.tools import probe_deposit as tool
+
+    device = torch.device("cuda")
+    build.load_library("probe_deposit")
+    pd.histogram_scratch(torch.cuda.current_device(), 1024 * 1024)  # rows for larger grids
+    dep, lidx = tool.sublane_inputs(device)
+    seeded = cs.histogram_inputs(__import__("numpy").random.default_rng(7), 1024, device, "integer")
+    nstep = tool.NSTEP
+
+    def reading():
+        rec = {}
+        for case, (d, l) in {"tools": (dep, lidx), "seeded": seeded}.items():
+            out = pd.shifted_histogram(d, l, nstep)
+            rec[case] = {"b_ms": lc.graph_ms(lambda: pd.shifted_histogram(d, l, nstep)),
+                         "identical_to_plain": bool(torch.equal(
+                             out, pd.shifted_histogram_reference(d, l, nstep)))}
+        return rec
+
+    emit({"label": label, "piece": "kept", **reading(),
+          "layout": _ptxas_kernel(build.library_path("probe_deposit").with_suffix(".log")
+                                  .read_text(), "shifted_histogram_kernel")})
+    for piece, substitutions in K13H_PARTS.items():
+        library = variant_library("probe_deposit", substitutions)
+        with swapped_library(pd, "probe_deposit", library):
+            emit({"label": label, "piece": piece, **reading(),
+                  "layout": _ptxas_kernel(library.ptxas_log, "shifted_histogram_kernel")})
+
+
+def _dust(cs, device):
+    config = cs.dust_simulation.dust_config_from_params(cs.ParameterFile(cs.DUSTY_GALAXY_PARAMS))
+    return cs.dust_simulation.DustSimulation(config, device=device, seed=cs.DUST_SEED)
+
+
+def _k8_calls(cs, sim):
+    """Every K8 and K8p call of one intensity run and one polarized run of
+    dusty_galaxy, each timed in the run by CUDA events (synchronised before,
+    so the figure holds the call's host time as the device sees it), with
+    its inputs cloned: [(kernel, run, order, active, ms, args, kwargs)]."""
+    import torch
+
+    from cmacionize_torch.ops import peel_off
+
+    calls, run = [], ["intensity"]
+
+    def timed(kernel, original, active_at):
+        def wrapper(*args, **kwargs):
+            active = args[active_at]
+            n_active = int(active.sum())
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = original(*args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            calls.append((kernel, run[0], sum(c[1] == run[0] for c in calls), n_active,
+                          start.elapsed_time(end), _clone(args), dict(kwargs)))
+            return out
+        return wrapper
+
+    originals = (peel_off.peel_off_deposit, peel_off.peel_off_deposit_polarized)
+    peel_off.peel_off_deposit = timed("K8", originals[0], 3)
+    peel_off.peel_off_deposit_polarized = timed("K8p", originals[1], 5)
+    try:
+        sim.run()
+        run[0] = "polarized"
+        sim.run_polarized()
+    finally:
+        peel_off.peel_off_deposit, peel_off.peel_off_deposit_polarized = originals
+    return calls
+
+
+def _clone(args):
+    import torch
+
+    def one(a):
+        if torch.is_tensor(a):
+            return a.clone()
+        if isinstance(a, tuple) and a and torch.is_tensor(a[0]):
+            return tuple(t.clone() for t in a)
+        return a
+
+    return tuple(one(a) for a in args)
+
+
+def _replay(kernel, args, kwargs):
+    """A function of no arguments that makes the call again into scratch
+    images."""
+    import torch
+
+    from cmacionize_torch.ops import peel_off
+
+    if kernel == "K8":
+        chi, position, weight, active, ccd = args
+        scratch = torch.zeros_like(ccd)
+        return lambda: peel_off.peel_off_deposit(chi, position, weight, active, scratch, **kwargs)
+    chi, position, direction, nref, stokes, active, planes = args
+    scratch = tuple(torch.zeros_like(p) for p in planes)
+    return lambda: peel_off.peel_off_deposit_polarized(chi, position, direction, nref, stokes,
+                                                       active, scratch, **kwargs)
+
+
+def _k8_outputs(kernel, args, kwargs):
+    """(τ, pixel) of every event from the checkout's K8 / K8p wrapper."""
+    import torch
+
+    from cmacionize_torch.kernels.peel_off import peel_off_cuda
+    from cmacionize_torch.kernels.peel_off_polarized import peel_off_polarized_cuda
+
+    n = args[1].shape[0]
+    tau = torch.empty(n, device=args[1].device)
+    pix = torch.empty(n, dtype=torch.int32, device=args[1].device)
+    if kernel == "K8":
+        chi, position, weight, active, ccd = args
+        kw = dict(kwargs)
+        direction = kw.pop("direction", None)
+        peel_off_cuda(chi, position, direction, weight, active, torch.zeros_like(ccd),
+                      tau_out=tau, pix_out=pix, **kw)
+    else:
+        chi, position, direction, nref, stokes, active, planes = args
+        peel_off_polarized_cuda(chi, position, direction, nref, stokes, active,
+                                tuple(torch.zeros_like(p) for p in planes), tau_out=tau,
+                                pix_out=pix, **kwargs)
+    torch.cuda.synchronize()
+    return tau, pix
+
+
+def k8_time(label, root):
+    """Every K8 launch of phases 26-27 (the 11 of the intensity run, the
+    polarized run's emission) and K8p's 11, on dusty_galaxy (201³, 5e5
+    photons): each launch's time in the run (CUDA events), its time back to
+    back over 20 calls on its own inputs (``chip_smoke.py:time_cuda``, the
+    figure of PERF.md's table), its active events and the plain march's mean
+    and largest steps over them, the bound of each K8 launch
+    (``chip_smoke.py``'s operation counts), cycles a step where one event is
+    active; each launch's τ and pixels held to the plain version's and,
+    bit for bit, to a checkout timed before it in the same call."""
+    cs = _load(root)
+    import torch
+
+    from cmacionize_torch.kernels import build
+    from cmacionize_torch.ops import peel_off
+    from cmacionize_torch.tools import launch_cost as lc
+
+    device = torch.device("cuda")
+    for name in ("trace_packets", "peel_off", "peel_off_polarized"):
+        build.load_library(name)
+    sim = _dust(cs, device)
+    sim.run()
+    sim.run_polarized()  # warm
+    calls = _k8_calls(cs, sim)
+    clock = cs.sm_clock_hz()
+    view, chi = sim.view, sim.chi
+    npix = view.pixels[0] * view.pixels[1]
+    kept, totals = {}, {"K8": [0.0] * 4, "K8p": [0.0] * 4}
+    for kernel, run, order, n_active, ms_run, args, kwargs in calls:
+        active = args[3] if kernel == "K8" else args[5]
+        position = args[1]
+        stats = {}
+        peel_off.peel_off_tau_reference(chi, position[active], view=view, stats=stats)
+        steps = int(stats["packet_steps"])
+        ms = cs.time_cuda(_replay(kernel, args, kwargs), 20)
+        tau_k, pix_k = _k8_outputs(kernel, args, kwargs)
+        tau_r = peel_off.peel_off_tau_reference(chi, position, view=view)
+        pix_r = peel_off.ccd_pixel_reference(position, view=view)
+        n = position.shape[0]
+        if kernel == "K8":
+            per_active = 16 + (0 if kwargs.get("direction") is None else 12)
+            ops = cs.OPS_PER_K8_STEP * steps + cs.OPS_PER_K8_EVENT * n_active
+            if kwargs.get("direction") is not None:
+                ops += cs.OPS_PER_K8_PHASE * n_active
+            n_bytes = 4 * chi.numel() + n + per_active * n_active + 8 * npix
+        else:
+            ops = cs.OPS_PER_K8_STEP * steps + cs.OPS_PER_K8P_EVENT * n_active
+            n_bytes = 4 * chi.numel() + n + 52 * n_active + 32 * npix
+        bound = max(n_bytes / cs.HBM_BYTES_PER_S, ops / cs.F32_OPS_PER_S) * 1e3
+        key = f"{kernel} {run} {order}"
+        kept[key] = (tau_k.cpu(), pix_k.cpu(), float(position.sum()))
+        split = lc.device_split(_replay(kernel, args, kwargs), 10)
+        rec = {"label": label, "kernel": kernel, "run": run, "order": order, "active": n_active,
+               "ms_in_run": ms_run, "ms": ms, "packet_steps": steps,
+               "mean_steps": steps / max(n_active, 1), "max_steps": stats.get("loop_steps"),
+               "bound_ms": bound, "loss_ms": ms - bound, "device_ms": sum(split.values()),
+               "split_ms": split,
+               "tau_identical_to_plain": bool(torch.equal(tau_k[active], tau_r[active])),
+               "pix_identical_to_plain": bool(torch.equal(pix_k[active], pix_r[active]))}
+        if n_active == 1:
+            rec["cycles_a_step"] = ms * 1e-3 * clock / max(steps, 1)
+        totals[kernel][0] += ms
+        totals[kernel][1] += bound
+        totals[kernel][2] += ms_run
+        totals[kernel][3] += rec["device_ms"]
+        emit(rec)
+    emit({"label": label, "sums": {k: {"ms": v[0], "bound_ms": v[1], "loss_ms": v[0] - v[1],
+                                       "ms_in_run": v[2], "device_ms": v[3]}
+                                   for k, v in totals.items()},
+          "launches": {k: sum(c[0] == k for c in calls) for k in totals},
+          "layout": _kernel_registers("peel_off")})
+    torch.save(kept, _saved(f"turns_k8_out_{label}.pt"))
+    for other in os.listdir(tempfile.gettempdir()):
+        m = re.fullmatch(r"turns_k8_out_(.+)\.pt", other)
+        if m and m.group(1) != label:
+            theirs = torch.load(_saved(other), weights_only=False)
+            emit({"label": label, "against": m.group(1), "identical": {
+                key: (v[2] == theirs[key][2] and torch.equal(v[0], theirs[key][0])
+                      and torch.equal(v[1], theirs[key][1]))
+                for key, v in kept.items() if key in theirs}})
+
+
+K8_PARTS = {
+    "ahead 8": {"peel_march.cuh": {"constexpr int kAhead = 4;": "constexpr int kAhead = 8;"}},
+    "IEEE walls": {"peel_march.cuh": {
+        "walk<false>(w, ax, ay, az, g,": "walk<true>(w, ax, ay, az, g,"}},
+}
+
+
+def k8_parts(label, root):
+    """This checkout's K8 and K8p with each piece forced or changed, on every
+    call of one intensity and one polarized run: back to back over 20 calls
+    (``chip_smoke.py:time_cuda``), the device time in a profiler window (all
+    kernels, and the march's alone) and, for the emission and the last order,
+    the host µs a call; variants of the sources (:data:`K8_PARTS`) with their
+    registers, each call's τ and pixels held to the kept build's bit for bit;
+    the SASS's opcode counts of the kept build."""
+    cs = _load(root)
+    import torch
+
+    from cmacionize_torch.kernels import build
+    from cmacionize_torch.kernels import peel_off as k8
+    from cmacionize_torch.kernels import peel_off_polarized as k8p
+    from cmacionize_torch.tools import launch_cost as lc
+
+    device = torch.device("cuda")
+    for name in ("trace_packets", "peel_off", "peel_off_polarized"):
+        build.load_library(name)
+    sim = _dust(cs, device)
+    sim.run()
+    calls = _k8_calls(cs, sim)
+
+    def call_of(kernel, args, kwargs):
+        if kernel == "K8p":
+            chi, position, direction, nref, stokes, active, planes = args
+            scratch = tuple(torch.zeros_like(p) for p in planes)
+            return lambda: k8p.peel_off_polarized_cuda(chi, position, direction, nref, stokes,
+                                                       active, scratch, **kwargs)
+        kw = dict(kwargs)
+        chi, position, weight, active, ccd = args
+        scratch = torch.zeros_like(ccd)
+        direction = kw.pop("direction", None)
+        return lambda: k8.peel_off_cuda(chi, position, direction, weight, active, scratch, **kw)
+
+    def times(kernels=("K8", "K8p")):
+        row = []
+        for kernel, run, order, n_active, _, args, kwargs in calls:
+            if kernel not in kernels:
+                continue
+            call = call_of(kernel, args, kwargs)
+            split = lc.device_split(call, 10)
+            rec = {"kernel": kernel, "run": run, "order": order, "active": n_active,
+                   "ms": cs.time_cuda(call, 20), "device_ms": sum(split.values()),
+                   "march_ms": sum(v for k, v in split.items() if "peel_off" in k)}
+            if order in (0, 11) and run == "intensity":
+                rec["c_us"] = lc.host_us({"w": call}, 500)["w"]
+            row.append(rec)
+        return row
+
+    def same_outputs():
+        return all(torch.equal(a, b) for (kernel, *_, args, kwargs), outputs in
+                   zip(calls, kept_outputs) for a, b in zip(_k8_outputs(kernel, args, kwargs),
+                                                           outputs))
+
+    kept_outputs = [_k8_outputs(c[0], c[5], c[6]) for c in calls]
+    emit({"label": label, "piece": "kept", "launches": times()})
+    sass = _sass_counts(str(build.library_path("peel_off")), "peel_off_kernel")
+    emit({"label": label, "piece": "kept build", "layout": {
+        **_kernel_registers("peel_off"), **_kernel_registers("peel_off_polarized")},
+        "sass_counts": sass["counts"]})
+    for piece, edits in K8_PARTS.items():
+        names = ["peel_off"] + (["peel_off_polarized"] if "peel_march.cuh" in edits else [])
+        libraries = {name: variant_library_files(name, edits) for name in names}
+        with contextlib.ExitStack() as stack:
+            for name, module in (("peel_off", k8), ("peel_off_polarized", k8p)):
+                if name in libraries:
+                    stack.enter_context(swapped_library(module, name, libraries[name]))
+            emit({"label": label, "piece": piece,
+                  "launches": times(("K8", "K8p") if len(names) == 2 else ("K8",)),
+                  "same_outputs": same_outputs(),
+                  "layout": {name: _ptxas_kernel(lib.ptxas_log, f"{name}_kernel")
+                             for name, lib in libraries.items()}})
+
+
+def k8_wall(label, root, other_label, other_root, pairs="20"):
+    """The dusty_galaxy intensity run's wall (host clock, synchronised around
+    ``run()``) of the checkout at ROOT against the one at OTHER_ROOT, in
+    ``pairs`` alternating pairs (ROOT's run first in the even pairs, last in
+    the odd ones): each checkout in a process of its own (``k8-wall-worker``),
+    built and warmed by two runs before the first pair, the two never
+    running at once; each wall, each pair's difference (ROOT − OTHER), its
+    median and the pairs in which ROOT's run was faster."""
+    import statistics
+
+    workers = {who: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "k8-wall-worker", path],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        for who, path in ((label, root), (other_label, other_root))}
+
+    def reply(worker, tag):
+        for line in worker.stdout:
+            if line.startswith(tag):
+                return line[len(tag):].strip()
+        raise RuntimeError(f"k8-wall: a worker ended (rc {worker.wait()})")
+
+    walls = {label: [], other_label: []}
+    try:
+        for worker in workers.values():
+            reply(worker, "READY")
+        for i in range(int(pairs)):
+            for who in (label, other_label) if i % 2 == 0 else (other_label, label):
+                workers[who].stdin.write("run\n")
+                workers[who].stdin.flush()
+                walls[who].append(float(reply(workers[who], "WALL ")))
+    finally:
+        for worker in workers.values():
+            worker.stdin.close()
+        for worker in workers.values():
+            try:
+                worker.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                worker.kill()
+                worker.wait()
+    diffs = [a - b for a, b in zip(walls[label], walls[other_label])]
+    emit({"label": label, "against": other_label,
+          "piece": "intensity run walls (s), alternating pairs", "walls": walls, "diffs": diffs,
+          "median_diff": statistics.median(diffs),
+          "medians": {who: statistics.median(w) for who, w in walls.items()},
+          "pairs_faster": sum(d < 0 for d in diffs), "pairs": len(diffs)})
+
+
+def k8_wall_worker(root):
+    """``k8-wall``'s worker: the checkout at ROOT's dusty_galaxy, two warm
+    intensity runs, then one timed run for each line on its input, its wall
+    printed after ``WALL``."""
+    cs = _load(root)
+    import torch
+
+    from cmacionize_torch.kernels import build
+
+    for name in ("trace_packets", "peel_off"):
+        build.load_library(name)
+    sim = _dust(cs, torch.device("cuda"))
+    sim.run()
+    sim.run()
+    print("READY", flush=True)
+    for _ in sys.stdin:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run()
+        torch.cuda.synchronize()
+        print(f"WALL {time.perf_counter() - t0!r}", flush=True)
+
 MODES = {"k9c-capture": k9c_capture, "k9c-time": k9c_time, "k9p-host": k9p_host,
          "k7-capture": k7_capture, "k7-time": k7_time, "k7-wall": k7_wall,
          "sharded-wall": sharded_wall, "k3-capture": k3_capture, "k3-time": k3_time,
          "k6s-capture": k6s_capture, "k6s-time": k6s_time, "k6s-wall": k6s_wall,
          "k2-time": k2_time, "k2-wall": k2_wall, "k3-parts": k3_parts,
          "k10-hunt": k10_hunt, "k10-capture": k10_capture, "k10-study": k10_study,
-         "k10-time": k10_time, "k13e-time": k13e_time}
+         "k10-time": k10_time, "k13e-time": k13e_time, "k13h-time": k13h_time,
+         "k13h-parts": k13h_parts, "k8-time": k8_time, "k8-parts": k8_parts,
+         "k8-wall": k8_wall, "k8-wall-worker": k8_wall_worker}
 
 
 def main(argv=None) -> None:

@@ -3651,3 +3651,259 @@ def test_voronoi_flux_kernel_on_the_starbench_voronoi_grid(cuda):
         for name, a, b in zip(out_r._fields, out_r, out_k):
             assert bool(torch.isfinite(b).all()), name
             assert float((a - b).abs().max() / a.abs().max()) <= 1e-5, name
+
+
+# -- K13h in one launch, K8 in its order: the redesigns of K13h and K8 ---------------------------
+
+
+def _histogram_case(cuda, n, nstep, weights, seed=0, one_lane=None):
+    from cmacionize_torch.kernels import probe_deposit as pd
+
+    rng = np.random.default_rng(seed)
+    lidx = rng.integers(-300, 300, n) if one_lane is None else np.full(n, one_lane)
+    dep = rng.integers(-3, 4, n) if weights == "integer" else rng.uniform(0.0, 1.0, n)
+    dep = torch.tensor(dep.astype(np.float32), device=cuda)
+    lidx = torch.tensor(lidx.astype(np.int32), device=cuda)
+    kernels.LAUNCHES.clear()
+    out = pd.shifted_histogram(dep, lidx, nstep)
+    again = pd.shifted_histogram(dep, lidx, nstep)
+    ref = pd.shifted_histogram_reference(dep, lidx, nstep)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["shifted_histogram"] == 2 and out.shape == (128,)
+    # the ticket is reset: the second call sums the same rows in the same order
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    if weights == "integer" or nstep == 0 or n == 0:
+        assert torch.equal(out, ref)
+    else:
+        assert float(((out.double() - ref.double()).abs() / ref.double().abs()).max()) <= 1e-5
+    return out
+
+
+@pytest.mark.parametrize("n", [0, 1, 33, 1000, 1025, 2**16 + 7])
+@pytest.mark.parametrize("weights", ["integer", "random"])
+def test_shifted_histogram_in_one_launch_on_ragged_packets(cuda, n, weights):
+    out = _histogram_case(cuda, n, 7808, weights, seed=n)
+    if n == 0:
+        assert float(out.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("nstep", [0, 31, 61, 7809, 10_000])
+def test_shifted_histogram_in_one_launch_on_ragged_steps(cuda, nstep):
+    # ranges of steps that do not divide into the blocks' (32 at the least)
+    for weights in ("integer", "random"):
+        _histogram_case(cuda, 1024, nstep, weights, seed=nstep)
+
+
+@pytest.mark.parametrize("lane", [0, 127, -5])
+def test_shifted_histogram_warp_on_one_lane(cuda, lane):
+    # every lane of every warp in one group: one leader adds the group's sum
+    for weights in ("integer", "random"):
+        _histogram_case(cuda, 96, 7808, weights, seed=3, one_lane=lane)
+
+
+def test_shifted_histogram_on_the_tools_inputs_and_from_a_side_stream(cuda):
+    from cmacionize_torch.kernels import probe_deposit as pd
+    from cmacionize_torch.tools import probe_deposit as tool
+
+    dep, lidx = tool.sublane_inputs(cuda)
+    ref = pd.shifted_histogram_reference(dep, lidx, tool.NSTEP)
+    first = pd.shifted_histogram(dep, lidx, tool.NSTEP)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        second = pd.shifted_histogram(dep, lidx, tool.NSTEP)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(first, ref) and torch.equal(second, ref)
+
+
+def test_shifted_histogram_on_two_streams_at_once(cuda):
+    # each stream keeps its own scratch and ticket: calls left unordered
+    # between the streams still give the plain version's bits
+    from cmacionize_torch.kernels import probe_deposit as pd
+
+    rng = np.random.default_rng(11)
+    dep = torch.tensor(rng.integers(-3, 4, 2**16).astype(np.float32), device=cuda)
+    lidx = torch.tensor(rng.integers(0, 128, 2**16).astype(np.int32), device=cuda)
+    ref = pd.shifted_histogram_reference(dep, lidx, 7808)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = {0: [], 1: []}
+    for _ in range(8):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[k].append(pd.shifted_histogram(dep, lidx, 7808))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, ref) for k in outs for o in outs[k])
+
+
+def test_shifted_histogram_after_a_graph_capture_on_its_stream(cuda):
+    # a scratch made in a capture is zeroed only by the graph: a call outside
+    # the capture on that stream makes its own
+    from cmacionize_torch.kernels import probe_deposit as pd
+
+    rng = np.random.default_rng(12)
+    dep = torch.tensor(rng.integers(-3, 4, 4096).astype(np.float32), device=cuda)
+    lidx = torch.tensor(rng.integers(0, 128, 4096).astype(np.int32), device=cuda)
+    ref = pd.shifted_histogram_reference(dep, lidx, 500)
+    stream, graph = torch.cuda.Stream(), torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=stream):
+        captured = pd.shifted_histogram(dep, lidx, 500)
+    with torch.cuda.stream(stream):
+        eager = pd.shifted_histogram(dep, lidx, 500)
+    torch.cuda.synchronize()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(eager, ref) and torch.equal(captured, ref)
+
+
+def _k8_plain(sim, pos, direction, weight, active, **kw):
+    from cmacionize_torch.ops import peel_off
+
+    npix = sim.view.pixels[0] * sim.view.pixels[1]
+    ccd = torch.zeros(npix, device=pos.device)
+    factor = peel_off.peel_off_factor(weight, direction, view=sim.view, **kw)
+    tau, pix = peel_off.peel_off_deposit_reference(sim.chi, pos, factor, active, ccd,
+                                                   view=sim.view)
+    return tau, pix, ccd
+
+
+def _k8_against_plain(sim, pos, direction, weight, active, **kw):
+    from cmacionize_torch.kernels.peel_off import peel_off_cuda
+
+    n = pos.shape[0]
+    npix = sim.view.pixels[0] * sim.view.pixels[1]
+    ccd = torch.zeros(npix, device=pos.device)
+    tau = torch.full((n,), 7.0, device=pos.device)
+    pix = torch.full((n,), 7, dtype=torch.int32, device=pos.device)
+    peel_off_cuda(sim.chi, pos, direction, weight, active, ccd, view=sim.view, tau_out=tau,
+                  pix_out=pix, **kw)
+    tau_r, pix_r, ccd_r = _k8_plain(sim, pos, direction, weight, active, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(tau[active], tau_r[active]) and torch.equal(pix[active], pix_r[active])
+    assert bool((tau[~active] == 0).all()) and bool((pix[~active] == -1).all())
+    total = float(ccd_r.abs().sum())
+    assert float((ccd - ccd_r).abs().sum()) <= 1e-5 * total
+    return tau, pix, ccd
+
+
+@pytest.mark.parametrize("view", sorted(DUST_VIEWS))
+def test_peel_off_matches_plain_version(cuda, view):
+    kw = dict(DUST_VIEWS[view])
+    if view == "periodic":
+        kpc = 3.086e19
+        kw["geometry"] = GridGeometry((-12 * kpc, -16 * kpc, -10 * kpc),
+                                      (24 * kpc, 32 * kpc, 20 * kpc), (24, 32, 20),
+                                      (True, False, True))
+    sim = _dust_sim(cuda, **kw)
+    pos, d, _, stokes, active = _dust_events(sim, 11, 30_000, cuda)
+    kernels.LAUNCHES.clear()
+    for direction in (None, d):
+        _k8_against_plain(sim, pos, direction, stokes[0], active, albedo=0.67, hgg=0.44)
+    assert kernels.LAUNCHES["peel_off"] == 2
+
+
+@pytest.mark.parametrize("n_active", [0, 1])
+def test_peel_off_with_no_or_one_active_event(cuda, n_active):
+    from cmacionize_torch.kernels.peel_off import peel_off_cuda
+
+    sim = _dust_sim(cuda)
+    pos, d, _, stokes, active = _dust_events(sim, 13, 5000, cuda)
+    active = torch.zeros_like(active)
+    active[4321:4321 + n_active] = True
+    _, _, ccd = _k8_against_plain(sim, pos, d, stokes[0], active, albedo=0.67, hgg=0.44)
+    assert int((ccd != 0).sum()) == n_active
+    # the driver's call: no τ or pixel outputs
+    npix = sim.view.pixels[0] * sim.view.pixels[1]
+    ccd = torch.zeros(npix, device=cuda)
+    kernels.LAUNCHES.clear()
+    peel_off_cuda(sim.chi, pos, d, stokes[0], active, ccd, view=sim.view)
+    assert kernels.LAUNCHES["peel_off"] == 1
+    _, _, ccd_r = _k8_plain(sim, pos, d, stokes[0], active)
+    torch.cuda.synchronize()
+    assert float((ccd - ccd_r).abs().sum()) <= 1e-5 * max(float(ccd_r.abs().sum()), 1e-30)
+
+
+def test_peel_off_events_on_walls_and_the_box_edge(cuda):
+    sim = _dust_sim(cuda)
+    shape = torch.tensor(sim.view.shape, dtype=torch.float32)
+    rng = np.random.default_rng(17)
+    n = 4096
+    # on cell walls and corners, on the box's faces (0 and n), and just
+    # inside and outside of walls
+    cells = rng.integers(0, 41, (n, 3)).astype(np.float32)
+    pos = torch.tensor(cells).clamp(max=shape)
+    up, down = pos[n // 2: 3 * n // 4], pos[3 * n // 4:]
+    pos[n // 2: 3 * n // 4] = torch.nextafter(up, torch.full_like(up, np.inf))
+    pos[3 * n // 4:] = torch.nextafter(down, torch.full_like(down, -np.inf)).clamp(min=0.0)
+    pos = pos.to(cuda)
+    active = torch.ones(n, dtype=torch.bool, device=cuda)
+    weight = torch.full((n,), 1.0 / n, device=cuda)
+    _k8_against_plain(sim, pos, None, weight, active)
+
+
+def test_peel_off_with_the_driver_counts_at_full_size(cuda):
+    """dusty_galaxy at full size (201³, 5e5 photons): every K8 call of a run
+    held to the plain version (τ and pixels bit for bit, the image within
+    f32 round-off), and the driver's own call (no τ or pixel outputs) held
+    to the plain image; K8p's first and last orders."""
+    from cmacionize_torch.kernels.peel_off import peel_off_cuda
+    from cmacionize_torch.kernels.peel_off_polarized import peel_off_polarized_cuda
+    from cmacionize_torch.models import dust_simulation
+    from cmacionize_torch.models.dusty_galaxy import DUSTY_GALAXY_PARAMS
+    from cmacionize_torch.ops import peel_off
+
+    config = dust_simulation.dust_config_from_params(ParameterFile(DUSTY_GALAXY_PARAMS))
+    sim = dust_simulation.DustSimulation(config, device=cuda, seed=42)
+    calls, pol_calls = [], []
+    original, original_pol = peel_off.peel_off_deposit, peel_off.peel_off_deposit_polarized
+
+    def keep(*args, **kw):
+        calls.append((tuple(a.clone() for a in args[1:4]), dict(kw)))
+        return original(*args, **kw)
+
+    def keep_pol(*args, **kw):
+        pol_calls.append((args, dict(kw)))
+        return original_pol(*args, **kw)
+
+    peel_off.peel_off_deposit, peel_off.peel_off_deposit_polarized = keep, keep_pol
+    try:
+        sim.run()
+        pol_calls_run = sim.run_polarized()
+    finally:
+        peel_off.peel_off_deposit, peel_off.peel_off_deposit_polarized = original, original_pol
+    assert pol_calls_run is not None and len(calls) >= 3
+    view = sim.view
+    for (pos, weight, active), kw in calls:
+        kw = dict(kw)
+        direction = kw.pop("direction", None)
+        kw.pop("view")
+        tau_r, pix_r, ccd_r = _k8_plain(sim, pos, direction, weight, active, **kw)
+        tau = torch.empty(pos.shape[0], device=cuda)
+        pix = torch.empty(pos.shape[0], dtype=torch.int32, device=cuda)
+        ccd = torch.zeros(view.pixels[0] * view.pixels[1], device=cuda)
+        ccd_driver = torch.zeros_like(ccd)
+        peel_off_cuda(sim.chi, pos, direction, weight, active, ccd, view=view, tau_out=tau,
+                      pix_out=pix, **kw)
+        peel_off.peel_off_deposit(sim.chi, pos, weight, active, ccd_driver, view=view,
+                                  direction=direction, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(tau[active], tau_r[active])
+        assert torch.equal(pix[active], pix_r[active])
+        for image in (ccd, ccd_driver):
+            assert float((image - ccd_r).abs().sum()) <= 1e-5 * float(ccd_r.abs().sum())
+    for args, kw in (pol_calls[0], pol_calls[-1]):
+        chi, pos, d, nref, stokes, active, planes = args
+        tau = torch.empty(pos.shape[0], device=cuda)
+        pix = torch.empty(pos.shape[0], dtype=torch.int32, device=cuda)
+        peel_off_polarized_cuda(chi, pos, d, nref, stokes, active,
+                                tuple(torch.zeros_like(p) for p in planes), tau_out=tau,
+                                pix_out=pix, **kw)
+        tau_r = peel_off.peel_off_tau_reference(chi, pos, view=view)
+        pix_r = peel_off.ccd_pixel_reference(pos, view=view)
+        torch.cuda.synchronize()
+        assert torch.equal(tau[active], tau_r[active])
+        assert torch.equal(pix[active], pix_r[active])

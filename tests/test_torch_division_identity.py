@@ -143,3 +143,71 @@ def test_signed_zero_quotients_keep_their_sign():
     for s in (F32(0.5), F32(-0.5), F32(1e-9), F32(-1e-9)):
         got, want = _two_fma_quotient(F32(0.0), s), F32(0.0) / s
         assert got.view(np.int32) == want.view(np.int32), s
+
+
+def test_k8_march_takes_the_quotient_in_the_same_range():
+    source = (CSRC / "peel_march.cuh").read_text()
+    assert "constexpr float kLeastNumerator = 0x1p-64f;" in source
+    assert "constexpr float kGreatestNumerator = 2.0f;" in source
+    assert "__fmaf_rn(-s, q0, a)" in source and "__frcp_rn(" in source
+    assert "__fdiv_rn(" in source  # the batches whose numerators leave the range
+    # the range test on the bits: |a| in [2^-64, 2] exactly where
+    # bits(|a|) - bits(2^-64) <= bits(2) - bits(2^-64), unsigned
+    least = int(F32(2.0**-64).view(np.uint32))
+    span = int(F32(2.0).view(np.uint32)) - least
+    assert f"constexpr unsigned kLeastBits = {least:#010x}u;" in source
+    assert "constexpr unsigned kNumeratorSpan = 0x40000000u - kLeastBits;" in source
+    a = np.concatenate([F32([0.0, 2.0**-64, 2.0**-65, 2.0, 3.0, np.inf, np.nan]),
+                        np.nextafter(F32([2.0**-64, 2.0]), F32([0.0, 4.0])),
+                        np.random.default_rng(6).standard_normal(4000).astype(F32)])
+    bits = (a.view(np.uint32) & np.uint32(0x7FFFFFFF)).astype(np.uint64)
+    in_range = ((bits - least) % 2**32) <= span
+    with np.errstate(invalid="ignore"):
+        want = (np.abs(a) >= F32(2.0**-64)) & (np.abs(a) <= F32(2.0))
+    assert np.array_equal(in_range, want)
+
+
+def _k8_divisors(rng):
+    """The march direction's components of the dusty_galaxy observer
+    (θ = 89.7°, φ = 0, as the port's driver forms it), and seeded unit
+    directions with one component near 1e-12; only the components that the
+    march divides by (|s| > 1e-12)."""
+    from cmacionize_torch.ops.peel_off import observer_march_direction
+
+    theta = np.radians(89.7)
+    observer = (np.sin(theta), 0.0, np.cos(theta))
+    divisors = [np.asarray(observer_march_direction(observer), F32)]
+    for _ in range(100):
+        d = rng.normal(size=3)
+        d /= np.linalg.norm(d)
+        d[rng.integers(0, 3)] = rng.choice([-1.0, 1.0]) * rng.uniform(1.0, 8.0) * 1e-12
+        divisors.append(d.astype(F32))
+    divisors = np.concatenate(divisors)
+    return divisors[np.abs(divisors) > F32(1e-12)]
+
+
+@pytest.mark.parametrize("seed", [4, 5])
+def test_k8_wall_quotients_equal_ieee_division(seed):
+    rng = np.random.default_rng(seed)
+    divisors = _k8_divisors(rng)
+    theta = np.radians(89.7)
+    assert abs(divisors[1] - F32(np.cos(theta))) < 1e-6  # the observer's z component
+    assert (np.abs(divisors) < F32(1e-11)).sum() > 0
+    n = 2000
+    # wall - pos in cell units: a position in its cell (0 < a <= 1 toward
+    # the wall ahead), snapped onto the wall behind (a = ±1), just past the
+    # wall by round-off (a in [-1e-6, 0)), on the wall ahead (a = 0)
+    a = rng.uniform(-1e-6, 1.0, n).astype(F32)
+    cells = rng.integers(0, 201, n).astype(F32)
+    pos = cells + rng.uniform(0.0, 1.0, n).astype(F32)
+    a[: n // 4] = (cells[: n // 4] + F32(1.0)) - pos[: n // 4]
+    special = np.array([0.0, 2.0**-64, -(2.0**-64), 1.0, -1.0, np.nextafter(F32(1), F32(2)),
+                        np.nextafter(F32(1), F32(0)), -np.nextafter(F32(1), F32(2)),
+                        -np.nextafter(F32(1), F32(0)), 2.0**-63, 1e-6, -1e-6], F32)
+    a[: special.size] = special
+    # every numerator by the observer's components, by the seeded ones in
+    # turn, and the special numerators by every divisor
+    for s in divisors[:2]:
+        _assert_identity(a, np.full(n, s, F32))
+    _assert_identity(a, rng.choice(divisors[2:], n))
+    _assert_identity(np.tile(special, divisors.size), np.repeat(divisors, special.size))

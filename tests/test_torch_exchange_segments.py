@@ -357,4 +357,7 @@ def test_k7_binds_once_and_passes_its_arguments(monkeypatch, stand_in, second_or
     if second_order:  # the gradients are the records' floats [13, 28) as [5, C, 3]
         rows = record.view(C, 32)
         assert stats["gradients"].shape == (5, C, 3)
-        assert torch.equal(stats["gradients"][2, 7], rows[7, 19:22])
+        # the record is never written here (a stand-in library): its bits,
+        # which may hold a NaN, are compared, not its values
+        assert torch.equal(stats["gradients"][2, 7].view(torch.int32),
+                           rows[7, 19:22].view(torch.int32))

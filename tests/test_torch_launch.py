@@ -807,10 +807,11 @@ def test_launch_cost_bounds_count_each_byte_once():
 def test_launch_cost_splits_each_path_on_its_kernels():
     from cmacionize_torch.tools import launch_cost
 
-    assert set(launch_cost.NEW_PATH) == {"K11", "K11r", "K12s", "K12t", "K12r", "K13f"}
+    assert set(launch_cost.NEW_PATH) == {"K11", "K11r", "K12s", "K12t", "K12r", "K13f", "K13h"}
     assert launch_cost.OLD_PATH == "K12a" and launch_cost.OLD_PATH not in launch_cost.NEW_PATH
     assert set(launch_cost.KERNELS) == set(launch_cost.LIBRARY) == set(launch_cost.LARGER)
-    libraries = {"K11": "gather", "K11r": "gather", "K13f": "probe_deposit"}
+    libraries = {"K11": "gather", "K11r": "gather", "K13f": "probe_deposit",
+                 "K13h": "probe_deposit"}
     for label, (launcher, _, _) in launch_cost.NEW_PATH.items():
         assert isinstance(launcher, launch.Launcher)
         assert launcher.library == libraries.get(label, "probe_gather")
